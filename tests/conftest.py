@@ -24,6 +24,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy smoke test, skipped unless -m slow or RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (hand-written kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
