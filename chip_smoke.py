@@ -10,9 +10,12 @@ CUDA toolkit's nvcc.  It
    ``src/repro_torch/kernels/csrc`` (into ``build/kernels``);
 2. drives the main path -- an adaptive Helmholtz session (paper Example
    3.1) from 786,432 tets with incremental k-section balancing on 64
-   parts -- and checks that every kernel was launched during it;
+   parts -- and checks that every kernel was launched during it; its
+   first two steps run under torch.profiler, whose summary gives the
+   device's idle share and where the host time goes;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the session's last step, timing both with CUDA events;
+   shapes of the session, timing both by the device time torch.profiler
+   records (and, with host dispatch, by CUDA events);
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
@@ -24,6 +27,7 @@ Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before doing anything.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,16 +40,28 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-KS_TILE = 1024          # items per tile of the k-section histogram
+TRACED_STEPS = 2        # session steps run under the profiler
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def device_events(prof):
+    """The device-side events (kernels, memsets, copies) of a profile."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def timed_ms(fn, reps=20, warmup=3):
+    """(device ms, call ms) per call of ``fn`` on the card.
+
+    Device ms sums the durations of the device events that torch.profiler
+    records over ``reps`` calls, so host dispatch drops out.  Call ms is
+    CUDA events around ``reps`` back-to-back calls: it includes host
+    dispatch wherever that outlasts the device work."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -56,7 +72,38 @@ def cuda_ms(fn, reps=20, warmup=3):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    call_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    check(events, "torch.profiler recorded no device activity")
+    dev_us = sum(e.time_range.elapsed_us() for e in events)
+    return dev_us / 1e3 / reps, call_ms
+
+
+def trace_summary(label, prof, wall_s, top_host=8, top_dev=5):
+    """Device busy share of a profiled window, the host ops with the most
+    self time and the device kernels with the most time."""
+    from torch.autograd import DeviceType
+    host, dev = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = dev.get(e.name, (0.0, 0))
+            dev[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        elif e.device_type == DeviceType.CPU:
+            t, c = host.get(e.name, (0.0, 0))
+            host[e.name] = (t + e.self_cpu_time_total, c + 1)
+    busy_s = sum(t for t, _ in dev.values()) / 1e6
+    log(f"trace {label}: wall {wall_s:.4f} s, device busy {busy_s:.4f} s "
+        f"(summed event durations), idle share {1 - busy_s / wall_s:.4f}")
+    for kind, table, top in (("host self", host, top_host),
+                             ("device", dev, top_dev)):
+        for name, (t, c) in sorted(table.items(), key=lambda kv: -kv[1][0]
+                                   )[:top]:
+            log(f"  {kind} {t / 1e3:10.3f} ms  x{c:<6d} {name[:90]}")
 
 
 def nvidia_smi_line():
@@ -80,6 +127,7 @@ def check(cond, what):
 def run_session(dev, rounds=12, max_tets=3_000_000):
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import BalanceSpec
     from repro_torch.fem import (AdaptSpec, AdaptiveSession, cylinder_mesh,
                                  uniform_refine)
@@ -98,9 +146,21 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
     per_step = []
     balanced = {}      # the last repartition's coordinates (kernel shapes)
     hook_s = [0.0]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    window, traces = {}, []
+
+    def open_window():
+        window["prof"] = profile(activities=acts)
+        window["prof"].start()
+        window["t0"] = time.perf_counter()
 
     def on_step(stats, state):
         t_hook = time.perf_counter()
+        if state.step < TRACED_STEPS:
+            torch.cuda.synchronize()
+            window["prof"].stop()
+            traces.append((state.step, window["prof"], t_hook - window["t0"]))
+            window["prof"] = None
         per_step.append(dict(ops.launch_counts()))
         if state.repartitioned:
             balanced["coords"] = state.mesh.barycenters().astype(np.float32)
@@ -112,15 +172,21 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
             f"{stats.t_refine:.4f}s t_balance={stats.t_balance:.4f}s "
             f"repartitioned={stats.repartitioned} rounds="
             f"{state.balance_result.ksection_rounds if state.balance_result else None}"
-            f" keys={state.key_info['mode'] if state.key_info else None}")
+            f" keys={state.key_info['mode'] if state.key_info else None}"
+            f"{' (traced)' if state.step < TRACED_STEPS else ''}")
+        if state.step + 1 < TRACED_STEPS:
+            open_window()
         hook_s[0] += time.perf_counter() - t_hook
 
     session = AdaptiveSession(spec, device=dev, on_step=on_step)
     ops.reset_launch_counts()
+    open_window()
     t0 = time.perf_counter()
     res = session.run(mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - hook_s[0]
+    if window["prof"] is not None:      # fewer steps than TRACED_STEPS
+        window["prof"].stop()
     counts = ops.launch_counts()
     log(f"session: {len(res.stats)} steps in {wall:.2f} s (without this "
         f"script's per-step hook), "
@@ -130,6 +196,9 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
         log(f"  launches in step {i}: "
             f"{ {k: c[k] - prev[k] for k in c} }")
         prev = c
+    for step, prof, wall_s in traces:
+        trace_summary("session start to the end of step 0" if step == 0
+                      else f"step {step}", prof, wall_s)
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     errs = [s.err_l2 for s in res.stats]
@@ -183,26 +252,6 @@ def pad_pow2(keys, w):
             torch.cat([w, w.new_zeros(extra)]))
 
 
-def hist_ops(kf, cuts_seq):
-    """Compare-adds the histogram needs on these inputs under the tile
-    early-out (tiles of 1024 items against each cut array's range), two
-    operations each, plus one add per item of the tiles that count
-    whole."""
-    import torch
-    n = kf.shape[0]
-    n_t = -(-n // KS_TILE)
-    padded = torch.cat([kf, kf[-1:].expand(n_t * KS_TILE - n)])
-    tiles = padded.view(n_t, KS_TILE)
-    kmin, kmax = tiles.amin(dim=1), tiles.amax(dim=1)
-    total = 0
-    for c in cuts_seq:
-        cmin, cmax = c.min(), c.max()
-        merge = int(((kmax >= cmin) & (kmin < cmax)).sum())
-        below = int((kmax < cmin).sum())
-        total += 2 * merge * KS_TILE * c.shape[0] + below * KS_TILE
-    return total / len(cuts_seq)
-
-
 def recorded_cuts(kf, w, p, warm=None):
     """Every cut array a k-section search on (kf, w) hands its histogram."""
     from repro_torch.core import partition1d
@@ -231,11 +280,12 @@ def compare_sfc(coords_np, dev):
         got = sfc_keys_cuda(grid, curve=curve).to(torch.int64)
         want = plain(grid)
         check(torch.equal(got, want), f"sfc_keys {curve}: kernel != plain")
-        ms = cuda_ms(lambda: sfc_keys_cuda(grid, curve=curve))
-        plain_ms = cuda_ms(lambda: plain(grid), reps=5)
+        ms, call_ms = timed_ms(lambda: sfc_keys_cuda(grid, curve=curve))
+        plain_ms, plain_call_ms = timed_ms(lambda: plain(grid), reps=5)
         bound = 16 * n / PEAK_BYTES_PER_S * 1e3
-        log(f"sfc_keys[{curve}] n={n}: kernel_ms={ms:.4f} plain_ms="
-            f"{plain_ms:.4f} bound_ms={bound:.4f} equal=True")
+        log(f"sfc_keys[{curve}] n={n}: kernel_ms={ms:.4f} (call "
+            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
+            f"{plain_call_ms:.4f}) bound_ms={bound:.4f} equal=True")
         if curve == "hilbert":   # the main path's curve (method hsfc)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by="bytes", library_ms=None, max_abs_err=0.0)
@@ -251,18 +301,24 @@ def compare_hist(kf, w, p, label):
         got = ksection_hist_cuda(kf, w, c)
         want = ref.ksection_histogram_ref(kf, w, c)
         check(torch.equal(got, want), f"ksection_hist {label}: kernel != plain")
-    ms = cuda_ms(lambda: [ksection_hist_cuda(kf, w, c) for c in seq],
-                 reps=5) / len(seq)
-    plain_ms = cuda_ms(lambda: [ref.ksection_histogram_ref(kf, w, c)
-                                for c in seq], reps=5) / len(seq)
+    ms, call_ms = timed_ms(lambda: [ksection_hist_cuda(kf, w, c)
+                                    for c in seq], reps=5)
+    plain_ms, plain_call_ms = timed_ms(
+        lambda: [ref.ksection_histogram_ref(kf, w, c) for c in seq], reps=5)
+    r = len(seq)
+    ms, call_ms, plain_ms, plain_call_ms = (
+        ms / r, call_ms / r, plain_ms / r, plain_call_ms / r)
     n, m = kf.shape[0], seq[0].shape[0]
+    # least work: stream keys and weights once, read the cuts, write the
+    # sums; each item found among the sorted cuts by binary search
     t_bytes = (8 * n + 8 * m) / PEAK_BYTES_PER_S * 1e3
-    t_ops = hist_ops(kf, seq) / PEAK_FP32_PER_S * 1e3
+    t_ops = n * math.ceil(math.log2(m + 1)) / PEAK_FP32_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"ksection_hist[{label}] n={n} m={m} rounds={len(seq)}: kernel_ms="
-        f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}; "
-        f"bytes {t_bytes:.4f}, ops {t_ops:.4f}) equal=True per call")
+    log(f"ksection_hist[{label}] n={n} m={m} rounds={r}: kernel_ms="
+        f"{ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
+        f"{plain_call_ms:.4f}) bound_ms={bound:.4f} ({by}; bytes "
+        f"{t_bytes:.4f}, ops {t_ops:.4f}) equal=True per call")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None, max_abs_err=0.0)
 
@@ -285,20 +341,23 @@ def compare_matvec(mesh, dev):
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     check(err <= 1e-5 * scale, f"fem_matvec: max err {err} > 1e-5 * {scale}")
-    ms = cuda_ms(lambda: fem_matvec_cuda(tets, kel, u, V))
-    plain_ms = cuda_ms(lambda: ref.fem_matvec_kel_ref(tets, kel, u, V), reps=5)
+    ms, call_ms = timed_ms(lambda: fem_matvec_cuda(tets, kel, u, V))
+    plain_ms, plain_call_ms = timed_ms(
+        lambda: ref.fem_matvec_kel_ref(tets, kel, u, V), reps=5)
     # yardstick: the assembled operator as one cuSPARSE CSR product
     t = tets.long()
     rows = t[:, :, None].expand(C, 4, 4).reshape(-1)
     cols = t[:, None, :].expand(C, 4, 4).reshape(-1)
     A = torch.sparse_coo_tensor(torch.stack([rows, cols]), kel.reshape(-1),
                                 (V, V)).coalesce().to_sparse_csr()
-    lib_ms = cuda_ms(lambda: A @ u)
+    lib_ms, lib_call_ms = timed_ms(lambda: A @ u)
     lib_err = float(((A @ u) - want).abs().max())
     del A, rows, cols
     bound = (80 * C + 8 * V) / PEAK_BYTES_PER_S * 1e3
-    log(f"fem_matvec C={C} V={V}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"csr_spmv_ms={lib_ms:.4f} bound_ms={bound:.4f} max_abs_err={err:.3e} "
+    log(f"fem_matvec C={C} V={V}: kernel_ms={ms:.4f} (call {call_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) csr_spmv_ms="
+        f"{lib_ms:.4f} (call {lib_call_ms:.4f}) bound_ms={bound:.4f} "
+        f"max_abs_err={err:.3e} "
         f"(tolerance 1e-5 * max|y| = {1e-5 * scale:.3e}; csr err {lib_err:.3e})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=lib_ms, max_abs_err=err)
@@ -410,6 +469,7 @@ def main():
     kf, wf = pad_pow2(keys, torch.ones_like(keys))
     rows["ksection_hist"] = compare_hist(kf.contiguous(), wf.contiguous(),
                                          64, "p=64")
+    compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024")
     rows["fem_matvec"] = compare_matvec(res.mesh, dev)
     replay_balance(res, session, dev)
     standalone_dlb(dev)

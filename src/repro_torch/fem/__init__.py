@@ -16,4 +16,4 @@ from .mesh import Mesh, cylinder_mesh, kuhn_box_mesh, unit_cube_mesh
 from .problems import (HelmholtzProblem, ParabolicProblem, ProblemSetup,
                        get_problem, problem_names, register_problem)
 from .refine import coarsen, refine, uniform_refine
-from .solve import CGResult, owned_vdot, pcg, solve_dirichlet
+from .solve import CGResult, pcg, solve_dirichlet

@@ -25,19 +25,10 @@ class CGResult(NamedTuple):
 
 def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         diag: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-8,
-        maxiter: int = 2000,
-        vdot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
-        = None) -> CGResult:
-    """Standard PCG with Jacobi preconditioner M = diag.
-
-    ``vdot`` generalises the inner product (norms derive from it); the
-    default is ``torch.dot`` with ``vector_norm``."""
+        maxiter: int = 2000) -> CGResult:
+    """Standard PCG with Jacobi preconditioner M = diag."""
     inv_d = torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))
-    if vdot is None:
-        dot, norm = torch.dot, torch.linalg.vector_norm
-    else:
-        dot = vdot
-        norm = lambda v: torch.sqrt(torch.clamp(dot(v, v), min=0.0))  # noqa: E731
+    dot, norm = torch.dot, torch.linalg.vector_norm
 
     x = x0
     r = b - matvec(x0)
@@ -58,14 +49,6 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         rz = rz_new
         it += 1
     return CGResult(x, it, norm(r) / bnorm)
-
-
-def owned_vdot(owned_mask: torch.Tensor) -> Callable:
-    """Inner product for owned-layout vertex vectors: each shared dof
-    counted on its owner only."""
-    def dot(a, b):
-        return torch.where(owned_mask, a * b, 0.0).sum()
-    return dot
 
 
 def masked_operator(el: P1Elements, free: torch.Tensor, c: float, *,

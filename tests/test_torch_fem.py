@@ -172,15 +172,24 @@ def test_transfer_p1_matches():
                                   JF.transfer_p1(u, active, jm))
 
 
-def test_pcg_vdot_hook_matches_default():
-    """``pcg(vdot=owned_vdot(mask))`` with every dof owned is the default
-    inner product (the hook the owned layout will use)."""
-    jm, _, tel = _elements()
-    free = tadapt._free_mask(interop.mesh_from_numpy(jm), "cpu")
-    op, diag = TF.solve.masked_operator(tel, free, 1.0)
-    b = torch.where(free > 0, torch.ones_like(free), 0.0)
-    a = TF.pcg(op, b, diag, torch.zeros_like(b), tol=1e-6)
-    c = TF.pcg(op, b, diag, torch.zeros_like(b), tol=1e-6,
-               vdot=TF.owned_vdot(torch.ones_like(free, dtype=torch.bool)))
-    assert abs(a.iters - c.iters) <= 1
-    assert float((a.x - c.x).norm()) <= 1e-4 * float(a.x.norm())
+@pytest.mark.parametrize("maxiter", [5, 2000])
+def test_pcg_matches_reference_pcg(maxiter):
+    """The PCG loop alone, on one dense SPD system: same iterations (the
+    cap is honoured) and the same solution to float32 rounding."""
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((40, 40)).astype(np.float32)
+    a = (q @ q.T + 40.0 * np.eye(40)).astype(np.float32)
+    b = rng.standard_normal(40).astype(np.float32)
+    d = np.diag(a).copy()
+    ta, tb, td = (torch.as_tensor(x) for x in (a, b, d))
+    ja, jb, jd = (jnp.asarray(x) for x in (a, b, d))
+    got = TF.pcg(lambda v: ta @ v, tb, td, torch.zeros_like(tb), tol=1e-6,
+                 maxiter=maxiter)
+    want = JF.solve.pcg(lambda v: ja @ v, jb, jd, jnp.zeros_like(jb),
+                        tol=1e-6, maxiter=maxiter)
+    assert abs(got.iters - int(want.iters)) <= 1
+    assert got.iters <= maxiter
+    y = np.asarray(want.x)
+    assert np.linalg.norm(_np(got.x) - y) <= 1e-4 * np.linalg.norm(y)
+    if maxiter == 2000:
+        assert float(got.residual) <= 1e-6
