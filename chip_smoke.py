@@ -8,25 +8,40 @@ CUDA toolkit's nvcc.  It
 
 1. prints the card and builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` (into ``build/kernels``);
-2. drives the main path -- an adaptive Helmholtz session (paper Example
-   3.1) from 786,432 tets with incremental k-section balancing on 64
-   parts -- and checks that every kernel was launched during it; its
+2. drives the first main path -- an adaptive Helmholtz session (paper
+   Example 3.1) from 786,432 tets with incremental k-section balancing on
+   64 parts -- and checks that each of its kernels was launched; its
    first two steps run under torch.profiler, whose summary gives the
    device's idle share and where the host time goes; then replays each
    step of a smoke-size session on the CPU from the card's mesh;
-3. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the session, timing both by the device time torch.profiler
+3. holds the FEM path's kernels against their plain PyTorch versions at
+   the session's shapes, timing both by the device time torch.profiler
    records (and, with host dispatch, by CUDA events);
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
    msfc x sorted and k-section, kernels against plain versions;
-6. prints the kernel table as one JSON line, the card's name and power
-   limit, and ``{"ok": true, ...}`` as the last line.
+6. drives the second main path: the serving session at llama3-8b width
+   (random bf16 weights from a seed, 16 slots x 2048 tokens, 4 groups)
+   over a seeded 32-request bursty trace with packed prefill, replicated
+   decode and tag rebalancing, and prints throughput, TTFT, ITL,
+   admission rate, buffer fill, each rebalance and the peak memory;
+7. runs the trace again recorded, packed and with per-request ('full')
+   prefill, and holds the two against each other: first-token logits
+   within a stated bf16 tolerance, tokens equal up to a near-tie;
+8. runs a smoke-size packed session in float32 with the kernels on the
+   card and with the plain versions on the CPU, from the same weights;
+9. holds both attention kernels against their plain versions (with
+   SDPA's time as the yardstick) and profiles one packed admission plus
+   eight decode steps;
+10. prints the kernel table as one JSON line, the card's name and power
+    limit, and ``{"ok": true, ...}`` as the last line.
 
-Any failed check raises, and the script exits non-zero without the last
-line.  Without CUDA it exits 2 before doing anything.
+A failed check is printed and the run goes on to the next phase; at the
+end, any failure makes the script exit 1 without the last two lines.
+Without CUDA it exits 2 before doing anything.
 """
+import gc
 import json
 import math
 import os
@@ -200,8 +215,9 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
     for step, prof, wall_s in traces:
         trace_summary("session start to the end of step 0" if step == 0
                       else f"step {step}", prof, wall_s)
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in FEM_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "main path")
     errs = [s.err_l2 for s in res.stats]
     check(all(np.isfinite(e) for e in errs), "non-finite error")
     check(errs[-1] < errs[0], f"error did not fall under refinement: {errs}")
@@ -469,16 +485,427 @@ def standalone_dlb(dev, n=8_000_000):
 
 
 # ---------------------------------------------------------------------------
+# phases 6-9: the serving path at llama3-8b width
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_PER_S = 989e12    # dense bf16 tensor-core peak, H100 SXM
+SERVE_SPEC = dict(slots=16, groups=4, max_seq=2048, prefill="packed",
+                  prefill_capacity=2048, page_size=16, decode="replicated",
+                  rebalance="tags", rebalance_every=8)
+SERVE_TRACE = dict(seed=0, vocab=128256, prompt_buckets=(128, 256, 512, 1024),
+                   max_new_cap=64)
+# packed against full at full width, bf16: first-token logits within
+# BF16_TOL of the largest |logit| (about five bf16 steps at that size:
+# the two attention kernels sum in other orders and round once to bf16,
+# and the difference passes through 32 layers); a step whose top-2
+# logit margin is below that tolerance ends the token comparison
+BF16_TOL = 0.02
+# card against CPU at the smoke size, float32: 1e-4 of the largest |logit|
+F32_TOL = 1e-4
+SMOKE_SPEC = dict(slots=8, groups=4, max_seq=128, prefill="packed",
+                  prefill_capacity=128, page_size=16, decode="replicated",
+                  rebalance="tags", rebalance_every=4)
+SMOKE_TRACE = dict(seed=1, vocab=512, prompt_buckets=(8, 16, 32),
+                   max_new_cap=16)
+
+
+class Recorder:
+    """Wraps a session's prefill and generate stages to keep each
+    request's first-token logits and the top-2 logit margin of every
+    token it is given, and the segment ids of every packed buffer.  It
+    launches none of the port's kernels."""
+
+    def __init__(self, session):
+        from repro_torch.serve import Request
+        self.first, self.margin, self.packs = {}, {}, []
+        last = {}
+        s = session
+        if s._packed_prefill_fn is not None:
+            packed_fn = s._packed_prefill_fn
+
+            def packed(m, t, sg, ps, li):
+                out = packed_fn(m, t, sg, ps, li)
+                last["logits"] = out[0]
+                self.packs.append(sg.cpu().numpy())
+                return out
+            s._packed_prefill_fn = packed
+        full_fn = s._prefill_fn
+
+        def full(m, t):
+            out = full_fn(m, t)
+            last["logits"] = out[0]
+            return out
+        s._prefill_fn = full
+        stage = s._prefill
+
+        def prefill(sess, arg):
+            out = stage(sess, arg)
+            reqs = [arg] if isinstance(arg, Request) else [a[0] for a in arg]
+            lg = last["logits"].float()
+            top = lg.topk(2, dim=-1).values
+            for i, r in enumerate(reqs):
+                self.first[r.rid] = lg[i].cpu()
+                self.margin[r.rid] = [float(top[i, 0] - top[i, 1])]
+            return out
+        s._prefill = prefill
+        gen = s._generate
+
+        def generate(sess):
+            live = [(i, r) for i, r in enumerate(sess.active) if r is not None]
+            logits = gen(sess)
+            top = logits[:, -1].float().topk(2, dim=-1).values
+            marg = (top[:, 0] - top[:, 1]).tolist()
+            for i, r in live:
+                self.margin[r.rid].append(marg[i])
+            return logits
+        s._generate = generate
+
+
+def serve_run(model, cfg, dev, spec_kw, trace, record=False):
+    """One ``run_trace`` of a fresh session, the launch counts set to 0
+    just before it and read just after.  Returns (metrics, requests,
+    launch counts, peak bytes, recorder)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeSession, ServeSpec, run_trace
+    gc.collect()        # earlier sessions' caches must not count here
+    session = ServeSession(model, cfg, ServeSpec(**spec_kw), device=dev)
+    rec = Recorder(session) if record else None
+    reqs, submit = [], session.submit
+    session.submit = lambda r: (reqs.append(r), submit(r))[1]
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics = run_trace(session, trace)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+    check(metrics["completed"] == len(trace), "not every request finished")
+    check(all(len(r.out) == r.max_new for r in reqs), "output lengths")
+    del session.submit  # the wrapper refers back to the session
+    return metrics, reqs, counts, peak, rec
+
+
+def log_serve(label, m, counts, peak):
+    log(f"serve[{label}]: {m['requests']} requests, {m['steps']} steps, "
+        f"{m['tokens']} tokens in {m['wall_s']:.4f} s: throughput_tok_s="
+        f"{m['throughput_tok_s']:.2f} ttft_p50_s={m['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={m['ttft_p99_s']:.4f} itl_p50_s={m['itl_p50_s']:.4f} "
+        f"itl_p99_s={m['itl_p99_s']:.4f} admission_tok_s="
+        f"{m['admission_tok_s']:.2f} prefill_fill_frac="
+        f"{m['prefill_fill_frac']:.4f} prefill_calls={m['prefill_calls']} "
+        f"peak_mem_gb={peak / 1e9:.3f}")
+    for e in m["migration_log"]:
+        log(f"  rebalance at step {e['step']}: imbalance={e['imbalance']:.6f}"
+            f" TotalV={e['TotalV']:.1f} retained={e['retained']:.4f}")
+    log(f"  launches {counts}")
+
+
+def compare_recorded(label, reqs_a, rec_a, reqs_b, rec_b, rel_tol):
+    """First-token logits within ``rel_tol`` of the largest |logit|;
+    tokens equal up to the first one whose top-2 margin (in either run)
+    is below that tolerance.  Returns the largest first-logit error."""
+    worst, cut = 0.0, []
+    for ra, rb in zip(reqs_a, reqs_b):
+        check(ra.rid == rb.rid, f"{label}: request order")
+        la, lb = rec_a.first[ra.rid], rec_b.first[rb.rid]
+        tol = rel_tol * float(lb.abs().max())
+        err = float((la - lb).abs().max())
+        worst = max(worst, err / float(lb.abs().max()))
+        check(err <= tol, f"{label}: request {ra.rid} first-token logits "
+              f"differ by {err} > {tol}")
+        ma, mb = rec_a.margin[ra.rid], rec_b.margin[rb.rid]
+        check(len(ma) == len(ra.out) and len(mb) == len(rb.out),
+              f"{label}: margins recorded")
+        for t, (x, y) in enumerate(zip(ra.out, rb.out)):
+            if min(ma[t], mb[t]) < tol:
+                cut.append((ra.rid, t, len(ra.out)))
+                break
+            check(x == y, f"{label}: request {ra.rid} token {t}: {x} vs {y} "
+                  f"with top-2 margins {ma[t]:.4g} / {mb[t]:.4g} >= {tol:.4g}")
+    log(f"{label}: {len(reqs_a)} requests, first-token logits within "
+        f"{worst:.3e} of max|logit| (tolerance {rel_tol}); tokens equal "
+        f"except {len(cut)} requests cut short at a near-tie "
+        f"(rid, token, of): {cut}")
+    return worst
+
+
+def serve_full_width(dev):
+    """Phases 6-7: the llama3-8b-width session, packed (the main path),
+    then packed and full recorded and held against each other."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import bursty_trace
+    cfg = get_config("llama3_8b").replace(use_pallas=True)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"model {cfg.name}: {n} parameters ({n * 2 / 1e9:.2f} GB bf16), "
+        f"random from seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+    trace = bursty_trace(32, **SERVE_TRACE)
+    log(f"trace: {len(trace)} requests, prompts "
+        f"{sorted({len(r.prompt) for r in trace})}, "
+        f"{sum(len(r.prompt) for r in trace)} prompt tokens, "
+        f"{sum(r.max_new for r in trace)} new tokens, arrivals to step "
+        f"{trace[-1].arrival}")
+    # warm-up: first calls load modules and create library handles
+    warm = bursty_trace(3, **dict(SERVE_TRACE, seed=5, max_new_cap=4))
+    for prefill in ("packed", "full"):
+        serve_run(model, cfg, dev, dict(SERVE_SPEC, prefill=prefill), warm)
+    out = {"cfg": cfg, "model": model, "trace": trace}
+    m, reqs, counts, peak, _ = serve_run(model, cfg, dev, SERVE_SPEC, trace)
+    log_serve("packed, the main path", m, counts, peak)
+    check(counts["serve_prefill"] > 0, "serve_prefill was not launched")
+    out["packed"] = (m, counts)
+    mp, rp, cp, pp, recp = serve_run(model, cfg, dev, SERVE_SPEC, trace,
+                                     record=True)
+    same = [a.out for a in reqs] == [b.out for b in rp]
+    log(f"packed again, recorded: tokens equal to the first run: {same}")
+    mf, rf, cf, pf, recf = serve_run(model, cfg, dev,
+                                     dict(SERVE_SPEC, prefill="full"), trace,
+                                     record=True)
+    log_serve("full", mf, cf, pf)
+    check(cf["flash_attention"] > 0, "flash_attention was not launched")
+    out["full"] = (mf, cf)
+    out["fullest_pack"] = max(recp.packs, key=lambda sg: int((sg >= 0).sum()))
+    out["first_err"] = compare_recorded("packed vs full on the card", rp,
+                                        recp, rf, recf, BF16_TOL)
+    check(mp["migration_log"] == mf["migration_log"],
+          "packed and full rebalance differently")
+    return out
+
+
+def serve_card_vs_cpu(dev):
+    """Phase 8: SMOKE in float32, the same port weights on both sides; the
+    packed session with the kernels on the card against the plain
+    versions on the CPU."""
+    import copy
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.serve import bursty_trace
+    cfg = get_smoke("llama3_8b").replace(use_pallas=True)
+    cpu_model = init_model(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    trace = bursty_trace(24, **SMOKE_TRACE)
+    ma, ra, ca, _, reca = serve_run(card_model, cfg, dev, SMOKE_SPEC, trace,
+                                    record=True)
+    mb, rb, _, _, recb = serve_run(cpu_model, cfg, "cpu", SMOKE_SPEC, trace,
+                                   record=True)
+    check(ca["serve_prefill"] > 0, "smoke: serve_prefill was not launched")
+    compare_recorded("smoke card vs CPU (float32)", ra, reca, rb, recb,
+                     F32_TOL)
+    check(ma["migration_log"] == mb["migration_log"],
+          "smoke: rebalances differ between card and CPU")
+    log(f"smoke: {ma['steps']} steps, {ma['tokens']} tokens, "
+        f"{len(ma['migration_log'])} rebalances equal, prefill calls "
+        f"{ma['prefill_calls']} and {mb['prefill_calls']}")
+
+
+def attention_bound(pairs, hq, hkv, n, d, extra_bytes=0):
+    """(bound ms, by): 4 d flops per visible (query, key) pair and head
+    over the bf16 tensor-core peak, against q, k, v, o read or written
+    once (bf16) over the memory rate."""
+    t_ops = 4 * d * pairs / PEAK_BF16_PER_S * 1e3
+    t_bytes = (2 * (2 * hq + 2 * hkv) * n * d + extra_bytes) \
+        / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _bf16(shape, gen, dev):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def compare_flash(dev, s):
+    """The flash kernel against mha_ref at b = 1, 32 / 8 heads, d = 128,
+    causal, bf16; SDPA (causal, GQA) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=dev).manual_seed(s)
+    hq, hkv, d = 32, 8, 128
+    q = _bf16((1, hq, s, d), g, dev)
+    k, v = _bf16((1, hkv, s, d), g, dev), _bf16((1, hkv, s, d), g, dev)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = ref.mha_ref(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-2 * max(float(want.float().abs().max()), 1.0)
+    check(err <= tol, f"flash_attention s={s}: max err {err} > {tol}")
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().float() - want.float()).abs().max())
+    ms, call_ms = timed_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    plain_ms, plain_call = timed_ms(lambda: ref.mha_ref(q, k, v, causal=True),
+                                    reps=5)
+    lib_ms, lib_call = timed_ms(sdpa)
+    bound, by = attention_bound(hq * s * (s + 1) // 2, hq, hkv, s, d)
+    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal bf16: "
+        f"kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"(call {plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f})"
+        f" bound_ms={bound:.4f} ({by}) share={bound / ms:.4f} max_abs_err="
+        f"{err:.3e} (tolerance {tol:.3e}; sdpa err {lib_err:.3e})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err)
+
+
+def compare_packed(dev, seg_np):
+    """The packed kernel against packed_attention_ref on one packed buffer
+    of the session (32 / 8 heads, d = 128, bf16); SDPA with a boolean
+    segment-causal mask as the yardstick, compared on real rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.serve_prefill import packed_attention_cuda
+    C, hq, hkv, d = seg_np.shape[0], 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(C)
+    q = _bf16((hq, C, d), g, dev)
+    k, v = _bf16((hkv, C, d), g, dev), _bf16((hkv, C, d), g, dev)
+    seg = torch.as_tensor(seg_np, dtype=torch.int32, device=dev)
+    got = packed_attention_cuda(q, k, v, seg)
+    want = ref.packed_attention_ref(q, k, v, seg)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-2 * max(float(want.float().abs().max()), 1.0)
+    check(err <= tol, f"serve_prefill: max err {err} > {tol}")
+    real = seg >= 0
+    check(bool((got[:, ~real] == 0).all()), "serve_prefill: pad rows not 0")
+    i = torch.arange(C, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (seg[:, None] == seg[None, :]) \
+        & real[:, None]
+    qb, kb, vb = q[None], k[None], v[None]
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qb, kb, vb, attn_mask=mask, enable_gqa=True)
+    lib_err = float((sdpa()[0][:, real].float()
+                     - want[:, real].float()).abs().max())
+    ms, call_ms = timed_ms(lambda: packed_attention_cuda(q, k, v, seg))
+    plain_ms, plain_call = timed_ms(
+        lambda: ref.packed_attention_ref(q, k, v, seg), reps=5)
+    lib_ms, lib_call = timed_ms(sdpa)
+    _, lens = np.unique(seg_np[seg_np >= 0], return_counts=True)
+    pairs = hq * int(sum(n * (n + 1) // 2 for n in lens.tolist()))
+    bound, by = attention_bound(pairs, hq, hkv, C, d, extra_bytes=4 * C)
+    log(f"serve_prefill C={C} hq={hq} hkv={hkv} d={d} bf16, segments "
+        f"{lens.tolist()} ({int(real.sum())} real tokens): kernel_ms="
+        f"{ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
+        f"{plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f}) "
+        f"bound_ms={bound:.4f} ({by}) share={bound / ms:.4f} max_abs_err="
+        f"{err:.3e} (tolerance {tol:.3e}; sdpa err on real rows "
+        f"{lib_err:.3e})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err)
+
+
+def profile_serving(serve, dev):
+    """Phase 9: one packed admission (the trace's first eight requests,
+    one buffer) plus eight decode steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request, ServeSession, ServeSpec
+    session = ServeSession(serve["model"], serve["cfg"],
+                           ServeSpec(**SERVE_SPEC), device=dev)
+    for r in serve["trace"][:8]:
+        session.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            session.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(session.prefill_stats["calls"] == 1, "one packed admission")
+    trace_summary("one packed admission (8 x 128 tokens) + 8 decode steps",
+                  prof, wall, top_host=10, top_dev=8)
+
+
+# ---------------------------------------------------------------------------
+
+FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
+SRC = "src/repro_torch/kernels/csrc/"
+REPLACES = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
+            "ksection_hist": "src/repro/kernels/ksection_hist.py:95",
+            "fem_matvec": "src/repro/kernels/fem_matvec.py:108",
+            "flash_attention": "src/repro/kernels/flash_attention.py:84",
+            "serve_prefill": "src/repro/kernels/serve_prefill.py:109"}
+FAILED = []
+
+
+def phase(name, fn, *args):
+    """Run one phase; a failure is printed and recorded, and the script
+    goes on to the next phase so that one run shows every check.  Any
+    recorded failure makes the script exit non-zero at the end."""
+    log(f"== {name}")
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    except Exception as e:      # reported, and fails the run at the end
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        log(f"== {name}: FAILED ({e!r})")
+        FAILED.append(name)
+        return None
+    log(f"== {name}: done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def fem_kernel_rows(res, session, balanced, dev):
+    """Phases 3-5 of the FEM path: its kernels at the session's shapes,
+    the balance replay and the standalone DLB step."""
+    import torch
+    from repro_torch.core.sfc import sfc_keys
+    # keys and histogram at the shapes of the session's last
+    # repartition, the matvec at its last solve's
+    log(f"kernel shapes: keys and histogram from step {balanced['step']} "
+        f"(n={len(balanced['coords'])}), matvec from the last mesh")
+    rows = {}
+    rows["sfc_keys"], coords, lo, hi = compare_sfc(balanced["coords"], dev)
+    keys = sfc_keys(coords, lo, hi).to(torch.float32)
+    kf, wf = pad_pow2(keys, torch.ones_like(keys))
+    rows["ksection_hist"] = compare_hist(kf.contiguous(), wf.contiguous(),
+                                         64, "p=64")
+    compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024")
+    rows["fem_matvec"] = compare_matvec(res.mesh, dev)
+    replay_balance(res, session, dev)
+    standalone_dlb(dev)
+    return rows
+
+
+def attention_rows(serve, dev):
+    """Both attention kernels against their plain versions: flash at the
+    path's prompt length (128) and at 1024, packed on the session's
+    fullest buffer."""
+    import numpy as np
+    compare_flash(dev, 1024)
+    rows = {"flash_attention": compare_flash(dev, 128)}
+    seg = serve.get("fullest_pack") if serve else None
+    if seg is None:        # the recorded run failed: the first 8 prompts
+        seg = np.full(SERVE_SPEC["prefill_capacity"], -1, np.int32)
+        for i in range(8):
+            seg[128 * i:128 * (i + 1)] = i
+    rows["serve_prefill"] = compare_packed(dev, seg)
+    return rows
+
 
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import numpy as np
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
 
+    # float32 products in full float32 on the card (the PyTorch defaults,
+    # stated): the smoke-size comparison with the CPU relies on it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    t_start = time.perf_counter()
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -492,37 +919,40 @@ def main():
             if "registers" in line or "==" in line or "spill" in line:
                 log("  " + line.strip())
 
-    res, session, counts, balanced = run_session(dev)
-    small_session_agreement(dev)
-
-    # keys and histogram at the shapes of the session's last repartition,
-    # the matvec at its last solve's
-    log(f"kernel shapes: keys and histogram from step {balanced['step']} "
-        f"(n={len(balanced['coords'])}), matvec from the last mesh")
+    fem = phase("phase 2: the adaptive FEM session (main path 1)",
+                run_session, dev)
+    phase("phase 2b: small session, card against CPU",
+          small_session_agreement, dev)
     rows = {}
-    rows["sfc_keys"], coords, lo, hi = compare_sfc(balanced["coords"], dev)
-    from repro_torch.core.sfc import sfc_keys
-    keys = sfc_keys(coords, lo, hi).to(torch.float32)
-    kf, wf = pad_pow2(keys, torch.ones_like(keys))
-    rows["ksection_hist"] = compare_hist(kf.contiguous(), wf.contiguous(),
-                                         64, "p=64")
-    compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024")
-    rows["fem_matvec"] = compare_matvec(res.mesh, dev)
-    replay_balance(res, session, dev)
-    standalone_dlb(dev)
-
-    src = "src/repro_torch/kernels/csrc/"
-    replaces = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
-                "ksection_hist": "src/repro/kernels/ksection_hist.py:95",
-                "fem_matvec": "src/repro/kernels/fem_matvec.py:108"}
-    table = [dict(name=name, route="cuda", source=src + name + ".cu",
-                  replaces=replaces[name], launches=counts[name],
+    if fem is not None:
+        rows.update(phase("phases 3-5: FEM kernels, balance replay, "
+                          "standalone DLB", fem_kernel_rows, fem[0], fem[1],
+                          fem[3], dev) or {})
+    serve = phase("phases 6-7: serving at llama3-8b width (main path 2: "
+                  "packed; then packed against full)", serve_full_width, dev)
+    phase("phase 8: serving at smoke size, card against CPU",
+          serve_card_vs_cpu, dev)
+    rows.update(phase("phase 9a: attention kernels against plain versions",
+                      attention_rows, serve, dev) or {})
+    if serve is not None:
+        phase("phase 9b: profile of one packed admission and 8 decode steps",
+              profile_serving, serve, dev)
+    log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
+    if FAILED or fem is None or serve is None or len(rows) < len(REPLACES):
+        log(f"FAILED phases: {FAILED}")
+        return 1
+    # each path's launches, counted from 0 over its own run
+    launches = {**{k: fem[2][k] for k in FEM_KERNELS},
+                "serve_prefill": serve["packed"][1]["serve_prefill"],
+                "flash_attention": serve["full"][1]["flash_attention"]}
+    table = [dict(name=name, route="cuda", source=SRC + name + ".cu",
+                  replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
                   plain_ms=rows[name]["plain_ms"],
                   bound_ms=rows[name]["bound_ms"],
                   bound_by=rows[name]["bound_by"],
                   library_ms=rows[name]["library_ms"])
-             for name in ("sfc_keys", "ksection_hist", "fem_matvec")]
+             for name in REPLACES]
     log(json.dumps({"kernels": table}))
     log(card)
     log(json.dumps({"ok": True, "device": {

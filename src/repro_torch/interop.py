@@ -1,21 +1,27 @@
 """Carrying state between the JAX package and this one.
 
-The system has no weights; its state is data: the mesh (with its
-refinement forest and the per-leaf payloads -- parts, cached SFC keys)
-and the specs.  Specs cross through ``to_dict`` / ``from_dict``.  Meshes
-cross through the functions below, which copy arrays and never import
-the other package: ``mesh_from_numpy`` takes any object (or dict) with
-the ``Mesh`` fields, e.g. a ``repro.fem.Mesh``; ``mesh_to_numpy`` gives a
-plain dict from which the caller rebuilds a mesh of either package.
+The FEM side's state is data: the mesh (with its refinement forest and
+the per-leaf payloads -- parts, cached SFC keys) and the specs.  Specs
+cross through ``to_dict`` / ``from_dict``.  Meshes cross through the
+functions below, which copy arrays and never import the other package:
+``mesh_from_numpy`` takes any object (or dict) with the ``Mesh`` fields,
+e.g. a ``repro.fem.Mesh``; ``mesh_to_numpy`` gives a plain dict from
+which the caller rebuilds a mesh of either package.  The serving side's
+state is the model's weights: ``params_from_jax`` builds a port model
+from the JAX package's parameter tree.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .core.rtree import RefinementForest
 from .fem.mesh import Mesh
+from .models.config import ModelConfig
+from .models.model import init_model
+from .models.transformer import DecoderLM
 
 MESH_ARRAYS = ("verts", "node_tets", "node_tag", "node_mid", "leaf_nodes")
 FOREST_ARRAYS = ("parent", "child0", "child1")
@@ -62,3 +68,46 @@ def mesh_to_numpy(mesh: Mesh) -> Dict[str, Any]:
     out["leaf_payload"] = {k: np.array(v, copy=True)
                            for k, v in mesh.leaf_payload.items()}
     return out
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    """A leaf of the JAX package's parameter tree (a ``Boxed`` with its
+    ``value``, or a bare array) as a tensor.  bfloat16 arrays, which
+    numpy holds as an extension type torch cannot read, cross as their
+    16-bit patterns."""
+    a = np.asarray(getattr(leaf, "value", leaf))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
+                    ) -> DecoderLM:
+    """A port model holding copies of the JAX package's dense-decoder
+    parameters (``repro.models.init_model``'s tree: ``embed`` {tok,
+    head}, ``layers`` with every leaf stacked over the layers on axis 0,
+    ``ln_f``).  Leaves may be ``Boxed`` or bare arrays; the layouts are
+    the same in both packages, so nothing is transposed."""
+    model = init_model(cfg, seed=None, device=device)
+    dev = model.ln_f.device
+    layers = params["layers"]
+    with torch.no_grad():
+        model.embed.tok.copy_(_tensor(params["embed"]["tok"], dev))
+        model.embed.head.copy_(_tensor(params["embed"]["head"], dev))
+        model.ln_f.copy_(_tensor(params["ln_f"], dev))
+        stacked = {
+            "ln_attn": _tensor(layers["ln_attn"], dev),
+            "ln_mlp": _tensor(layers["ln_mlp"], dev),
+            **{f"attn.{k}": _tensor(v, dev)
+               for k, v in layers["attn"].items()},
+            **{f"mlp.{k}": _tensor(v, dev) for k, v in layers["mlp"].items()},
+        }
+        for li, block in enumerate(model.layers):
+            own = dict(block.named_parameters())
+            if set(own) != set(stacked):
+                raise ValueError(f"parameter names differ: port {sorted(own)}"
+                                 f", JAX {sorted(stacked)}")
+            for name, w in stacked.items():
+                own[name].copy_(w[li])
+    return model

@@ -18,7 +18,9 @@ from pathlib import Path
 from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu")
+SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu",
+           "flash_attention.cu", "serve_prefill.cu")
+HEADERS = ("attention_tile.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -36,7 +38,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -86,13 +88,20 @@ def build() -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
     lib.repro_sfc_keys.argtypes = [p, p, ll, i, i, p]
     lib.repro_sfc_keys.restype = i
     lib.repro_ksection_hist.argtypes = [p, p, ll, p, ll, p, i, p, p]
     lib.repro_ksection_hist.restype = i
     lib.repro_fem_matvec.argtypes = [p, p, ll, p, ll, p, ll, p]
     lib.repro_fem_matvec.restype = i
+    lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
+                                          i, i, p]
+    lib.repro_flash_attention.restype = i
+    lib.repro_packed_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
+                                           f, p]
+    lib.repro_packed_attention.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,117 @@
+// Blocked (flash) attention with causal and sliding-window masks and GQA:
+// q (b, hq, s, d), k / v (b, hkv, s, d) -> o (b, hq, s, d) in q's type,
+// float32 or bfloat16, accumulated in float32.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py::
+// flash_attention_pallas (_flash_kernel).
+//
+// What bounds it: the operations.  Causal attention over s tokens does
+// about 2 s^2 d multiply-adds per head against 4 s d values moved, so at
+// s = 1024, d = 128 it is far above the card's byte-to-flop line.  The TPU
+// kernel carries (acc, m, l) in VMEM across a sequential grid axis over
+// key blocks; Hopper CTAs run in parallel and in no order, so here one CTA
+// owns one (batch, head, 64-row query tile) and walks its key tiles in a
+// loop, keeping that state in registers (attention_tile.cuh has the tile
+// arithmetic).  Query head h reads kv head h / (hq / hkv): K/V are never
+// repeated in memory.  Key tiles wholly above the causal diagonal or
+// wholly outside the window are never loaded, since they contribute
+// exactly 0.  The TPU kernel needs s % 128 == 0; here the ragged last tile
+// is masked, so every s runs.  The arithmetic is float32 on CUDA cores: a
+// simple design that is right first (tensor cores are later work).
+
+#include "attention_tile.cuh"
+
+namespace {
+
+using namespace attn;
+
+struct FlashVisible {
+  int s, causal, window;   // window <= 0: none
+  __device__ __forceinline__ bool operator()(int i, int j) const {
+    if (j >= s || i >= s) return false;
+    if (causal && j > i) return false;
+    if (window > 0 && j <= i - window) return false;
+    return true;
+  }
+};
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
+             int s, int d, float scale, int causal, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<NC>& sm = *reinterpret_cast<Smem<NC>*>(smem_raw);
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t qoff = ((size_t)b * hq + h) * s * d;
+  const size_t koff = ((size_t)b * hkv + hk) * s * d;
+
+  load_q<T, NC>(sm, q + qoff + (size_t)q0 * d, min(BQ, s - q0), d, scale);
+  RowState<NC> st;
+  st.init();
+
+  int j_lo = 0, j_hi = s;
+  if (causal) j_hi = min(s, q0 + BQ);
+  if (window > 0) j_lo = max(0, q0 - window + 1) / BK * BK;
+  const FlashVisible vis{s, causal, window};
+  for (int j0 = j_lo; j0 < j_hi; j0 += BK) {
+    __syncthreads();   // the previous tile is consumed
+    load_kv<T, NC>(sm, k + koff + (size_t)j0 * d, v + koff + (size_t)j0 * d,
+                   min(BK, s - j0), d);
+    __syncthreads();
+    fold_tile<NC>(sm, st, warp, lane, q0 + warp * ROWS, j0, 0.f, vis);
+  }
+  store_rows<T, NC>(st, o + qoff, lane, q0 + warp * ROWS, s, d);
+}
+
+template <typename T, int NC>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int hq, int hkv, int s, int d, float scale, int causal,
+           int window, cudaStream_t stream) {
+  auto kern = flash_kernel<T, NC>;
+  const int bytes = (int)smem_bytes<NC>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((s + BQ - 1) / BQ, hq, b);
+  kern<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s, d, scale,
+      causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
+               int hq, int hkv, int s, int d, float scale, int causal,
+               int window, cudaStream_t st) {
+  switch ((d + 31) / 32) {
+    case 1: return launch<T, 1>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+    case 2: return launch<T, 2>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+    case 3: return launch<T, 3>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+    case 4: return launch<T, 4>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q: (b, hq, s, d); k, v: (b, hkv, s, d); o: (b, hq, s, d); all contiguous,
+// of one type: dtype 0 = float32, 1 = bfloat16.  hq % hkv == 0, 1 <= d <=
+// 128, window <= 0 for none.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_flash_attention(const void* q, const void* k,
+                                     const void* v, void* o, int b, int hq,
+                                     int hkv, int s, int d, int dtype,
+                                     float scale, int causal, int window,
+                                     void* stream) {
+  if (b <= 0 || s <= 0) return 0;
+  if (d < 1 || d > 128 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
+  return (int)cudaErrorInvalidValue;
+}

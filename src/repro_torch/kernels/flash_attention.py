@@ -1,0 +1,80 @@
+"""Wrapper of the hand-written flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+Replaces the TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_pallas``.  Its plain
+version is ``kernels.ref.mha_ref``; ``kernels.ops.flash_attention_op``
+chooses.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+
+#: tensor dtype -> the C entry's dtype code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_attention_inputs(fn: str, q, k, v, heads_axis: int) -> None:
+    """Raise unless q / k / v are contiguous CUDA tensors of one supported
+    type on one device, with head dim <= 128 and query heads a multiple
+    of the kv heads (``heads_axis`` is the heads dimension)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{fn} needs CUDA tensors; {name} is on "
+                             f"{t.device}")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"{fn}: q, k and v must share one dtype of "
+                             f"{list(DTYPES)}, got {name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"{fn}: q, k and v must be on one device")
+    if k.shape != v.shape:
+        raise ValueError(f"{fn}: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         "differ")
+    hq, hkv, d = q.shape[heads_axis], k.shape[heads_axis], q.shape[-1]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{fn}: {hq} query heads are not a multiple of "
+                         f"{hkv} kv heads")
+    if not 1 <= d <= 128 or k.shape[-1] != d:
+        raise ValueError(f"{fn}: head dim must be 1..128 and equal in q and "
+                         f"k, got {d} and {k.shape[-1]}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Attention on a CUDA device: q (b, hq, s, d), k / v (b, hkv, s, d),
+    float32 or bfloat16, contiguous.  Query head h reads kv head
+    ``h // (hq // hkv)``; key j is visible from query i iff ``j <= i``
+    (causal) and ``j > i - window`` (window).  Returns (b, hq, s, d) in
+    q's dtype.  Adds one to ``flash_attention_cuda.launches`` per launch."""
+    check_attention_inputs("flash_attention_cuda", q, k, v, heads_axis=1)
+    b, hq, s, d = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[2] != s:
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+            k.shape[1], s, d, DTYPES[q.dtype], scale, int(causal),
+            window or 0, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0

@@ -18,12 +18,16 @@ import torch
 
 from . import ref
 from .fem_matvec import fem_matvec_cuda
+from .flash_attention import flash_attention_cuda
 from .ksection_hist import ksection_hist_cuda
+from .serve_prefill import packed_attention_cuda
 from .sfc_keys import sfc_keys_cuda
 
 #: kernel name -> wrapper; each wrapper carries a ``launches`` count
 KERNELS = {"sfc_keys": sfc_keys_cuda, "ksection_hist": ksection_hist_cuda,
-           "fem_matvec": fem_matvec_cuda}
+           "fem_matvec": fem_matvec_cuda,
+           "flash_attention": flash_attention_cuda,
+           "serve_prefill": packed_attention_cuda}
 
 
 def use_kernel(x: torch.Tensor, use_pallas: Optional[bool]) -> bool:
@@ -72,6 +76,35 @@ def fem_matvec_op(tets: torch.Tensor, kel: torch.Tensor, u: torch.Tensor,
                                kel.to(torch.float32).contiguous(),
                                u.contiguous(), n_out)
     return ref.fem_matvec_kel_ref(tets, kel, u, n_out)
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """Blocked attention: q (b, hq, s, d), k / v (b, hkv, s, d) with the
+    kv heads unexpanded (query head h reads kv head h // (hq // hkv)).
+    Any s runs on either path."""
+    if use_kernel(q, use_pallas):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window)
+    return ref.mha_ref(q, k, v, causal=causal, window=window)
+
+
+def packed_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        seg: torch.Tensor, *, softcap: Optional[float] = None,
+                        scale: Optional[float] = None,
+                        use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """Segment-masked causal attention over one packed prefill buffer:
+    q (hq, C, d), k / v (hkv, C, d) unexpanded, seg (C,) request ids with
+    -1 = pad.  Rows with no visible key are exactly 0 on either path."""
+    if use_kernel(q, use_pallas):
+        return packed_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(),
+                                     seg.to(torch.int32).contiguous(),
+                                     softcap=softcap, scale=scale)
+    return ref.packed_attention_ref(q, k, v, seg, softcap=softcap,
+                                    scale=scale)
 
 
 def launch_counts() -> Dict[str, int]:

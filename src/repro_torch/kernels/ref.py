@@ -61,3 +61,66 @@ def fem_matvec_ref(tets: torch.Tensor, grads: torch.Tensor, vol: torch.Tensor,
     if c != 0.0:
         au = au + c * torch.einsum("ij,cj->ci", mass, ue) * vol[:, None]
     return segment_sum(au.reshape(-1), t.reshape(-1), n_out)
+
+
+# --- flash_attention -------------------------------------------------------
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: int | None = None,
+            scale: float | None = None) -> torch.Tensor:
+    """Reference attention.  q: (b, hq, s, d), k/v: (b, hkv, s, d).
+
+    GQA: query head h reads kv head h // (hq // hkv).  float32 softmax.
+    ``window``: key j visible from query i iff i - window < j (combined
+    with causal: j <= i)."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    kq = k.repeat_interleave(group, dim=1).to(f32)
+    vq = v.repeat_interleave(group, dim=1).to(f32)
+    logits = torch.einsum("bhid,bhjd->bhij", q.to(f32), kq) * scale
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    logits = torch.where(mask[None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhij,bhjd->bhid", p, vq).to(q.dtype)
+
+
+# --- serve_prefill ---------------------------------------------------------
+
+def packed_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         seg: torch.Tensor, *, softcap: float | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Segment-masked causal attention over one packed prefill buffer.
+
+    q: (hq, C, d); k/v: (hkv, C, d); seg: (C,) int32 request ids, -1 =
+    pad.  Key j is visible from query i iff j <= i and seg[i] == seg[j]
+    >= 0.  Rows that see no key (pad rows) are exactly 0.  float32
+    softmax; GQA by repeat, like ``mha_ref``."""
+    hq, C, d = q.shape
+    group = hq // k.shape[0]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    kq = k.repeat_interleave(group, dim=0).to(f32)
+    vq = v.repeat_interleave(group, dim=0).to(f32)
+    logits = torch.einsum("hid,hjd->hij", q.to(f32), kq) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    i = torch.arange(C, device=q.device)
+    seg = seg.to(q.device)
+    mask = ((i[None, :] <= i[:, None]) & (seg[:, None] == seg[None, :])
+            & (seg[:, None] >= 0))
+    logits = torch.where(mask[None], logits, -1e30)
+    p = torch.where(mask[None], torch.softmax(logits, dim=-1), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("hij,hjd->hid", p, vq)
+    out = torch.where(l > 0.0, out, 0.0)
+    return out.to(q.dtype)

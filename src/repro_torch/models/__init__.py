@@ -1,0 +1,6 @@
+"""LM substrate: the dense decoder of the JAX package's ``repro.models``."""
+from .config import ModelConfig
+from .model import init_model
+from .transformer import Block, DecoderLM
+
+__all__ = ["Block", "DecoderLM", "ModelConfig", "init_model"]

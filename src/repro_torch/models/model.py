@@ -1,0 +1,26 @@
+"""Model registry: family -> init.  Only the dense family is ported."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..device import resolve_device
+from . import transformer as T
+from .config import ModelConfig
+
+
+def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
+               ) -> T.DecoderLM:
+    """A model of ``cfg`` on ``device`` (default CUDA) with random weights
+    from a ``torch.Generator`` seeded with ``seed`` on that device (the
+    same seed gives other numbers on another device); ``seed=None`` leaves
+    the weights uninitialised, to be loaded."""
+    dev = resolve_device(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1, "
+            "item 10); the port runs the dense family")
+    gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        return T.DecoderLM(cfg, dev, gen)

@@ -15,9 +15,12 @@ import torch
 from repro_torch.core import Balancer, BalanceSpec
 from repro_torch.fem import AdaptiveSession, AdaptSpec, cylinder_mesh
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels.fem_matvec import (fem_element_matrices,
                                             fem_matvec_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
 from repro_torch.telemetry import block_until_ready
 
@@ -129,10 +132,169 @@ def test_session_on_card_launches_all_kernels_and_tracks_cpu(cuda):
     ops.reset_launch_counts()
     a = AdaptiveSession(spec, device=cuda).run(
         cylinder_mesh(8, 2, length=4.0, radius=0.5))
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("sfc_keys", "ksection_hist",
+                                       "fem_matvec"))
     b = AdaptiveSession(spec, device="cpu").run(
         cylinder_mesh(8, 2, length=4.0, radius=0.5))
     assert a.n_repartitions == b.n_repartitions
     for x, y in zip(a.stats, b.stats):
         assert abs(x.n_tets - y.n_tets) <= 0.01 * y.n_tets
         assert abs(x.err_l2 - y.err_l2) <= 0.02 * y.err_l2
+
+
+# --- attention kernels -------------------------------------------------------
+# Tolerances: float32 inputs agree with the plain version to float32
+# rounding of differently ordered sums (2e-5 of the output scale); bf16
+# outputs are rounded once to bf16 (8 mantissa bits), so within 1e-2.
+
+def _tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 1e-2
+
+
+def _qkv(rng, qshape, kshape, dtype, device):
+    return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                                 device=device).to(dtype)
+                 for sh in (qshape, kshape, kshape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 32, 8, 1024, 128, True, None),     # the full prefill's shape
+    (2, 4, 2, 77, 16, True, None),         # ragged s, GQA, SMOKE head dim
+    (1, 4, 4, 200, 64, False, None),       # no mask
+    (1, 6, 2, 130, 100, True, 40),         # window, d not a multiple of 32
+    (1, 2, 1, 1, 8, True, None),           # one token
+    (1, 4, 1, 96, 32, False, 17),          # window without causal
+])
+def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
+                                      window):
+    rng = np.random.default_rng(s + d)
+    q, k, v = _qkv(rng, (b, hq, s, d), (b, hkv, s, d), dtype, cuda)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.mha_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(dtype) * max(float(want.float().abs().max()), 1.0), err
+
+
+def _pack(rng, C, lengths, gap):
+    """Segment ids for requests of ``lengths`` packed in order, each
+    followed by ``gap`` pad tokens; the tail is pad."""
+    seg = np.full(C, -1, np.int32)
+    off = 0
+    for sid, ln in enumerate(lengths):
+        seg[off:off + ln] = sid
+        off += ln + gap
+    return seg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,hq,hkv,d,lengths,gap,softcap", [
+    (2048, 32, 8, 128, (1024, 512, 256, 128, 100), 12, None),
+    (100, 4, 2, 16, (3, 50, 9), 1, None),          # ragged C, pad gaps
+    (256, 4, 1, 64, (200,), 0, 30.0),             # softcap, GQA 4:1
+    (130, 2, 2, 48, (1, 1, 70), 3, 5.0),
+    (64, 2, 1, 16, (), 0, None),                  # all pad
+])
+def test_packed_attention_kernel_close(cuda, dtype, C, hq, hkv, d, lengths,
+                                       gap, softcap):
+    rng = np.random.default_rng(C + d)
+    q, k, v = _qkv(rng, (hq, C, d), (hkv, C, d), dtype, cuda)
+    seg = torch.as_tensor(_pack(rng, C, lengths, gap), device=cuda)
+    before = packed_attention_cuda.launches
+    got = ops.packed_attention_op(q, k, v, seg, softcap=softcap)
+    assert packed_attention_cuda.launches == before + 1
+    want = ref.packed_attention_ref(q, k, v, seg, softcap=softcap)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _tol(dtype) * max(float(want.float().abs().max()), 1.0), err
+    pad = seg < 0
+    assert bool((got[:, pad] == 0).all())       # pad rows exactly 0
+
+
+def test_attention_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q, torch.zeros((1, 3, 8, 16), device=cuda),
+                             torch.zeros((1, 3, 8, 16), device=cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 1, 8, 256), device=cuda)
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="int32"):
+        packed_attention_cuda(q[0], q[0], q[0],
+                              torch.zeros(8, dtype=torch.int64, device=cuda))
+
+
+# --- the serving path on the card --------------------------------------------
+# float32 at the smoke size, the same weights on both sides: the card runs
+# the kernels, the CPU the plain versions; logits agree to 1e-4 of their
+# largest value (float32 sums in other orders).
+
+def _smoke_models(cuda):
+    import copy
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    cfg = get_smoke("llama3_8b").replace(use_pallas=True)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def test_prefills_on_card_match_cpu(cuda):
+    from repro_torch.serve import decode
+    cfg, cpu, card = _smoke_models(cuda)
+    rng = np.random.default_rng(2)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 37)))
+    before = flash_attention_cuda.launches
+    lc, kc = decode.decoder_prefill(card, tok.to(cuda), cfg, max_seq=64)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    lp, kp = decode.decoder_prefill(cpu, tok, cfg, max_seq=64)
+    err = float((lc.cpu() - lp).abs().max())
+    assert err <= 1e-4 * float(lp.abs().max()), err
+    assert torch.allclose(kc.k.cpu(), kp.k, atol=1e-5)
+    C = 96
+    seg = np.full(C, -1, np.int32)
+    pos = np.zeros(C, np.int32)
+    for sid, (off, ln) in enumerate([(0, 30), (32, 17), (64, 25)]):
+        seg[off:off + ln] = sid
+        pos[off:off + ln] = np.arange(ln)
+    last = torch.as_tensor([29, 48, 88])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, C))
+    args = [torch.as_tensor(a) for a in (seg, pos)]
+    before = packed_attention_cuda.launches
+    lc, ksc, _ = decode.packed_prefill(card, toks.to(cuda),
+                                       *(a.to(cuda) for a in args),
+                                       last.to(cuda), cfg)
+    assert packed_attention_cuda.launches == before + cfg.n_layers
+    lp, ksp, _ = decode.packed_prefill(cpu, toks, *args, last, cfg)
+    err = float((lc.cpu() - lp).abs().max())
+    assert err <= 1e-4 * float(lp.abs().max()), err
+    assert torch.allclose(ksc.cpu(), ksp, atol=1e-5)
+
+
+@pytest.mark.parametrize("prefill", ["packed", "full"])
+def test_serve_session_on_card_matches_cpu(cuda, prefill):
+    from repro_torch.serve import ServeSession, ServeSpec, bursty_trace, run_trace
+    cfg, cpu, card = _smoke_models(cuda)
+    kw = dict(slots=8, groups=4, max_seq=128, prefill=prefill,
+              prefill_capacity=128, page_size=16, decode="replicated",
+              rebalance="tags", rebalance_every=4)
+    outs, logs = [], []
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        sess = ServeSession(model, cfg, ServeSpec(**kw), device=dev)
+        reqs, submit = [], sess.submit
+        sess.submit = lambda r: (reqs.append(r), submit(r))[1]
+        ops.reset_launch_counts()
+        m = run_trace(sess, bursty_trace(16, seed=3, vocab=cfg.vocab,
+                                         prompt_buckets=(8, 16, 32),
+                                         max_new_cap=12))
+        if dev != "cpu":
+            name = "serve_prefill" if prefill == "packed" else "flash_attention"
+            assert ops.launch_counts()[name] > 0
+        outs.append([r.out for r in reqs])
+        logs.append(m["migration_log"])
+    assert outs[0] == outs[1]
+    assert logs[0] == logs[1]

@@ -9,8 +9,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke
 from repro_torch.core import Balancer, BalanceSpec
 from repro_torch.fem import AdaptiveSession, AdaptSpec
+from repro_torch.models import init_model
+from repro_torch.serve import ServeSession, ServeSpec
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -37,7 +40,9 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.fem, "
-            "repro_torch.kernels, repro_torch.interop, repro_torch.telemetry; "
+            "repro_torch.kernels, repro_torch.interop, repro_torch.telemetry, "
+            "repro_torch.configs, repro_torch.data, repro_torch.models, "
+            "repro_torch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -47,16 +52,28 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_default_to_cuda():
+    cfg = get_smoke("llama3_8b").replace(n_layers=1, d_model=32, d_ff=64,
+                                         vocab=64)
+    spec = ServeSpec(decode="replicated", rebalance="tags")
     if torch.cuda.is_available():
         assert Balancer(BalanceSpec(p=4)).device.type == "cuda"
         assert AdaptiveSession(AdaptSpec()).device.type == "cuda"
+        model = init_model(cfg)
+        assert model.ln_f.is_cuda
+        assert ServeSession(model, cfg, spec).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Balancer(BalanceSpec(p=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AdaptiveSession(AdaptSpec())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(cfg)
+    model = init_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeSession(model, cfg, spec)
     assert Balancer(BalanceSpec(p=4), device="cpu").device.type == "cpu"
     assert AdaptiveSession(AdaptSpec(), device="cpu").device.type == "cpu"
+    assert ServeSession(model, cfg, spec, device="cpu").device.type == "cpu"
 
 
 def test_sharded_session_names_the_roadmap_item():

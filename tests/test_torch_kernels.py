@@ -19,7 +19,9 @@ from repro_torch.core import sfc as tsfc
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fem_matvec import (fem_element_matrices,
                                             fem_matvec_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
 
 
@@ -167,13 +169,18 @@ def _cpu_inputs():
 
 def test_ops_on_cpu_run_plain_versions_with_no_launch():
     grid, keys, w, cuts, tets, kel, u = _cpu_inputs()
+    q, kv = torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16))
+    seg = torch.tensor([0, 0, 0, 1, 1, -1, -1, -1], dtype=torch.int32)
     ops.reset_launch_counts()
     for use in (None, False):
         ops.sfc_keys_op(grid, use_pallas=use)
         ops.ksection_histogram_op(keys, w, cuts, use_pallas=use)
         ops.fem_matvec_op(tets, kel, u, 12, use_pallas=use)
+        ops.flash_attention_op(q, kv, kv, use_pallas=use)
+        ops.packed_attention_op(q[0], kv[0], kv[0], seg, use_pallas=use)
     assert ops.launch_counts() == {"sfc_keys": 0, "ksection_hist": 0,
-                                   "fem_matvec": 0}
+                                   "fem_matvec": 0, "flash_attention": 0,
+                                   "serve_prefill": 0}
 
 
 def test_use_pallas_true_on_cpu_raises():
@@ -184,6 +191,13 @@ def test_use_pallas_true_on_cpu_raises():
         ops.ksection_histogram_op(keys, w, cuts, use_pallas=True)
     with pytest.raises(ValueError, match="CUDA"):
         ops.fem_matvec_op(tets, kel, u, 12, use_pallas=True)
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention_op(q, q, q, use_pallas=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.packed_attention_op(q[0], q[0], q[0],
+                                torch.zeros(8, dtype=torch.int32),
+                                use_pallas=True)
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -194,3 +208,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
         ksection_hist_cuda(keys, w, cuts)
     with pytest.raises(ValueError, match="CUDA"):
         fem_matvec_cuda(tets, kel, u, 12)
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_attention_cuda(q[0], q[0], q[0],
+                              torch.zeros(8, dtype=torch.int32))
