@@ -77,7 +77,6 @@ def timed_ms(fn, reps=20, warmup=3):
     CUDA events around ``reps`` back-to-back calls: it includes host
     dispatch wherever that outlasts the device work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -89,15 +88,34 @@ def timed_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    check(events, "torch.profiler recorded no device activity")
-    dev_us = sum(e.time_range.elapsed_us() for e in events)
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)])
+    dev_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
     return dev_us / 1e3 / reps, call_ms
+
+
+PROFILE_ATTEMPTS = 3
+
+
+def profiled(body, setup=None):
+    """(profiler, body's result) of ``body(setup())`` run under
+    torch.profiler, CPU and CUDA activity, ending in a synchronize.  On
+    the card the profiler has come back from a normal window with no
+    device event at all; such a window is run again (``setup`` anew,
+    outside the profiler), up to PROFILE_ATTEMPTS times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        arg = setup() if setup is not None else None
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = body(arg) if setup is not None else body()
+            torch.cuda.synchronize()
+        if device_events(prof):
+            return prof, out
+        log(f"torch.profiler recorded no device activity (attempt "
+            f"{attempt} of {PROFILE_ATTEMPTS})")
+    raise AssertionError("torch.profiler recorded no device activity")
 
 
 def trace_summary(label, prof, wall_s, top_host=8, top_dev=5):
@@ -805,20 +823,24 @@ def profile_serving(serve, dev):
     """Phase 9: one packed admission (the trace's first eight requests,
     one buffer) plus eight decode steps under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request, ServeSession, ServeSpec
-    session = ServeSession(serve["model"], serve["cfg"],
-                           ServeSpec(**SERVE_SPEC), device=dev)
-    for r in serve["trace"][:8]:
-        session.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def setup():
+        gc.collect()
+        session = ServeSession(serve["model"], serve["cfg"],
+                               ServeSpec(**SERVE_SPEC), device=dev)
+        for r in serve["trace"][:8]:
+            session.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+        return session
+
+    def body(session):
         t0 = time.perf_counter()
         for _ in range(8):
             session.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return session, time.perf_counter() - t0
+
+    prof, (session, wall) = profiled(body, setup)
     check(session.prefill_stats["calls"] == 1, "one packed admission")
     trace_summary("one packed admission (8 x 128 tokens) + 8 decode steps",
                   prof, wall, top_host=10, top_dev=8)
