@@ -3,7 +3,7 @@ load-balanced request groups (the dense family on one device).
 
 Build a ``ServeSpec`` and hand it with a model to ``ServeSession``;
 ``repro_torch.serve.trace`` gives seeded bursty arrival traces and the
-open-loop latency driver.
+open-loop latency run (``run_trace``).
 """
 from .decode import (KVCache, decode_step, init_decode_state, init_kv_cache,
                      init_serve_state, packed_prefill, prefill, reset_slot)

@@ -54,7 +54,7 @@ class Request:
     group: int = 0                  # device group currently hosting the slot
     slot: Optional[int] = None      # global slot id while active
     migrations: int = 0             # inter-group KV migrations survived
-    # wall-clock stamps for the trace driver (TTFT / ITL percentiles)
+    # wall-clock stamps for ``run_trace`` (TTFT / ITL percentiles)
     t_submit: Optional[float] = None
     t_first: Optional[float] = None
     t_done: Optional[float] = None

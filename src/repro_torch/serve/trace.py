@@ -1,4 +1,4 @@
-"""Seeded bursty arrival traces + the open-loop serving driver.
+"""Seeded bursty arrival traces + the open-loop serving run.
 
 The DLB paper's experiments drive the partitioner with adaptation traces;
 the serving engine's analogue is a request-arrival trace.  Real serving
