@@ -307,6 +307,21 @@ class Embedding(nn.Module):
                                gen, scale=0.02)
         self.head = dense_param((cfg.d_model, cfg.vocab), cfg.p_dtype,
                                 device, gen)
+        self._head_f32, self._head_f32_key = None, None
+
+    def head_f32(self) -> torch.Tensor:
+        """The head in float32.  A bf16 head is cast once and the copy kept
+        (2.1 GB at llama3-8b width) until the head is moved or written,
+        rather than cast anew on every call."""
+        h = self.head
+        if h.dtype == F32:
+            return h
+        key = (h.device, h.data_ptr(), h._version)
+        if self._head_f32_key != key:
+            self._head_f32 = None           # free the stale copy first
+            self._head_f32 = h.detach().to(F32)
+            self._head_f32_key = key
+        return self._head_f32
 
 
 def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig
@@ -316,4 +331,4 @@ def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig
 
 def lm_logits(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits from a float32 product (any leading dims)."""
-    return torch.matmul(x.to(F32), emb.head.to(F32))
+    return torch.matmul(x.to(F32), emb.head_f32())

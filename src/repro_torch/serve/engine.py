@@ -87,6 +87,7 @@ def _prefill_full(session: "ServeSession", req: Request):
     tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                              device=session.device)[None]
     logits, row = session._prefill_fn(session.model, tokens)
+    session._observe([req], logits, None)
     tok = int(torch.argmax(logits[0]))
     return tok, row, tok
 
@@ -129,6 +130,8 @@ def _prefill_packed(session: "ServeSession", admissions):
         session.model, t(tokens), t(seg), t(pos), t(last_idx))
     session._paged_insert(session.state, ks, vs, t(page_slot), t(page_dst),
                           t(written), t(slen))
+    session._observe([a[0] for a in admissions], logits[:len(admissions)],
+                     seg)
     first = torch.argmax(logits[:len(admissions)], dim=-1)
     slots = torch.as_tensor([slot for _, slot, _, _ in admissions],
                             device=dev)
@@ -179,11 +182,17 @@ class ServeSession:
     (``spec.total_slots`` rows, group g owning rows ``[g*spg,
     (g+1)*spg)``).  Admission fills the least-loaded group's lowest free
     slot; the rebalance stage re-labels the groups of the live requests.
+
+    ``on_logits``, if given, sees every batch of logits the session turns
+    into tokens: ``on_logits(requests, logits, seg)`` with one float32
+    row per request, in the order given, and ``seg`` the packed buffer's
+    segment ids (numpy) for a packed admission, else None.
     """
 
     def __init__(self, model: DecoderLM, cfg: ModelConfig, spec: ServeSpec,
-                 *, device=None, tracer=None):
+                 *, device=None, tracer=None, on_logits=None):
         self.model, self.cfg, self.spec = model, cfg, spec
+        self.on_logits = on_logits
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -274,6 +283,10 @@ class ServeSession:
     @property
     def spg(self) -> int:
         return self.spec.slots_per_group
+
+    def _observe(self, reqs, logits, seg) -> None:
+        if self.on_logits is not None:
+            self.on_logits(reqs, logits, seg)
 
     def _live(self) -> List[Tuple[int, Request]]:
         return [(i, r) for i, r in enumerate(self.active) if r is not None]
@@ -429,6 +442,10 @@ class ServeSession:
         with tr.span("serve/decode", block=True, step=self.step_count,
                      variant=self._variants["generate"]) as sp:
             logits = self._generate(self)
+            if self.on_logits is not None:
+                live = self._live()
+                self.on_logits([r for _, r in live],
+                               logits[[i for i, _ in live], -1], None)
             next_tok = sp.block_on(torch.argmax(logits[:, -1], dim=-1))
         self.tokens = next_tok[:, None]
         toks = next_tok.tolist()

@@ -115,6 +115,25 @@ def test_params_from_jax_reads_bfloat16():
     assert np.array_equal(model.embed.head.float().numpy(), want)
 
 
+def test_lm_logits_casts_a_bfloat16_head_once():
+    kw = dict(TINY, dtype="bfloat16", param_dtype="bfloat16")
+    jcfg = jconfigs.get_smoke("llama3_8b").replace(**kw)
+    cfg = configs.get_smoke("llama3_8b").replace(**kw)
+    params = j_init_model(jcfg, jax.random.PRNGKey(2))
+    model = params_from_jax(params, cfg, device="cpu")
+    x = torch.as_tensor(_x((2, 3, 64), 14)).to(torch.bfloat16)
+    got = TL.lm_logits(model.embed, x)
+    assert got.dtype == torch.float32
+    _close(got, JL.lm_logits(params["embed"], jnp.asarray(
+        x.float().numpy()).astype(jnp.bfloat16), jcfg))
+    cached = model.embed.head_f32()
+    assert cached.dtype == torch.float32
+    assert model.embed.head_f32() is cached         # kept between calls
+    with torch.no_grad():
+        model.embed.head.mul_(2)                    # a write refreshes it
+    assert torch.equal(TL.lm_logits(model.embed, x), 2 * got)
+
+
 def test_init_model_is_seeded_and_refuses_other_families():
     cfg = configs.get_smoke("llama3_8b").replace(**TINY)
     from repro_torch.models import init_model

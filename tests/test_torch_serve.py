@@ -193,6 +193,30 @@ def test_packed_and_full_give_the_same_tokens(tiny):
     assert outs["full"] == outs["packed"]
 
 
+@pytest.mark.parametrize("prefill", ["full", "packed"])
+def test_on_logits_sees_the_row_of_every_token(tiny, prefill):
+    _, cfg, _, model = tiny
+    rows, packs = {}, []
+
+    def on_logits(reqs, logits, seg):
+        assert logits.dtype == torch.float32
+        assert logits.shape == (len(reqs), cfg.vocab)
+        if seg is not None:
+            packs.append(seg)
+        for r, row in zip(reqs, logits):
+            rows.setdefault(r.rid, []).append(int(torch.argmax(row)))
+
+    sess = ServeSession(model, cfg, ServeSpec(**_spec_kw(prefill)),
+                        device="cpu", on_logits=on_logits)
+    _, reqs = _drive(sess, bursty_trace(24, vocab=cfg.vocab, **TRACE),
+                     run_trace)
+    assert {r.rid: r.out for r in reqs} == rows
+    assert len(packs) == (sess.prefill_stats["calls"]
+                          if prefill == "packed" else 0)
+    assert sum(int((s >= 0).sum()) for s in packs) == (
+        sess.prefill_stats["tokens"] if prefill == "packed" else 0)
+
+
 @pytest.mark.parametrize("prefill", ["cheap", "full", "packed"])
 def test_slot_reuse_matches_fresh_session(tiny, prefill):
     """A request admitted into a freed slot decodes as in a fresh session:
