@@ -34,8 +34,24 @@ CUDA toolkit's nvcc.  It
 9. holds both attention kernels against their plain versions (with
    SDPA's time as the yardstick) and profiles one packed admission plus
    eight decode steps;
-10. prints the kernel table as one JSON line, the card's name and power
+10. holds the prefix-scan kernel against its plain version (integer
+    weights equal, floats within 1e-6 of sum|x|) and times it beside
+    torch.cumsum;
+11. runs the standalone sharded DLB step: 8M points over 4 ranks
+    (hsfc, sorted and k-section, with old parts and the all_to_all
+    migration), equal to the host backend on the card;
+12. drives the third main path: the sharded adaptive session over 4
+    ranks from the 786,432-tet mesh, owned vertex layout, repartition
+    and migration every step; each step's partition is held against the
+    host backend, its owned PCG solution against the replicated-layout
+    solve of the same packing, and its migration to conservation;
+13. prints the kernel table as one JSON line, the card's name and power
     limit, and ``{"ok": true, ...}`` as the last line.
+
+Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
+the 4 ranks share cuda:0 and their collectives go through gloo, staged
+through host memory (the script prints which).  The kernels are built
+before any rank starts, so the ranks only load the library.
 
 A failed check is printed and the run goes on to the next phase; at the
 end, any failure makes the script exit 1 without the last two lines.
@@ -503,6 +519,359 @@ def standalone_dlb(dev, n=8_000_000):
 
 
 # ---------------------------------------------------------------------------
+# phases 10-12: the multi-device layer (main path 3)
+# ---------------------------------------------------------------------------
+
+SHARDED_P = 4
+PROFILED_STEP = 1       # the sharded session step run under torch.profiler
+SCAN_SIZES = (1 << 20, 1 << 21, 2_588_188, 1_000_003)
+SCAN_ROW_N = 1 << 20    # a rank's shard (C) at the sharded session's last step
+PCG_RTOL = 1e-5         # owned PCG against the replicated-layout solve
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_placement():
+    """NCCL with one rank per card where there are enough cards; else
+    the ranks share cuda:0 and their collectives go through gloo, staged
+    through host memory."""
+    import torch
+    if torch.cuda.device_count() >= SHARDED_P:
+        return "nccl", [f"cuda:{r}" for r in range(SHARDED_P)]
+    return "gloo", ["cuda:0"] * SHARDED_P
+
+
+def start_world(fn, *args, join_s):
+    """``fn(comm, *args)`` on SHARDED_P ranks placed by rank_placement;
+    a file rendezvous under build/ (no network port)."""
+    import torch
+    from repro_torch.distributed import run_world
+    backend, devices = rank_placement()
+    rdv_dir = os.path.join(ROOT, "build", "rendezvous")
+    os.makedirs(rdv_dir, exist_ok=True)
+    init = os.path.join(rdv_dir, f"{fn.__name__}-{os.getpid()}-"
+                                 f"{time.monotonic_ns()}")
+    log(f"ranks: {SHARDED_P} over {backend} on {devices} "
+        f"(torch.cuda.device_count()={torch.cuda.device_count()}; card "
+        f"{nvidia_smi_line()})")
+    try:
+        return run_world(fn, SHARDED_P, *args, backend=backend,
+                         devices=devices, init_file=init, timeout_s=600.0,
+                         join_s=join_s), backend
+    finally:
+        if os.path.exists(init):
+            os.remove(init)
+
+
+def compare_scan(dev):
+    """Phase 10: the prefix-scan kernel against its plain version
+    (torch.cumsum(x) - x) at a rank's shard of the sharded session's last
+    step, 2^21, the FEM session's largest mesh and a ragged n: integer
+    weights equal, uniform floats within 1e-6 * sum|x|; timed beside
+    torch.cumsum alone (the library yardstick)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
+    row = None
+    for n in SCAN_SIZES:
+        rng = np.random.default_rng(n)
+        xi = torch.as_tensor(rng.integers(1, 3, n).astype(np.float32),
+                             device=dev)
+        check(torch.equal(exclusive_scan_cuda(xi), ref.exclusive_scan_ref(xi)),
+              f"prefix_scan n={n}: integer weights differ")
+        xf = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+        got = exclusive_scan_cuda(xf)
+        want = ref.exclusive_scan_ref(xf)
+        err = float((got - want).abs().max())
+        tol = 1e-6 * float(xf.abs().sum())
+        check(err <= tol, f"prefix_scan n={n}: float err {err} > {tol}")
+        check(torch.equal(got, exclusive_scan_cuda(xf)),
+              f"prefix_scan n={n}: not deterministic")
+        ms, call_ms = timed_ms(lambda: exclusive_scan_cuda(xf))
+        plain_ms, plain_call_ms = timed_ms(lambda: ref.exclusive_scan_ref(xf))
+        lib_ms, lib_call_ms = timed_ms(lambda: torch.cumsum(xf, dim=0))
+        bound = 8 * n / PEAK_BYTES_PER_S * 1e3
+        log(f"prefix_scan n={n}: kernel_ms={ms:.4f} (call {call_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) "
+            f"cumsum_ms={lib_ms:.4f} (call {lib_call_ms:.4f}) bound_ms="
+            f"{bound:.4f} share={bound / ms:.3f} max_abs_err={err:.3e} "
+            f"(tolerance 1e-6 * sum|x| = {tol:.3e}); integers equal")
+        if n == SCAN_ROW_N:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by="bytes", library_ms=lib_ms, max_abs_err=err)
+    return row
+
+
+BALANCE_FIELDS = ("parts", "part_weights", "imbalance", "total_v",
+                            "max_v", "retained", "remap_perm")
+
+
+def same_balance(a, b, oneD):
+    import torch
+    fields = BALANCE_FIELDS + (
+        ("splitters",) if oneD == "ksection" else ())
+    for f in fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            return f
+    if a.ksection_rounds != b.ksection_rounds:
+        return "ksection_rounds"
+    return None
+
+
+def sharded_dlb_rank(comm, n, seed):
+    """One rank of the standalone sharded DLB step: 8M seeded points,
+    integer weights, hsfc; the old partition is the host balance at unit
+    weights.  Each oneD runs once to warm up, then timed; the result is
+    held against the host backend on the same card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Balancer, BalanceSpec
+    from repro_torch.kernels import ops
+    dev = comm.device
+    rng = np.random.default_rng(seed)
+    coords = torch.as_tensor((rng.random((n, 3)) * np.array([10.0, 1.0, 1.0])
+                              ).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.integers(1, 3, n).astype(np.float32), device=dev)
+    old = Balancer(BalanceSpec(p=SHARDED_P, method="hsfc"), device=dev
+                   ).balance(torch.ones_like(w), coords=coords).parts
+    out = {}
+    for oneD in ("sorted", "ksection"):
+        spec = BalanceSpec(p=SHARDED_P, method="hsfc", oneD=oneD,
+                           backend="sharded", execute_migration=True)
+        b = Balancer(spec, comm=comm)
+        b.balance(w, coords=coords, old_parts=old)          # warm-up
+        staged0 = comm.staged_bytes
+        ops.reset_launch_counts()
+        r, t = b.balance_timed(w, coords=coords, old_parts=old)
+        counts = ops.launch_counts()
+        staged = comm.staged_bytes - staged0
+        t_max = float(comm.pmax(torch.tensor(t["t_balance"], device=dev)))
+        host = Balancer(spec.replace(backend="host"), device=dev).balance(
+            w, coords=coords, old_parts=old)
+        mig = {k: float(v) for k, v in r.migration.items()}
+        out[oneD] = dict(
+            t_balance=t["t_balance"], t_balance_max=t_max,
+            differs=same_balance(r, host, oneD), migration=mig,
+            imbalance=float(r.imbalance), total_v=float(r.total_v),
+            rounds=r.ksection_rounds, launches=counts, staged_bytes=staged)
+    return out
+
+
+def sharded_dlb(n=8_000_000):
+    """Phase 11: the standalone sharded DLB step over SHARDED_P ranks."""
+    (outs, backend) = start_world(sharded_dlb_rank, n, 0, join_s=900.0)
+    for oneD in ("sorted", "ksection"):
+        rs = [o[oneD] for o in outs]
+        for r, o in enumerate(rs):
+            check(o["differs"] is None, f"sharded dlb {oneD} rank {r}: field "
+                  f"{o['differs']} differs from the host backend")
+            m = o["migration"]
+            check(m["weight_in"] == m["weight_out"] and m["overflow"] == 0
+                  and m["items"] == n, f"sharded dlb {oneD}: migration {m}")
+        log(f"sharded dlb hsfc/{oneD} n={n} p={SHARDED_P} ({backend}): "
+            f"equal to the host backend on every rank; t_balance max over "
+            f"ranks {rs[0]['t_balance_max']:.4f} s (per rank "
+            f"{[round(o['t_balance'], 4) for o in rs]}); imbalance="
+            f"{rs[0]['imbalance']:.6f} TotalV={rs[0]['total_v']:.0f} "
+            f"rounds={rs[0]['rounds']} migration={rs[0]['migration']}; "
+            f"host-staged bytes per rank {rs[0]['staged_bytes']}; launches "
+            f"rank 0 {rs[0]['launches']}")
+
+
+def replicated_layout_solve(session, state):
+    """The replicated-layout solve of the packing's partition: the same
+    masked system, PCG over the replicated vertex vector with one psum
+    per matvec (fem.parallel's replicated layout)."""
+    import torch
+    from repro_torch.fem import adapt, load_vector
+    from repro_torch.fem.parallel import (make_sharded_matvec,
+                                          shard_elements_on_device,
+                                          sharded_diagonal)
+    from repro_torch.fem.solve import pcg
+    comm, prob, spec = session.comm, session.problem, session.spec
+    el = state.el
+    sel = shard_elements_on_device(el, state.mesh.leaf_payload["parts"],
+                                   SHARDED_P, comm)
+    mv, _ = make_sharded_matvec(sel, comm, prob.c)
+    verts = adapt._verts(session, state.mesh)
+    free = adapt._free_mask(state.mesh, session.device)
+    # the same right-hand side on every rank (its atomic sums may differ
+    # in the last bits), so every rank's PCG takes the same iterations
+    rhs = comm.broadcast(load_vector(el, verts, prob.f))
+    g = prob.exact(verts)
+    zero = torch.zeros((), device=rhs.device)
+    g_ext = torch.where(free > 0, zero, g)
+    b = torch.where(free > 0, rhs - mv(g_ext), zero)
+    diag = torch.where(free > 0, sharded_diagonal(sel, comm, prob.c),
+                       torch.ones_like(free))
+    res = pcg(lambda u: torch.where(free > 0, mv(u * free), u), b, diag,
+              torch.zeros_like(b), tol=spec.tol, maxiter=spec.maxiter)
+    return res.x + g_ext, res.iters
+
+
+def sharded_session_rank(comm, rounds, max_tets):
+    """One rank of the sharded adaptive session (main path 3): the host
+    session's mesh, owned layout, repartition and migration every step.
+    Every step holds its partition against the host backend on the same
+    mesh, its owned PCG solution against the replicated-layout solve of
+    the same packing, and the migration to conservation.  Launches made
+    by those checks are taken out of the path's counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Balancer, BalanceSpec
+    from repro_torch.fem import (AdaptSpec, AdaptiveSession, cylinder_mesh,
+                                 uniform_refine)
+    from repro_torch.kernels import ops
+    dev = comm.device
+    t0 = time.perf_counter()
+    mesh = cylinder_mesh(8, 2, length=4.0, radius=0.5)
+    uniform_refine(mesh, rounds)
+    t_mesh = time.perf_counter() - t0
+    spec = AdaptSpec.for_problem(
+        "helmholtz", max_steps=3, max_tets=max_tets, tol=1e-6,
+        backend="sharded", vertex_layout="owned", trigger="always",
+        balance=BalanceSpec(p=SHARDED_P, method="hsfc", oneD="sorted"))
+    check_launches = {}
+    steps = []
+
+    def outside_path(fn):
+        before = ops.launch_counts()
+        out = fn()
+        sync(dev)
+        for k, v in ops.launch_counts().items():
+            check_launches[k] = check_launches.get(k, 0) + v - before[k]
+        return out
+
+    session = AdaptiveSession(spec, comm=comm)
+    solve, balance = session._stages["solve"], session._stages["balance"]
+    host = Balancer(session.balance_spec.replace(backend="host"), device=dev)
+
+    def checked_solve(sess, state):
+        solve(sess, state)
+        x, iters = outside_path(lambda: replicated_layout_solve(sess, state))
+        scale = float(x.abs().max())
+        err = float((state.u - x).abs().max())
+        steps.append({"pcg_err": err / scale, "rep_iters": int(iters)})
+        check(err <= PCG_RTOL * scale, f"step {state.step}: owned PCG "
+              f"differs from the replicated-layout solve by {err / scale:.3e}"
+              f" relative (> {PCG_RTOL})")
+
+    def checked_balance(sess, state):
+        inherited = state.mesh.leaf_payload.get("parts")
+        coords = state.mesh.barycenters().astype(np.float32)
+        balance(sess, state)
+        n = state.mesh.n_tets
+        w = torch.ones(n, dtype=torch.float32, device=dev)
+        want = outside_path(lambda: host.balance(w, coords=coords,
+                                                 old_parts=inherited))
+        got = state.balance_result
+        bad = same_balance(got, want, "sorted")
+        check(bad is None, f"step {state.step}: field {bad} differs from "
+              "the host backend on the same mesh")
+        mig = {k: float(v) for k, v in got.migration.items()}
+        n_real = int(comm.psum((state.sharded.vol > 0).sum()))
+        check(mig["weight_in"] == mig["weight_out"] == n
+              and mig["overflow"] == 0 and n_real == n,
+              f"step {state.step}: migration {mig}, {n_real} packed of {n}")
+        steps[-1].update(migration=mig, n_packed=n_real)
+
+    session._stages["solve"] = checked_solve
+    session._stages["balance"] = checked_balance
+
+    window = {}
+
+    def on_step(stats, state):
+        if state.step == PROFILED_STEP:
+            sync(dev)
+            window["prof"].stop()
+            window["wall"] = time.perf_counter() - window["t0"]
+        t = comm.pmax(torch.tensor([stats.t_solve, stats.t_estimate,
+                                    stats.t_refine, stats.t_balance],
+                                   device=dev))
+        rec = steps[-1]
+        rec.update(n_tets=stats.n_tets, imbalance=stats.imbalance,
+                   total_v=stats.migration_totalv, cut=stats.cut,
+                   halo_bytes=stats.comm_halo_bytes,
+                   psum_bytes=stats.comm_psum_bytes, cg_iters=stats.cg_iters,
+                   err_l2=stats.err_l2, t_max=t.tolist(),
+                   n_tets_balanced=state.mesh.n_tets)
+        if comm.rank == 0:
+            log(f"sharded step {state.step}: n_tets={stats.n_tets} "
+                f"(balanced {state.mesh.n_tets}) imbalance="
+                f"{stats.imbalance:.6f} TotalV={stats.migration_totalv:.0f} "
+                f"cut={stats.cut} halo_bytes={stats.comm_halo_bytes} "
+                f"psum_bytes={stats.comm_psum_bytes} cg_iters="
+                f"{stats.cg_iters} (replicated layout {rec['rep_iters']}) "
+                f"err_l2={stats.err_l2:.6e} owned-vs-replicated "
+                f"{rec['pcg_err']:.3e}; max over ranks: t_solve={t[0]:.4f}s "
+                f"t_estimate={t[1]:.4f}s t_refine={t[2]:.4f}s "
+                f"t_balance={t[3]:.4f}s; migration {rec['migration']}")
+        if state.step + 1 == PROFILED_STEP:
+            sync(dev)
+            window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+
+    session.on_step = on_step
+    sync(dev)
+    staged0 = comm.staged_bytes
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = session.run(mesh)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    path = {k: counts[k] - check_launches.get(k, 0) for k in counts}
+    check(all(np.isfinite(s["err_l2"]) for s in steps), "non-finite error")
+    check(res.u.shape == (res.mesh.n_verts,), "solution shape")
+    busy = sum(e.time_range.elapsed_us() for e in
+               device_events(window["prof"])) / 1e6
+    if comm.rank == 0:
+        trace_summary(f"rank 0, step {PROFILED_STEP} of the sharded session "
+                      "(its checks included)", window["prof"],
+                      window["wall"])
+    return dict(steps=steps, launches=path, wall=wall, t_mesh=t_mesh,
+                staged_bytes=comm.staged_bytes - staged0,
+                n_tets0=192 << rounds, busy_s=busy,
+                window_s=window["wall"])
+
+
+def sharded_session(rounds=12, max_tets=3_000_000):
+    """Phase 12: the sharded adaptive session (main path 3)."""
+    outs, backend = start_world(sharded_session_rank, rounds, max_tets,
+                                join_s=1000.0)
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        check([s["n_tets"] for s in o["steps"]]
+              == [s["n_tets"] for s in r0["steps"]],
+              f"rank {r} refined another mesh")
+    launches = {k: sum(o["launches"][k] for o in outs) for k in r0["launches"]}
+    for name in ("sfc_keys", "fem_matvec", "prefix_scan"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              "sharded session's path")
+    log(f"sharded session ({backend}): initial mesh {r0['n_tets0']} tets "
+        f"(built on every rank in {max(o['t_mesh'] for o in outs):.1f} s), "
+        f"{len(r0['steps'])} steps in {max(o['wall'] for o in outs):.2f} s "
+        f"(max over ranks, this script's checks included); host-staged "
+        f"bytes per rank {[o['staged_bytes'] for o in outs]}; path launches "
+        f"summed over ranks {launches}")
+    busy = sum(o["busy_s"] for o in outs)
+    wall = max(o["window_s"] for o in outs)
+    log(f"trace step {PROFILED_STEP} of the sharded session, all ranks: "
+        f"wall {wall:.4f} s, device busy {busy:.4f} s (summed over the "
+        f"{SHARDED_P} ranks' device events), card idle share at least "
+        f"{1 - busy / wall:.4f}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 6-9: the serving path at llama3-8b width
 # ---------------------------------------------------------------------------
 
@@ -842,6 +1211,7 @@ SRC = "src/repro_torch/kernels/csrc/"
 REPLACES = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
             "ksection_hist": "src/repro/kernels/ksection_hist.py:95",
             "fem_matvec": "src/repro/kernels/fem_matvec.py:108",
+            "prefix_scan": "src/repro/kernels/prefix_scan.py:47",
             "flash_attention": "src/repro/kernels/flash_attention.py:84",
             "serve_prefill": "src/repro/kernels/serve_prefill.py:109"}
 FAILED = []
@@ -944,12 +1314,21 @@ def main():
     if serve is not None:
         phase("phase 9b: profile of one packed admission and 8 decode steps",
               profile_serving, serve, dev)
+    scan_row = phase("phase 10: prefix_scan against its plain version",
+                     compare_scan, dev)
+    if scan_row is not None:
+        rows["prefix_scan"] = scan_row
+    phase("phase 11: standalone sharded DLB (8M points, p = 4)", sharded_dlb)
+    sharded = phase("phase 12: the sharded adaptive session (main path 3)",
+                    sharded_session)
     log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
-    if FAILED or fem is None or serve is None or len(rows) < len(REPLACES):
+    if (FAILED or fem is None or serve is None or sharded is None
+            or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
     # each path's launches, counted from 0 over its own run
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
+                "prefix_scan": sharded["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
                 "flash_attention": serve["full"][1]["flash_attention"]}
     table = [dict(name=name, route="cuda", source=SRC + name + ".cu",

@@ -6,12 +6,14 @@
   that touches the items (``hist_fn``; on CUDA tensors the hand-written
   kernel through ``kernels.ops.ksection_histogram_op``).
 * ``sorted_exact`` -- sort once, exclusive prefix sum of the sorted
-  weights (Algorithm 1's S_i), part = floor(S_i * p / W).
+  weights (Algorithm 1's S_i, through ``kernels.ops.exclusive_scan_op``:
+  the hand-written scan kernel on CUDA tensors), part = floor(S_i * p / W).
+* ``distributed_prefix_parts`` -- the same over a process group: a local
+  scan plus one ``exclusive_scan_over_axis`` (the paper's MPI_Scan).
 
 Counterpart of ``repro.core.partition1d``: the same float32 arithmetic in
 the same order, so parts and splitters match it exactly on integer
-weights.  The shard-map helpers (``exclusive_scan_over_axis``,
-``distributed_prefix_parts``) belong to the multi-device slice.
+weights.
 """
 from __future__ import annotations
 
@@ -34,23 +36,32 @@ class Partition1DResult(NamedTuple):
 # Exact prefix-sum partition (Algorithm 1 applied to sorted keys)
 # ---------------------------------------------------------------------------
 
-def prefix_sum_parts(weights_in_order: torch.Tensor, p: int) -> torch.Tensor:
-    """Paper eq. (1)/(2): item with exclusive prefix sum S_i goes to part j
-    iff S_i in [W*j/p, W*(j+1)/p).  Weights already in linearized order.
-    float32, ``s * p / total`` in that order (the JAX package's)."""
-    w = weights_in_order.to(torch.float32)
-    s = torch.cumsum(w, dim=0) - w
-    total = w.sum()
+def _parts_of_prefix(s: torch.Tensor, total: torch.Tensor,
+                     p: int) -> torch.Tensor:
     total = torch.where(total <= 0, torch.ones_like(total), total)
     parts = torch.floor(s * p / total).to(torch.int64)
     return parts.clamp(0, p - 1)
 
 
-def sorted_exact(keys: torch.Tensor, weights: torch.Tensor,
-                 p: int) -> Partition1DResult:
+def prefix_sum_parts(weights_in_order: torch.Tensor, p: int, *,
+                     use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """Paper eq. (1)/(2): item with exclusive prefix sum S_i goes to part j
+    iff S_i in [W*j/p, W*(j+1)/p).  Weights already in linearized order.
+    float32, ``s * p / total`` in that order (the JAX package's).  S_i
+    comes from ``exclusive_scan_op``; every order of additions is exact
+    on integer weights below 2^24, so the parts equal the JAX package's
+    ``cumsum`` ones there."""
+    from ..kernels import ops
+    w = weights_in_order.to(torch.float32)
+    s = ops.exclusive_scan_op(w, use_pallas=use_pallas)
+    return _parts_of_prefix(s, w.sum(), p)
+
+
+def sorted_exact(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
+                 use_pallas: Optional[bool] = None) -> Partition1DResult:
     """Exact 1-D partition: stable sort + prefix-sum slice."""
     order = torch.argsort(keys, stable=True)
-    parts_sorted = prefix_sum_parts(weights[order], p)
+    parts_sorted = prefix_sum_parts(weights[order], p, use_pallas=use_pallas)
     parts = torch.empty_like(parts_sorted)
     parts[order] = parts_sorted
     part_weights = segment_sum(weights, parts, p)
@@ -210,3 +221,37 @@ def ksection(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
                                right=True)
     part_weights = segment_sum(w, parts, p)
     return Partition1DResult(parts, splitters, part_weights, rounds)
+
+
+# ---------------------------------------------------------------------------
+# Distributed helper: the MPI_Scan step of Algorithm 1 over a process group
+# ---------------------------------------------------------------------------
+
+def exclusive_scan_over_axis(local_sum: torch.Tensor, comm) -> torch.Tensor:
+    """Exclusive prefix sum of per-rank totals across the group.
+
+    The paper's single ``MPI_Scan``: every rank learns the total weight
+    owned by lower ranks.  One ``all_gather`` of the p scalars and a
+    masked sum, as the JAX package does it -- O(p) data, one collective."""
+    local_sum = torch.as_tensor(local_sum)
+    sums = comm.all_gather(local_sum.reshape((1,) + tuple(local_sum.shape)))
+    mask = torch.arange(comm.size, device=sums.device) < comm.rank
+    mask = mask.reshape((comm.size,) + (1,) * local_sum.dim())
+    return torch.where(mask, sums, torch.zeros_like(sums)).sum(dim=0)
+
+
+def distributed_prefix_parts(local_weights: torch.Tensor, p: int, comm, *,
+                             use_pallas: Optional[bool] = None
+                             ) -> torch.Tensor:
+    """Algorithm 1 over a process group: two local passes and one scan
+    collective.  ``local_weights`` are this rank's weights in curve / DFS
+    order (the ranks' arrays in rank order give the global order);
+    returns the part id of each local item.  The local scan is
+    ``exclusive_scan_op`` (the hand-written kernel on CUDA tensors)."""
+    from ..kernels import ops
+    w = local_weights.to(torch.float32)
+    local_sum = w.sum()                                     # traversal 1
+    offset = exclusive_scan_over_axis(local_sum, comm)      # MPI_Scan
+    total = comm.psum(local_sum)
+    s = offset + ops.exclusive_scan_op(w, use_pallas=use_pallas)  # 2
+    return _parts_of_prefix(s, total, p)

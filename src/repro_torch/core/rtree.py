@@ -11,7 +11,7 @@ part j iff S_i in [W*j/p, W*(j+1)/p).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -19,9 +19,10 @@ import torch
 from .partition1d import prefix_sum_parts
 
 
-def partition_dfs(leaf_weights_dfs: torch.Tensor, p: int) -> torch.Tensor:
+def partition_dfs(leaf_weights_dfs: torch.Tensor, p: int, *,
+                  use_pallas: Optional[bool] = None) -> torch.Tensor:
     """RTK partition of leaves given in DFS order.  Pure Algorithm 1."""
-    return prefix_sum_parts(leaf_weights_dfs, p)
+    return prefix_sum_parts(leaf_weights_dfs, p, use_pallas=use_pallas)
 
 
 @dataclass

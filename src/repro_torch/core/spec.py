@@ -9,8 +9,9 @@ The paper's DLB step is one fixed pipeline
   ``BalanceSpec.from_dict(repro_spec.to_dict())`` carries a spec across.
   It names no device.
 * stage registry   -- stage functions registered per ``(backend, stage,
-  variant)``.  This package registers the host backend, which runs on one
-  device (the card, by default).
+  variant)``.  The host backend runs on one device (the card, by
+  default); the sharded backend (``distributed.stages``) runs one rank
+  per part over a ``torch.distributed`` process group.
 * ``Balancer``     -- resolves a spec into the pipeline on a device, applies
   the padding policy, threads warm-start splitters between calls and
   publishes the quality counters.
@@ -46,10 +47,6 @@ ONED_SOLVERS = ("sorted", "ksection")
 BACKENDS = ("host", "sharded")
 PADDINGS = ("pow2", "none")
 STAGES = ("keys", "partition1d", "remap", "migrate")
-
-# where the multi-device backend stands in the port's plan
-SHARDED_TODO = ("backend='sharded' is not ported yet (ROADMAP.md, queue 1, "
-                "item 9: the multi-device layer on torch.distributed)")
 
 
 # ---------------------------------------------------------------------------
@@ -104,10 +101,13 @@ class BalanceSpec(Spec):
     k, iters           k-section branching factor / rounds
     sfc_bits           SFC grid resolution
     use_remap          apply the Oliker--Biswas relabelling
-    backend            'host' (one device) | 'sharded' (not ported yet)
-    padding            'pow2' pads to the next power of two (the JAX
-                       package's compile-reuse policy, kept so results
-                       match it); 'none' passes shapes through
+    backend            'host' (one device) | 'sharded' (one rank per part
+                       over a process group)
+    padding            host backend: 'pow2' pads to the next power of two
+                       (the JAX package's compile-reuse policy, kept so
+                       results match it); 'none' passes shapes through.
+                       The sharded backend always pads to p * C (C a
+                       power of two >= min_capacity)
     min_capacity       sharded per-device capacity floor
     execute_migration  sharded: ship payloads with the all_to_all executor
     use_pallas         use the hand-written kernels (SFC keys, the
@@ -166,8 +166,9 @@ class BalanceResult:
 
     ``total_v`` / ``max_v`` / ``retained`` are zero without ``old_parts``;
     ``remap_perm`` is the identity when the remap stage did not run.
-    ``migration`` (the sharded executor's scalars) is always ``None`` on
-    the host backend."""
+    ``migration`` holds the sharded all_to_all executor's conservation
+    scalars (weight_in, weight_out, items, overflow), or ``None`` when no
+    migration ran (always on the host backend)."""
     parts: torch.Tensor          # (n,) int64 part id per item
     part_weights: torch.Tensor   # (p,)
     imbalance: torch.Tensor      # () max/mean part weight
@@ -196,6 +197,9 @@ def register_stage(backend: str, stage: str, variant: str) -> Callable:
         partition1d(spec, keys, weights, coords)     -> parts | (parts, aux)
         remap(spec, old_parts, new_parts, weights)   -> (parts, perm)
         migrate(spec, old_parts, new_parts, weights) -> dict of scalars
+
+    Sharded stages take the same operands (this rank's shard) plus the
+    keyword ``comm``.
     """
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; choose from {STAGES}")
@@ -207,6 +211,7 @@ def register_stage(backend: str, stage: str, variant: str) -> Callable:
 
 
 def get_stage(backend: str, stage: str, variant: str) -> Callable:
+    _ensure_backend_registered(backend)
     try:
         return _REGISTRY[(backend, stage, variant)]
     except KeyError:
@@ -216,8 +221,15 @@ def get_stage(backend: str, stage: str, variant: str) -> Callable:
             f"backend {backend!r}; available: {avail}") from None
 
 
+def _ensure_backend_registered(backend: str) -> None:
+    """The sharded stages register when their module is imported."""
+    if backend == "sharded":
+        from ..distributed import stages  # noqa: F401
+
+
 def stage_variants(backend: str, stage: str):
     """Registered variant names for (backend, stage)."""
+    _ensure_backend_registered(backend)
     return sorted(v for (b, s, v) in _REGISTRY if b == backend and s == stage)
 
 
@@ -264,7 +276,7 @@ def _keys_cached_host(spec: BalanceSpec, coords, weights, *, keys):
 @register_stage("host", "partition1d", "sorted")
 def _partition_sorted_host(spec: BalanceSpec, keys, weights, coords,
                            warm=None):
-    r = _p1d.sorted_exact(keys, weights, spec.p)
+    r = _p1d.sorted_exact(keys, weights, spec.p, use_pallas=spec.use_pallas)
     return r.parts, {"splitters": r.splitters}
 
 
@@ -279,7 +291,7 @@ def _partition_ksection_host(spec: BalanceSpec, keys, weights, coords,
 
 @register_stage("host", "partition1d", "rtk")
 def _partition_rtk_host(spec: BalanceSpec, keys, weights, coords, warm=None):
-    return partition_dfs(weights, spec.p)
+    return partition_dfs(weights, spec.p, use_pallas=spec.use_pallas)
 
 
 @register_stage("host", "partition1d", "rcb")
@@ -321,29 +333,44 @@ def _migrate_metrics_host(spec: BalanceSpec, old_parts, new_parts, weights):
 class Balancer:
     """Resolve a ``BalanceSpec`` into the balancing pipeline on a device.
 
-    ``device=None`` means CUDA; without a CUDA device it raises unless
-    ``device="cpu"`` is passed.  ``balance`` applies the padding policy,
-    runs the pipeline and truncates the parts to the caller's item count;
-    ``balance_timed`` adds a blocking wall-clock measurement."""
+    ``device=None`` means CUDA (for the sharded backend: ``comm``'s
+    device); without a CUDA device it raises unless ``device="cpu"`` is
+    passed.  ``balance`` applies the padding policy, runs the pipeline and
+    truncates the parts to the caller's item count; ``balance_timed`` adds
+    a blocking wall-clock measurement.
 
-    def __init__(self, spec: BalanceSpec, device=None):
-        if spec.backend == "sharded":
-            raise NotImplementedError(SHARDED_TODO)
+    ``backend='sharded'`` needs ``comm``, a ``distributed.Comm`` over a
+    group of exactly ``p`` ranks, and every rank calls ``balance`` with
+    the same global inputs (as the JAX package's single controller does):
+    each rank runs the pipeline on its ``(C,)`` shard of the padded items
+    and the result's ``parts`` are gathered, the same global array on
+    every rank."""
+
+    def __init__(self, spec: BalanceSpec, device=None, *, comm=None):
         self.spec = spec
-        self.device = resolve_device(device)
+        self.comm = comm
         self._variants = resolve_variants(spec)
         # previous call's splitters, threaded into the next ksection call
         # as warm-start boxes when spec.warm_start is set
         self._last_splitters: Optional[torch.Tensor] = None
+        if spec.backend == "sharded":
+            from ..distributed.stages import check_world
+            check_world(spec, comm)
+            if device is None:
+                device = comm.device
+        self.device = resolve_device(device)
         for stage in ("keys", "partition1d"):
             v = self._variants[stage]
             if v is not None:
-                get_stage("host", stage, v)
+                get_stage(spec.backend, stage, v)
 
     # -- the pipeline ---------------------------------------------------------
     def balance_fn(self, weights, coords, old_parts=None, keys=None,
                    warm=None) -> BalanceResult:
-        """The pipeline on already padded device tensors."""
+        """The pipeline on already padded device tensors.  Sharded: this
+        rank's ``(C,)`` shard in, this rank's shard of the parts out."""
+        if self.spec.backend == "sharded":
+            return self._sharded_apply(weights, coords, old_parts, keys, warm)
         spec = self.spec
         p = spec.p
         kv = self._variants["keys"]
@@ -375,7 +402,36 @@ class Balancer:
                              splitters=p1d_aux.get("splitters"),
                              ksection_rounds=p1d_aux.get("ksection_rounds"))
 
+    def _sharded_apply(self, weights, coords, old_parts, keys=None,
+                       warm=None) -> BalanceResult:
+        from ..distributed.stages import build_balance_fn
+        fn = build_balance_fn(self.spec, self.comm, old_parts is not None,
+                              has_keys=keys is not None,
+                              has_warm=warm is not None)
+        opts = [x for x in (old_parts, keys, warm) if x is not None]
+        parts, aux = fn(weights, coords, *opts)
+        zero = torch.zeros((), dtype=torch.float32, device=weights.device)
+        return BalanceResult(
+            parts=parts, part_weights=aux["part_weights"],
+            imbalance=aux["imbalance"],
+            total_v=aux.get("total_v", zero), max_v=aux.get("max_v", zero),
+            retained=aux.get("retained", zero),
+            remap_perm=aux.get("remap_perm", torch.arange(
+                self.spec.p, device=weights.device)),
+            migration=aux.get("migration"),
+            splitters=aux.get("splitters"),
+            ksection_rounds=aux.get("ksection_rounds"))
+
     # -- padding policy -------------------------------------------------------
+    def capacity_for(self, n: int) -> int:
+        """Sharded per-rank capacity for an ``n``-item problem: the least
+        power of two times ``min_capacity`` holding ``ceil(n / p)``."""
+        per = -(-n // self.spec.p)
+        C = self.spec.min_capacity
+        while C < per:
+            C <<= 1
+        return C
+
     def _pad(self, weights, coords, old_parts, keys=None):
         spec = self.spec
         dev = self.device
@@ -383,6 +439,10 @@ class Balancer:
         if coords is None and spec.method in SFC_METHODS + ("rcb",):
             raise ValueError(f"method {spec.method!r} requires coords")
         w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        if coords is None and spec.backend == "sharded":
+            # sharded stages take a coords operand: arrival order
+            coords = torch.stack([torch.arange(n, dtype=torch.float32),
+                                  torch.zeros(n), torch.zeros(n)], dim=1)
         xyz = (None if coords is None
                else torch.as_tensor(coords, dtype=torch.float32, device=dev))
         old = None
@@ -405,7 +465,9 @@ class Balancer:
             if isinstance(keys, np.ndarray) and keys.dtype.kind == "u":
                 keys = keys.astype(np.int64)     # uint32 keys: same values
             ks = torch.as_tensor(keys, device=dev)
-        if spec.padding == "pow2":
+        if spec.backend == "sharded":
+            n_pad = spec.p * self.capacity_for(n)
+        elif spec.padding == "pow2":
             n_pad = 1 << max(int(np.ceil(np.log2(max(n, 2)))), 1)
         else:
             n_pad = n
@@ -431,7 +493,8 @@ class Balancer:
         moved to the balancer's device.  ``keys`` bypasses the keys stage
         with precomputed SFC keys.  ``warm_splitters`` seeds the k-section
         boxes; with ``spec.warm_start`` and none given, the previous
-        call's splitters are used."""
+        call's splitters are used.  Sharded: every rank passes the same
+        global inputs and gets the same global parts."""
         tr = telemetry.get_tracer()
         with tr.span("balance", block=True, backend=self.spec.backend,
                      method=self.spec.method, oneD=self.spec.oneD) as sp:
@@ -444,7 +507,10 @@ class Balancer:
             if warm is not None:
                 warm = torch.as_tensor(warm, dtype=torch.float32,
                                        device=self.device)
-            res = self.balance_fn(w, xyz, old, ks, warm)
+            if self.spec.backend == "sharded":
+                res = self._balance_shard(w, xyz, old, ks, warm)
+            else:
+                res = self.balance_fn(w, xyz, old, ks, warm)
             if self.spec.warm_start and res.splitters is not None:
                 self._last_splitters = res.splitters
             if int(res.parts.shape[0]) != n:
@@ -453,6 +519,13 @@ class Balancer:
         if tr.enabled:
             self._publish_quality(tr, res)
         return res
+
+    def _balance_shard(self, w, xyz, old, ks, warm) -> BalanceResult:
+        """Run this rank's shard of the padded inputs; gather the parts."""
+        r, C = self.comm.rank, w.shape[0] // self.spec.p
+        mine = lambda x: None if x is None else x[r * C:(r + 1) * C]  # noqa
+        res = self.balance_fn(mine(w), mine(xyz), mine(old), mine(ks), warm)
+        return dataclasses.replace(res, parts=self.comm.all_gather(res.parts))
 
     def _publish_quality(self, tr, res: BalanceResult) -> None:
         """Publish the paper's partition-quality metrics for one call."""

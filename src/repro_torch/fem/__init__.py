@@ -1,7 +1,10 @@
 """Adaptive FEM substrate (the paper's host application) in PyTorch.
 
 ``AdaptSpec`` describes the solve -> estimate -> mark -> refine/coarsen ->
-balance loop and ``AdaptiveSession`` runs it on one device.
+balance loop and ``AdaptiveSession`` runs it on one device, or on one
+rank per part of a process group (``backend='sharded'``: ``halo`` and
+``parallel`` hold the owned-vertex exchange and the distributed
+operators).
 """
 from .adapt import (ADAPT_STAGES, TRIGGERS, AdaptSpec, AdaptiveResult,
                     AdaptiveSession, SessionState, StepStats,
@@ -12,8 +15,9 @@ from .assemble import (P1Elements, build_elements, element_gradients,
                        load_vector, mass_matvec, operator_diagonal,
                        stiffness_matvec)
 from .estimate import doerfler_mark, threshold_coarsen_mark, zz_estimate
+from .halo import HaloPlan, build_halo_plan, halo_reduce, update_halo_plan
 from .mesh import Mesh, cylinder_mesh, kuhn_box_mesh, unit_cube_mesh
 from .problems import (HelmholtzProblem, ParabolicProblem, ProblemSetup,
                        get_problem, problem_names, register_problem)
 from .refine import coarsen, refine, uniform_refine
-from .solve import CGResult, pcg, solve_dirichlet
+from .solve import CGResult, owned_vdot, pcg, solve_dirichlet

@@ -4,28 +4,39 @@ The paper's computation model per adaptive step:
 
     solve -> estimate -> mark -> refine(/coarsen) -> **balance** -> repeat
 
-Counterpart of ``repro.fem.adapt`` with the host backend, which here means
-one device (the card, by default):
+Counterpart of ``repro.fem.adapt``.  The host backend runs on one device
+(the card, by default); the sharded backend runs one rank per part over
+a ``torch.distributed`` process group (``comm=``):
 
 * ``AdaptSpec``       -- the JAX package's frozen spec (same fields,
   validation and plain-dict round trip, nested ``BalanceSpec``).  It names
   no device.
 * stage registry      -- loop stages per ``(stage, variant)``: ``solve``
-  ('stationary' | 'backward_euler'), ``estimate`` ('zz'), ``mark``
-  ('doerfler'), ``adapt_mesh`` ('refine' | 'coarsen_refine'),
-  ``transfer`` ('p1'), ``balance`` ('host').
+  ('stationary' | 'backward_euler', and the '_owned' twins that run
+  distributed PCG on owner-sharded vertices through the halo exchange),
+  ``estimate`` ('zz'), ``mark`` ('doerfler'), ``adapt_mesh`` ('refine' |
+  'coarsen_refine'), ``transfer`` ('p1'), ``balance`` ('host' |
+  'sharded').
 * ``AdaptiveSession`` -- runs the loop on ``device`` (default CUDA; no
   fallback to the CPU), times each stage with a clock that waits for the
   device, and emits one ``StepStats`` per step.
 
 The mesh and its refinement stay on the host (numpy, the JAX package's
 order); element geometry, the solve (PCG over the hand-written
-element-matvec kernel), the estimator and the balancer (SFC-key and
-k-section histogram kernels) run on the device.
+element-matvec kernel), the estimator and the balancer (SFC-key,
+k-section histogram and prefix-scan kernels) run on the device.
 
-``backend='sharded'`` and ``vertex_layout='owned'`` validate as in the
-JAX package but raise ``NotImplementedError`` at session construction:
-they belong to the multi-device slice.
+``backend='sharded'``: the host mesh, with refinement, estimate and mark,
+is replicated on every rank and kept identical (the solution and the
+error indicators are broadcast from rank 0, since the card's atomic sums
+may differ in the last bits between ranks).  The balance stage runs the
+sharded ``Balancer`` and then re-packs the element payloads across the
+ranks with the migration executor's ``all_to_all``.  With
+``vertex_layout='owned'`` the ``HaloPlan`` is rebuilt from every new
+partition, connectivity is renumbered to part-local slots during the
+same migration, the solve is the owned-vertex PCG, and the per-matvec
+communication model (replicated psum bytes against halo bytes, and the
+cut) lands in each step's stats.
 """
 from __future__ import annotations
 
@@ -41,7 +52,7 @@ from .. import telemetry
 from ..core import Balancer, BalanceSpec, imbalance
 from ..core.metrics import cut_links
 from ..core.sfc import refresh_key_cache
-from ..core.spec import SFC_METHODS, SHARDED_TODO, Spec
+from ..core.spec import SFC_METHODS, Spec
 from ..device import resolve_device
 from .assemble import build_elements, load_vector, mass_matvec
 from .estimate import doerfler_mark, threshold_coarsen_mark, zz_estimate
@@ -78,6 +89,15 @@ class StepStats:
     cut: Optional[int] = None
     migration_retained: float = 0.0
     t_transfer: float = 0.0
+    # communication-volume model per matvec (vertex_layout='owned' only):
+    # replicated-path psum bytes vs halo-exchange bytes; cut above is the
+    # surface index the halo bytes scale with
+    comm_psum_bytes: int = 0
+    comm_halo_bytes: int = 0
+    # split-matvec phase times (owned layout, recorded under tracing):
+    # interface pass + halo exchange vs the interior pass that hides it
+    t_matvec_interior: float = 0.0
+    t_matvec_halo: float = 0.0
 
 
 @dataclass
@@ -86,6 +106,10 @@ class AdaptiveResult:
     n_repartitions: int = 0
     u: Optional[torch.Tensor] = None
     mesh: Optional[Mesh] = None
+    # backend='sharded': this rank's latest element packing
+    sharded: Optional[object] = None
+    # vertex_layout='owned': the HaloPlan matching ``sharded``
+    halo: Optional[object] = None
     spec: Optional["AdaptSpec"] = None
 
 
@@ -107,8 +131,12 @@ class AdaptSpec(Spec):
                        'always', or 'never' (partition once)
     imbalance_trigger  threshold of the 'imbalance' trigger
     balance            nested ``BalanceSpec`` (its backend is overridden)
-    backend            'host' (one device) | 'sharded' (not ported yet)
-    vertex_layout      'replicated' | 'owned' (sharded backend only)
+    backend            'host' (one device) | 'sharded' (one rank per part
+                       over a process group: the sharded balancer and
+                       the all_to_all element migration every step)
+    vertex_layout      'replicated' | 'owned' (sharded backend only):
+                       'owned' shards vertices by owner part and solves
+                       with the halo-exchange PCG
     incremental        cached SFC keys (only dirty leaves re-key against a
                        frozen box) and warm-started k-section search
     max_steps          stationary: adaptive iterations
@@ -274,10 +302,24 @@ class SessionState:
     migration_totalv: float = 0.0
     migration_retained: float = 0.0
     balance_result: Any = None          # core.BalanceResult of last repart
+    sharded: Any = None                 # this rank's ShardedElements
+    halo: Any = None                    # HaloPlan matching `sharded` (owned)
+    # connectivity/partition snapshots `halo` was built from, so the
+    # incremental session can rebuild the next plan from the delta
+    packed_tets: Optional[np.ndarray] = None
+    packed_parts: Optional[np.ndarray] = None
+    halo_info: Optional[Dict] = None    # how the last HaloPlan was produced
     key_info: Optional[Dict] = None     # how the last SFC keys were produced
     mesh_version: int = 0               # bumped by every mesh mutation
+    packed_version: int = -1            # mesh_version `sharded` was packed at
+    packed_ntets: int = -1              # n_tets `sharded` was packed for
     balanced_step: int = -1             # step _balance_common last ran on
-    cut: Optional[int] = None           # surface index (under tracing)
+    owned_ops: Dict[float, Any] = field(default_factory=dict)  # c -> (mv, diag)
+    cut: Optional[int] = None           # surface index of current partition
+    comm_psum_bytes: int = 0            # per-matvec comm model (owned)
+    comm_halo_bytes: int = 0
+    t_matvec_interior: float = 0.0      # split-matvec phase times (owned,
+    t_matvec_halo: float = 0.0          # measured under tracing only)
     timings: Dict[str, float] = field(default_factory=dict)
 
     @property
@@ -330,6 +372,15 @@ def _use_pallas(session: "AdaptiveSession") -> Optional[bool]:
     return session.balance_spec.use_pallas
 
 
+def _replicated(session: "AdaptiveSession", x: torch.Tensor) -> torch.Tensor:
+    """Rank 0's copy of a replicated quantity on every rank (sharded
+    sessions): the card's atomic sums may differ in the last bits between
+    ranks, and the replicated mesh must not."""
+    if session.comm is None:
+        return x
+    return session.comm.broadcast(x.contiguous())
+
+
 @register_adapt_stage("solve", "stationary")
 def _solve_stationary(session: "AdaptiveSession", state: SessionState):
     """One Dirichlet solve of ``-Delta u + c u = f`` on the current mesh."""
@@ -341,7 +392,7 @@ def _solve_stationary(session: "AdaptiveSession", state: SessionState):
                           _free_mask(state.mesh, session.device), prob.c,
                           tol=session.spec.tol, maxiter=session.spec.maxiter,
                           use_pallas=_use_pallas(session))
-    state.u = sol.x
+    state.u = _replicated(session, sol.x)
     state.cg_iters = int(sol.iters)
 
 
@@ -361,6 +412,125 @@ def _solve_backward_euler(session: "AdaptiveSession", state: SessionState):
                           _free_mask(state.mesh, session.device),
                           1.0 / spec.dt, tol=spec.tol, maxiter=spec.maxiter,
                           use_pallas=_use_pallas(session))
+    state.u = _replicated(session, sol.x)
+    state.cg_iters = int(sol.iters)
+
+
+def _pack_owned(session: "AdaptiveSession", state: SessionState):
+    """Owned-layout packing from the current mesh + partition: build the
+    ``HaloPlan``, migrate and renumber this rank's element payloads,
+    record the per-matvec communication model, and drop the cached
+    operators.  Both the balance stage and the solve-path staleness
+    repack go through here."""
+    from .halo import build_halo_plan, publish_wire_model, update_halo_plan
+    from .parallel import shard_elements_on_device
+    el = _ensure_elements(session, state)
+    mesh = state.mesh
+    parts = np.asarray(mesh.leaf_payload["parts"])
+    p = session.balance_spec.p
+    if (session.spec.incremental and state.halo is not None
+            and state.packed_tets is not None
+            and state.packed_parts is not None):
+        plan, hinfo = update_halo_plan(
+            state.halo, state.packed_tets, state.packed_parts,
+            mesh.tets, parts, mesh.n_verts, p)
+    else:
+        plan = build_halo_plan(mesh.tets, parts, mesh.n_verts, p)
+        hinfo = {"mode": "scratch"}
+    state.halo = plan
+    state.halo_info = hinfo
+    state.packed_tets = mesh.tets.copy()
+    state.packed_parts = parts.copy()
+    state.sharded = shard_elements_on_device(el, parts, p, session.comm,
+                                             halo=plan)
+    state.packed_ntets = mesh.n_tets
+    state.packed_version = state.mesh_version
+    state.owned_ops = {}
+    state.cut = int(cut_links(torch.as_tensor(parts),
+                              torch.as_tensor(mesh.face_adjacency())))
+    # wire bytes in the solve's scalar width (float32)
+    itemsize = el.vol.element_size()
+    state.comm_psum_bytes = plan.psum_bytes(itemsize)
+    state.comm_halo_bytes = plan.halo_bytes(itemsize)
+    tr = telemetry.get_tracer()
+    if tr.enabled:
+        publish_wire_model(plan, tr.metrics, itemsize=itemsize)
+
+
+def _ensure_owned_packing(session: "AdaptiveSession", state: SessionState):
+    """(Re)build the owned-layout packing + halo plan iff stale.
+
+    Fresh after the previous step's balance stage on the stationary
+    loop; the time-dependent loop adapts the mesh before solving, so the
+    inherited partition re-packs here.  The first step, with no
+    partition at all, runs the balance policy once."""
+    el = _ensure_elements(session, state)
+    mesh = state.mesh
+    if (state.halo is not None and state.sharded is not None
+            and state.sharded.layout == "owned"
+            and state.packed_version == state.mesh_version
+            and state.halo.n_verts == el.n_verts
+            and state.packed_ntets == mesh.n_tets):
+        return
+    parts = state.parts
+    if parts is None or len(parts) != mesh.n_tets:
+        _balance_common(session, state)
+    _pack_owned(session, state)
+
+
+def _owned_operators(session: "AdaptiveSession", state: SessionState,
+                     c: float):
+    """Cached (matvec, diagonal) pair for the current packing, rebuilt
+    only when the packing is (``_pack_owned`` clears the cache)."""
+    from .parallel import make_owned_operators
+    ops = state.owned_ops.get(c)
+    if ops is None:
+        ops = make_owned_operators(state.sharded, session.comm, c,
+                                   use_pallas=_use_pallas(session))
+        state.owned_ops[c] = ops
+    return ops
+
+
+@register_adapt_stage("solve", "stationary_owned")
+def _solve_stationary_owned(session: "AdaptiveSession", state: SessionState):
+    """Stationary solve on owned vertices: distributed PCG whose matvec
+    communicates by the halo exchange (no vertex-sized psum)."""
+    from .parallel import sharded_solve_dirichlet
+    prob = session.problem
+    el = _ensure_elements(session, state)
+    _ensure_owned_packing(session, state)
+    verts = _verts(session, state.mesh)
+    rhs = _replicated(session, load_vector(el, verts, prob.f))
+    sol = sharded_solve_dirichlet(
+        state.sharded, session.comm, rhs, prob.exact(verts),
+        _free_mask(state.mesh, session.device), prob.c,
+        tol=session.spec.tol, maxiter=session.spec.maxiter,
+        operators=_owned_operators(session, state, prob.c))
+    state.u = sol.x
+    state.cg_iters = int(sol.iters)
+
+
+@register_adapt_stage("solve", "backward_euler_owned")
+def _solve_backward_euler_owned(session: "AdaptiveSession",
+                                state: SessionState):
+    """Backward-Euler step on owned vertices (the system of the
+    replicated variant, halo-exchange matvec)."""
+    from .parallel import sharded_solve_dirichlet
+    prob = session.problem
+    spec = session.spec
+    t_next = state.t + spec.dt
+    el = _ensure_elements(session, state)
+    _ensure_owned_packing(session, state)
+    verts = _verts(session, state.mesh)
+    fv = load_vector(el, verts, lambda x: prob.f(x, t_next))
+    u_prev = torch.as_tensor(state.u, dtype=torch.float32,
+                             device=session.device)
+    rhs = _replicated(session, mass_matvec(el, u_prev) / spec.dt + fv)
+    c = 1.0 / spec.dt
+    sol = sharded_solve_dirichlet(
+        state.sharded, session.comm, rhs, prob.exact(verts, t_next),
+        _free_mask(state.mesh, session.device), c, tol=spec.tol,
+        maxiter=spec.maxiter, operators=_owned_operators(session, state, c))
     state.u = sol.x
     state.cg_iters = int(sol.iters)
 
@@ -370,7 +540,7 @@ def _estimate_zz(session: "AdaptiveSession", state: SessionState):
     """Zienkiewicz--Zhu indicators for the current u (host copy)."""
     el = _ensure_elements(session, state)
     u = torch.as_tensor(state.u, dtype=torch.float32, device=session.device)
-    state.eta = zz_estimate(el, u).cpu().numpy()
+    state.eta = _replicated(session, zz_estimate(el, u)).cpu().numpy()
 
 
 @register_adapt_stage("mark", "doerfler")
@@ -505,6 +675,32 @@ def _balance_host(session: "AdaptiveSession", state: SessionState):
     _balance_common(session, state)
 
 
+@register_adapt_stage("balance", "sharded")
+def _balance_sharded(session: "AdaptiveSession", state: SessionState):
+    """Sharded balance: the DLB pipeline over the process group (the
+    sharded ``Balancer``), then the mesh's element payloads re-packed
+    across the ranks with the migration executor's ``all_to_all`` -- the
+    paper's per-step data migration.  With ``vertex_layout='owned'`` the
+    ``HaloPlan`` is rebuilt from the fresh partition after every
+    repartition (``_pack_owned``)."""
+    from .parallel import shard_elements_on_device
+    _balance_common(session, state)
+    if session.spec.vertex_layout == "owned":
+        # the solve stage may have packed this very (mesh, partition)
+        # already; only a new partition or a mesh mutation needs a repack
+        if (state.repartitioned or state.packed_version != state.mesh_version
+                or state.sharded is None or state.sharded.layout != "owned"):
+            _pack_owned(session, state)
+        return
+    el = _ensure_elements(session, state)
+    mesh = state.mesh
+    state.halo = None
+    state.sharded = shard_elements_on_device(
+        el, mesh.leaf_payload["parts"], session.balance_spec.p, session.comm)
+    state.packed_ntets = mesh.n_tets
+    state.packed_version = state.mesh_version
+
+
 # ---------------------------------------------------------------------------
 # AdaptiveSession
 # ---------------------------------------------------------------------------
@@ -512,20 +708,25 @@ def _balance_host(session: "AdaptiveSession", state: SessionState):
 class AdaptiveSession:
     """Resolve an ``AdaptSpec`` into an adaptive loop on ``device``.
 
-    ``device=None`` means CUDA; without a CUDA device it raises unless
-    ``device="cpu"`` is passed.  Hooks: ``on_step(stats, state)`` after
-    each step, ``on_stage(stage, variant, dt)`` after each top-level
-    stage.  ``run(mesh)`` uses the given mesh, else the session's, else
-    the problem's default mesh."""
+    ``device=None`` means CUDA (for the sharded backend: ``comm``'s
+    device); without a CUDA device it raises unless ``device="cpu"`` is
+    passed.  ``backend='sharded'`` needs ``comm``, a ``distributed.Comm``
+    over exactly ``p`` ranks, each of which runs the session on the same
+    mesh; it fails fast here on a missing group, a world size other than
+    ``p`` or an unknown stage variant.  Hooks: ``on_step(stats, state)``
+    after each step, ``on_stage(stage, variant, dt)`` after each
+    top-level stage.  ``run(mesh)`` uses the given mesh, else the
+    session's, else the problem's default mesh."""
 
     def __init__(self, spec: AdaptSpec, *, mesh: Optional[Mesh] = None,
-                 device=None, verbose: bool = False,
+                 device=None, comm=None, verbose: bool = False,
                  on_step: Optional[Callable] = None,
                  on_stage: Optional[Callable] = None,
                  tracer: Optional["telemetry.Tracer"] = None):
-        if spec.backend == "sharded":
-            raise NotImplementedError(SHARDED_TODO)
         self.spec = spec
+        self.comm = comm if spec.backend == "sharded" else None
+        if device is None and self.comm is not None:
+            device = self.comm.device
         self.device = resolve_device(device)
         self.setup = get_problem(spec.problem)
         if self.setup.kind == "parabolic" and spec.stationary:
@@ -542,7 +743,8 @@ class AdaptiveSession:
             bspec = bspec.replace(warm_start=True)
         self.balance_spec = bspec
         self._key_cache = None          # incremental SFC KeyCache
-        self.balancer = Balancer(bspec, device=self.device)
+        # fails fast: the sharded backend checks the group against p
+        self.balancer = Balancer(bspec, device=self.device, comm=self.comm)
         self.variants = resolve_adapt_variants(spec, self.setup)
         self._stages = {s: get_adapt_stage(s, v)
                         for s, v in self.variants.items() if v is not None}
@@ -612,6 +814,8 @@ class AdaptiveSession:
         if state.u is not None:
             result.u = torch.as_tensor(state.u, device=self.device)
         result.mesh = state.mesh
+        result.sharded = state.sharded
+        result.halo = state.halo
         return result
 
     def _run_steps(self, state: SessionState, result: AdaptiveResult,
@@ -647,14 +851,30 @@ class AdaptiveSession:
         tr = telemetry.get_tracer()
         if tr.enabled:
             parts = state.mesh.leaf_payload.get("parts")
-            if parts is not None and len(parts) == state.mesh.n_tets:
+            if (state.halo is None and parts is not None
+                    and len(parts) == state.mesh.n_tets):
+                # the owned packing computes the cut of its partition;
+                # under tracing every other backend pays for it here
                 state.cut = int(cut_links(
                     torch.as_tensor(parts),
                     torch.as_tensor(state.mesh.face_adjacency())))
+            if state.cut is not None:
                 tr.metrics.gauge(
                     "cut", unit="links",
                     help="element-adjacency links crossing parts "
                          "(paper surface index)").set(int(state.cut))
+            if (state.halo is not None and state.sharded is not None
+                    and state.sharded.layout == "owned"
+                    and state.sharded.n_interface is not None):
+                # out-of-band split-matvec phase times, after the step's
+                # stage clocks so t_solve is not inflated
+                from .parallel import measure_matvec_phases
+                c = (getattr(self.problem, "c", 0.0) if self.spec.stationary
+                     else 1.0 / self.spec.dt)
+                state.t_matvec_halo, state.t_matvec_interior = (
+                    measure_matvec_phases(state.sharded, self.comm, c,
+                                          use_pallas=_use_pallas(self),
+                                          step=state.step))
         eta2 = np.asarray(state.eta, np.float64) ** 2
         tm = state.timings
         return StepStats(
@@ -670,7 +890,11 @@ class AdaptiveSession:
             migration_totalv=state.migration_totalv,
             cut=state.cut,
             migration_retained=state.migration_retained,
-            t_transfer=tm.get("transfer", 0.0))
+            t_transfer=tm.get("transfer", 0.0),
+            comm_psum_bytes=state.comm_psum_bytes,
+            comm_halo_bytes=state.comm_halo_bytes,
+            t_matvec_interior=state.t_matvec_interior,
+            t_matvec_halo=state.t_matvec_halo)
 
 
 # ---------------------------------------------------------------------------

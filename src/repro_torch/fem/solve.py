@@ -1,6 +1,8 @@
 """Jacobi-preconditioned CG on the device.
 
-Solves (A + c M) u = b with Dirichlet dofs pinned.  The operator is the
+Solves (A + c M) u = b with Dirichlet dofs pinned.  ``pcg`` also runs
+on owned-layout vertex vectors over a process group (``vdot`` hook,
+``owned_vdot``; ``fem.parallel.sharded_solve_dirichlet``).  The operator is the
 hand-written element-matvec kernel (``kernels.ops.fem_matvec_op``) on
 element matrices built once per solve; the loop is a Python loop whose
 stopping test reads one scalar from the device per iteration.
@@ -25,10 +27,25 @@ class CGResult(NamedTuple):
 
 def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         diag: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-8,
-        maxiter: int = 2000) -> CGResult:
-    """Standard PCG with Jacobi preconditioner M = diag."""
+        maxiter: int = 2000,
+        vdot: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                torch.Tensor]] = None) -> CGResult:
+    """Standard PCG with Jacobi preconditioner M = diag.
+
+    ``vdot`` generalizes the inner product so the same loop runs on
+    sharded vertex vectors: with the owned layout each rank holds its
+    (V,) slots, shared vertices on every toucher, and ``vdot`` is the
+    ownership-masked local sum plus one scalar psum (``owned_vdot``).
+    Norms then come from the same ``vdot``.  Default: ``torch.dot`` and
+    the vector norm (replicated vectors)."""
     inv_d = torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))
-    dot, norm = torch.dot, torch.linalg.vector_norm
+    if vdot is None:
+        dot, norm = torch.dot, torch.linalg.vector_norm
+    else:
+        dot = vdot
+
+        def norm(v):
+            return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
 
     x = x0
     r = b - matvec(x0)
@@ -49,6 +66,17 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         rz = rz_new
         it += 1
     return CGResult(x, it, norm(r) / bnorm)
+
+
+def owned_vdot(owned_mask: torch.Tensor, comm) -> Callable:
+    """Inner product for owned-layout (V,) vertex vectors on one rank.
+
+    Shared vertices live on every toucher; masking by ownership counts
+    each dof once, so the result equals the replicated ``torch.dot`` up
+    to summation order: a local masked sum and one scalar psum."""
+    def dot(a, b):
+        return comm.psum(torch.where(owned_mask, a * b, 0.0).sum())
+    return dot
 
 
 def masked_operator(el: P1Elements, free: torch.Tensor, c: float, *,

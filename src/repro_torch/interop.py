@@ -6,7 +6,10 @@ cross through ``to_dict`` / ``from_dict``.  Meshes cross through the
 functions below, which copy arrays and never import the other package:
 ``mesh_from_numpy`` takes any object (or dict) with the ``Mesh`` fields,
 e.g. a ``repro.fem.Mesh``; ``mesh_to_numpy`` gives a plain dict from
-which the caller rebuilds a mesh of either package.  The serving side's
+which the caller rebuilds a mesh of either package.  The sharded FEM
+layer's state crosses as one rank's pieces: ``halo_plan_from_jax`` and
+``sharded_elements_from_jax`` take the JAX package's ``HaloPlan`` and
+``(p, C, ...)`` ``ShardedElements`` (any object with their fields).  The serving side's
 state is the model's weights: ``params_from_jax`` builds a port model
 from the JAX package's parameter tree.
 """
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from .core.rtree import RefinementForest
+from .fem.halo import HaloPlan
 from .fem.mesh import Mesh
+from .fem.parallel import ShardedElements
 from .models.config import ModelConfig
 from .models.model import init_model
 from .models.transformer import DecoderLM
@@ -68,6 +73,35 @@ def mesh_to_numpy(mesh: Mesh) -> Dict[str, Any]:
     out["leaf_payload"] = {k: np.array(v, copy=True)
                            for k, v in mesh.leaf_payload.items()}
     return out
+
+
+HALO_ARRAYS = ("local_verts", "owned_mask", "global_to_local", "send_idx",
+               "recv_idx", "owner")
+HALO_SIZES = ("p", "n_verts", "V", "H", "n_local", "n_owned",
+              "n_ghost_total")
+
+
+def halo_plan_from_jax(plan: Any) -> HaloPlan:
+    """A port ``HaloPlan`` holding numpy copies of ``plan``'s arrays (a
+    plan of either package)."""
+    return HaloPlan(**{k: np.array(getattr(plan, k), copy=True)
+                       for k in HALO_ARRAYS},
+                    **{k: getattr(plan, k) for k in HALO_SIZES})
+
+
+def sharded_elements_from_jax(sel: Any, rank: int, *, device=None
+                              ) -> ShardedElements:
+    """Rank ``rank``'s row of the JAX package's ``(p, C, ...)`` element
+    packing as a port ``ShardedElements`` (tensors on ``device``,
+    default CPU; the plan converted by ``halo_plan_from_jax``)."""
+    dev = torch.device("cpu" if device is None else device)
+    row = lambda a: torch.as_tensor(np.array(np.asarray(a)[rank]),  # noqa
+                                    device=dev)
+    halo = None if sel.halo is None else halo_plan_from_jax(sel.halo)
+    return ShardedElements(row(sel.tets).to(torch.int32), row(sel.grads),
+                           row(sel.vol), int(sel.n_verts), int(sel.p), rank,
+                           halo=halo, layout=sel.layout,
+                           n_interface=sel.n_interface)
 
 
 def _tensor(leaf, device) -> torch.Tensor:

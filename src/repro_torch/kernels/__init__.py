@@ -12,12 +12,13 @@ Kernels (the TPU kernel each replaces is named in its source):
   sfc_keys       Morton / Hilbert keys, one thread per element
   ksection_hist  k-section candidate-cut weight histogram
   fem_matvec     P1 element matvec with precomputed 4x4 element matrices
+  prefix_scan    exclusive prefix sum (Algorithm 1's S_i), three passes
   flash_attention  causal / sliding-window / GQA attention (full prefill)
   serve_prefill  segment-masked causal attention over a packed buffer
 
 ``build.py`` compiles ``csrc/*.cu`` with nvcc at first use on a CUDA
 tensor; nothing is built at import.
 """
-from .ops import (fem_matvec_op, flash_attention_op, ksection_histogram_op,
-                  launch_counts, packed_attention_op, reset_launch_counts,
-                  sfc_keys_op)
+from .ops import (exclusive_scan_op, fem_matvec_op, flash_attention_op,
+                  ksection_histogram_op, launch_counts, packed_attention_op,
+                  reset_launch_counts, sfc_keys_op)

@@ -20,12 +20,13 @@ from . import ref
 from .fem_matvec import fem_matvec_cuda
 from .flash_attention import flash_attention_cuda
 from .ksection_hist import ksection_hist_cuda
+from .prefix_scan import exclusive_scan_cuda
 from .serve_prefill import packed_attention_cuda
 from .sfc_keys import sfc_keys_cuda
 
 #: kernel name -> wrapper; each wrapper carries a ``launches`` count
 KERNELS = {"sfc_keys": sfc_keys_cuda, "ksection_hist": ksection_hist_cuda,
-           "fem_matvec": fem_matvec_cuda,
+           "fem_matvec": fem_matvec_cuda, "prefix_scan": exclusive_scan_cuda,
            "flash_attention": flash_attention_cuda,
            "serve_prefill": packed_attention_cuda}
 
@@ -49,6 +50,15 @@ def sfc_keys_op(grid: torch.Tensor, *, curve: str = "hilbert", bits: int = 10,
         return keys.to(torch.int64)
     fn = ref.hilbert_keys_ref if curve == "hilbert" else ref.morton_keys_ref
     return fn(grid, bits)
+
+
+def exclusive_scan_op(x: torch.Tensor, *,
+                      use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """Exclusive prefix sum (Algorithm 1's S_i) over (n,), any n.  The
+    kernel works in float32; the plain version in the input's type."""
+    if use_kernel(x, use_pallas):
+        return exclusive_scan_cuda(x.to(torch.float32).contiguous())
+    return ref.exclusive_scan_ref(x)
 
 
 def ksection_histogram_op(keys: torch.Tensor, weights: torch.Tensor,

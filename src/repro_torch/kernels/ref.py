@@ -23,6 +23,13 @@ def hilbert_keys_ref(grid: torch.Tensor, bits: int = 10) -> torch.Tensor:
     return _sfc.hilbert_encode(grid.to(torch.int64), bits)
 
 
+# --- prefix_scan -----------------------------------------------------------
+
+def exclusive_scan_ref(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum along the last axis (Algorithm 1's S_i)."""
+    return torch.cumsum(x, dim=-1) - x
+
+
 # --- ksection_hist ---------------------------------------------------------
 
 def ksection_histogram_ref(keys: torch.Tensor, weights: torch.Tensor,

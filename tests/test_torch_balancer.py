@@ -124,5 +124,9 @@ def test_spec_dicts_round_trip_across_packages():
 
 
 def test_sharded_backend_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The sharded backend is ported (ROADMAP queue 1, item 9): it runs one
+    rank per part and, like the JAX package's mesh check, refuses to start
+    without a process group of p ranks (tests/test_torch_distributed.py
+    runs it)."""
+    with pytest.raises(ValueError, match="process group"):
         T.Balancer(T.BalanceSpec(p=4, backend="sharded"), device="cpu")

@@ -92,6 +92,19 @@ def test_sorted_exact_matches(p):
                              jnp.asarray(w), p))
 
 
+@pytest.mark.parametrize("n,p", [(1, 4), (2047, 16), (5000, 128),
+                                 (1 << 16, 64)])
+def test_prefix_sum_parts_matches(n, p):
+    """Algorithm 1's parts, S_i through the port's exclusive scan, equal
+    the JAX package's cumsum ones on integer weights (zeros included)."""
+    rng = np.random.default_rng(n)
+    w = rng.integers(0, 5, n).astype(np.float32)
+    got = T.prefix_sum_parts(torch.as_tensor(w), p)
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(jp1d.prefix_sum_parts(jnp.asarray(w), p)))
+    assert got.dtype == torch.int64
+
+
 def test_weight_below_matches():
     keys, w = _keys_weights(5_000, 3)
     rng = np.random.default_rng(3)

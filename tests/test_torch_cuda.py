@@ -20,6 +20,7 @@ from repro_torch.kernels.fem_matvec import (fem_element_matrices,
                                             fem_matvec_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
 from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
 from repro_torch.telemetry import block_until_ready
@@ -103,6 +104,71 @@ def test_wrappers_reject_bad_inputs(cuda):
         fem_matvec_cuda(torch.zeros((2, 4), dtype=torch.int32, device=cuda),
                         torch.zeros((2, 4, 4), device=cuda),
                         torch.zeros(3, device=cuda), 8)
+
+
+# --- prefix scan -------------------------------------------------------------
+# Integer weights whose total stays below 2^24: every order of additions
+# is exact, so kernel and plain version are equal.  Float weights: within
+# 1e-6 of the sum of |x| (other orders of additions), and the kernel gives
+# the same bits on every run (no atomics).
+
+@pytest.mark.parametrize("n", [1, 31, 4095, 4096, 4097, 1_000_003, 1 << 21,
+                               4096 * 1030 + 7])
+def test_prefix_scan_kernel_exact_on_integers(cuda, n):
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.integers(0, 5, n).astype(np.float32),
+                        device=cuda)
+    before = exclusive_scan_cuda.launches
+    got = exclusive_scan_cuda(x)
+    assert exclusive_scan_cuda.launches == before + 1
+    assert torch.equal(got, ref.exclusive_scan_ref(x))
+
+
+def test_prefix_scan_kernel_float_close_and_deterministic(cuda):
+    rng = np.random.default_rng(7)
+    n = 2_588_188
+    x = torch.as_tensor(rng.random(n).astype(np.float32), device=cuda)
+    got = exclusive_scan_cuda(x)
+    want = ref.exclusive_scan_ref(x.double())
+    tol = 1e-6 * float(x.abs().sum())
+    assert float((got.double() - want).abs().max()) <= tol
+    assert torch.equal(got, exclusive_scan_cuda(x))
+    assert exclusive_scan_cuda(x[:0]).shape == (0,)
+
+
+def test_prefix_scan_rejects_bad_inputs(cuda):
+    with pytest.raises(ValueError, match="float32"):
+        exclusive_scan_cuda(torch.zeros(4, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        exclusive_scan_cuda(torch.zeros((2, 2), device=cuda))
+
+
+def test_sharded_balancer_on_card_equals_host(cuda, tmp_path):
+    """Four gloo ranks sharing the card (collectives staged through host
+    memory): the sharded balance equals the host backend on the card, and
+    its sorted stage ran the scan kernel."""
+    from repro_torch.distributed import run_world
+    out = run_world(_sharded_balance_rank, 4, 50_000,
+                    init_file=str(tmp_path / "rdv"), devices=["cuda:0"] * 4,
+                    timeout_s=120.0, join_s=300.0)
+    for parts, host, launches, staged in out:
+        np.testing.assert_array_equal(parts, host)
+        assert launches > 0 and staged > 0
+
+
+def _sharded_balance_rank(comm, n):
+    rng = np.random.default_rng(3)
+    coords = (rng.random((n, 3)) * [10.0, 1.0, 1.0]).astype(np.float32)
+    w = rng.integers(1, 3, n).astype(np.float32)
+    spec = BalanceSpec(p=comm.size, method="hsfc", oneD="sorted",
+                       backend="sharded")
+    before = exclusive_scan_cuda.launches
+    r = Balancer(spec, comm=comm).balance(w, coords=coords)
+    launches = exclusive_scan_cuda.launches - before
+    h = Balancer(spec.replace(backend="host"), device=comm.device).balance(
+        w, coords=coords)
+    return (r.parts.cpu().numpy(), h.parts.cpu().numpy(), launches,
+            comm.staged_bytes)
 
 
 @pytest.mark.parametrize("method,oneD", [("hsfc", "ksection"),

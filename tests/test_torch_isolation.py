@@ -77,9 +77,12 @@ def test_entry_points_default_to_cuda():
 
 
 def test_sharded_session_names_the_roadmap_item():
+    """The sharded session is ported (ROADMAP queue 1, item 9) and fails
+    fast, as the JAX package's does, without a process group of p ranks
+    (tests/test_torch_halo.py runs it)."""
     spec = AdaptSpec(backend="sharded",
                      balance=BalanceSpec(p=4, backend="sharded"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group"):
         AdaptiveSession(spec, device="cpu")
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.fem_matvec import (fem_element_matrices,
                                             fem_matvec_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
 from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
 
@@ -156,6 +157,39 @@ def test_fem_matvec_plain_matches_reference(C, V, n_out, c):
         np.testing.assert_allclose(got.numpy(), pallas, **tol)
 
 
+# --- prefix_scan -------------------------------------------------------------
+# Integer weights: every order of additions is exact below 2^24, so the
+# scans are equal.  Float weights: the sums are taken in other orders, so
+# each prefix agrees within 1e-6 of the total sum of |x|.
+
+def _scan_case(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        return rng.integers(0, 5, n).astype(np.float32)
+    return rng.random(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 5000, 1 << 16])
+def test_exclusive_scan_plain_matches_pallas_kernel(n, kind):
+    x = _scan_case(n, kind, n)
+    pallas = np.asarray(jops.exclusive_scan_op(jnp.asarray(x),
+                                               use_pallas=True,
+                                               interpret=True))
+    oracle = np.asarray(jref.exclusive_scan_ref(jnp.asarray(x)))
+    got = ops.exclusive_scan_op(torch.as_tensor(x), use_pallas=False)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    got = got.numpy()
+    if kind == "int":
+        np.testing.assert_array_equal(got, pallas)
+        np.testing.assert_array_equal(got, oracle)
+    else:
+        tol = 1e-6 * float(np.abs(x).sum())
+        assert np.abs(got - pallas).max() <= tol
+        assert np.abs(got - oracle).max() <= tol
+    assert got[0] == 0.0
+
+
 # --- dispatch ----------------------------------------------------------------
 
 def _cpu_inputs():
@@ -178,9 +212,10 @@ def test_ops_on_cpu_run_plain_versions_with_no_launch():
         ops.fem_matvec_op(tets, kel, u, 12, use_pallas=use)
         ops.flash_attention_op(q, kv, kv, use_pallas=use)
         ops.packed_attention_op(q[0], kv[0], kv[0], seg, use_pallas=use)
+        ops.exclusive_scan_op(w, use_pallas=use)
     assert ops.launch_counts() == {"sfc_keys": 0, "ksection_hist": 0,
-                                   "fem_matvec": 0, "flash_attention": 0,
-                                   "serve_prefill": 0}
+                                   "fem_matvec": 0, "prefix_scan": 0,
+                                   "flash_attention": 0, "serve_prefill": 0}
 
 
 def test_use_pallas_true_on_cpu_raises():
@@ -191,6 +226,8 @@ def test_use_pallas_true_on_cpu_raises():
         ops.ksection_histogram_op(keys, w, cuts, use_pallas=True)
     with pytest.raises(ValueError, match="CUDA"):
         ops.fem_matvec_op(tets, kel, u, 12, use_pallas=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.exclusive_scan_op(w, use_pallas=True)
     q = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_op(q, q, q, use_pallas=True)
@@ -208,6 +245,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
         ksection_hist_cuda(keys, w, cuts)
     with pytest.raises(ValueError, match="CUDA"):
         fem_matvec_cuda(tets, kel, u, 12)
+    with pytest.raises(ValueError, match="CUDA"):
+        exclusive_scan_cuda(w)
     q = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q)
