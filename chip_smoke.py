@@ -524,8 +524,9 @@ def standalone_dlb(dev, n=8_000_000):
 
 SHARDED_P = 4
 PROFILED_STEP = 1       # the sharded session step run under torch.profiler
-SCAN_SIZES = (1 << 20, 1 << 21, 2_588_188, 1_000_003)
-SCAN_ROW_N = 1 << 20    # a rank's shard (C) at the sharded session's last step
+# beside the shard lengths the sharded session scanned: 2^21, the FEM
+# session's largest mesh and a ragged n
+SCAN_EXTRA_SIZES = (1 << 21, 2_588_188, 1_000_003)
 PCG_RTOL = 1e-5         # owned PCG against the replicated-layout solve
 
 
@@ -567,18 +568,25 @@ def start_world(fn, *args, join_s):
             os.remove(init)
 
 
-def compare_scan(dev):
-    """Phase 10: the prefix-scan kernel against its plain version
-    (torch.cumsum(x) - x) at a rank's shard of the sharded session's last
-    step, 2^21, the FEM session's largest mesh and a ragged n: integer
-    weights equal, uniform floats within 1e-6 * sum|x|; timed beside
-    torch.cumsum alone (the library yardstick)."""
+def compare_scan(dev, path_lengths):
+    """Phase 12: the prefix-scan kernel against its plain version
+    (torch.cumsum(x) - x) at every shard length the sharded session's
+    sorted stage scanned (a rank's C = Balancer.capacity_for(n_tets), as
+    recorded by phase 11), then at SCAN_EXTRA_SIZES: integer weights
+    equal, uniform floats within 1e-6 * sum|x|; timed beside torch.cumsum
+    alone (the library yardstick).  The table row is the length the path
+    scanned most often."""
+    import collections
     import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
+    freq = collections.Counter(path_lengths)
+    row_n = max(freq, key=lambda n: (freq[n], n))
+    log(f"shard lengths the sharded session scanned (per rank, each "
+        f"balance): {path_lengths}; table row at n={row_n}")
     row = None
-    for n in SCAN_SIZES:
+    for n in sorted(freq) + [n for n in SCAN_EXTRA_SIZES if n not in freq]:
         rng = np.random.default_rng(n)
         xi = torch.as_tensor(rng.integers(1, 3, n).astype(np.float32),
                              device=dev)
@@ -596,12 +604,15 @@ def compare_scan(dev):
         plain_ms, plain_call_ms = timed_ms(lambda: ref.exclusive_scan_ref(xf))
         lib_ms, lib_call_ms = timed_ms(lambda: torch.cumsum(xf, dim=0))
         bound = 8 * n / PEAK_BYTES_PER_S * 1e3
-        log(f"prefix_scan n={n}: kernel_ms={ms:.4f} (call {call_ms:.4f}) "
-            f"plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) "
-            f"cumsum_ms={lib_ms:.4f} (call {lib_call_ms:.4f}) bound_ms="
-            f"{bound:.4f} share={bound / ms:.3f} max_abs_err={err:.3e} "
-            f"(tolerance 1e-6 * sum|x| = {tol:.3e}); integers equal")
-        if n == SCAN_ROW_N:
+        where = (f"path, {freq[n]} scan(s) per rank" if n in freq
+                 else "extra size")
+        log(f"prefix_scan n={n} ({where}): kernel_ms={ms:.4f} (call "
+            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
+            f"{plain_call_ms:.4f}) cumsum_ms={lib_ms:.4f} (call "
+            f"{lib_call_ms:.4f}) bound_ms={bound:.4f} share={bound / ms:.3f} "
+            f"max_abs_err={err:.3e} (tolerance 1e-6 * sum|x| = {tol:.3e}); "
+            f"integers equal")
+        if n == row_n:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by="bytes", library_ms=lib_ms, max_abs_err=err)
     return row
@@ -663,7 +674,7 @@ def sharded_dlb_rank(comm, n, seed):
 
 
 def sharded_dlb(n=8_000_000):
-    """Phase 11: the standalone sharded DLB step over SHARDED_P ranks."""
+    """Phase 10: the standalone sharded DLB step over SHARDED_P ranks."""
     (outs, backend) = start_world(sharded_dlb_rank, n, 0, join_s=900.0)
     for oneD in ("sorted", "ksection"):
         rs = [o[oneD] for o in outs]
@@ -683,31 +694,27 @@ def sharded_dlb(n=8_000_000):
             f"rank 0 {rs[0]['launches']}")
 
 
-def replicated_layout_solve(session, state):
-    """The replicated-layout solve of the packing's partition: the same
+def replicated_layout_solve(comm, problem, spec, kept):
+    """The replicated-layout solve of a kept solve's packing: the same
     masked system, PCG over the replicated vertex vector with one psum
     per matvec (fem.parallel's replicated layout)."""
     import torch
-    from repro_torch.fem import adapt, load_vector
+    from repro_torch.fem import load_vector
     from repro_torch.fem.parallel import (make_sharded_matvec,
                                           shard_elements_on_device,
                                           sharded_diagonal)
     from repro_torch.fem.solve import pcg
-    comm, prob, spec = session.comm, session.problem, session.spec
-    el = state.el
-    sel = shard_elements_on_device(el, state.mesh.leaf_payload["parts"],
-                                   SHARDED_P, comm)
-    mv, _ = make_sharded_matvec(sel, comm, prob.c)
-    verts = adapt._verts(session, state.mesh)
-    free = adapt._free_mask(state.mesh, session.device)
+    el, verts, free = kept["el"], kept["verts"], kept["free"]
+    sel = shard_elements_on_device(el, kept["parts"], SHARDED_P, comm)
+    mv, _ = make_sharded_matvec(sel, comm, problem.c)
     # the same right-hand side on every rank (its atomic sums may differ
     # in the last bits), so every rank's PCG takes the same iterations
-    rhs = comm.broadcast(load_vector(el, verts, prob.f))
-    g = prob.exact(verts)
+    rhs = comm.broadcast(load_vector(el, verts, problem.f))
+    g = problem.exact(verts)
     zero = torch.zeros((), device=rhs.device)
     g_ext = torch.where(free > 0, zero, g)
     b = torch.where(free > 0, rhs - mv(g_ext), zero)
-    diag = torch.where(free > 0, sharded_diagonal(sel, comm, prob.c),
+    diag = torch.where(free > 0, sharded_diagonal(sel, comm, problem.c),
                        torch.ones_like(free))
     res = pcg(lambda u: torch.where(free > 0, mv(u * free), u), b, diag,
               torch.zeros_like(b), tol=spec.tol, maxiter=spec.maxiter)
@@ -717,16 +724,20 @@ def replicated_layout_solve(session, state):
 def sharded_session_rank(comm, rounds, max_tets):
     """One rank of the sharded adaptive session (main path 3): the host
     session's mesh, owned layout, repartition and migration every step.
-    Every step holds its partition against the host backend on the same
-    mesh, its owned PCG solution against the replicated-layout solve of
-    the same packing, and the migration to conservation.  Launches made
-    by those checks are taken out of the path's counts."""
+    The session runs once with the launch counts from 0; its public
+    ``on_state`` observer keeps, after each stage, copies of what the
+    checks read.  After the counted run every step is checked: its
+    partition against the host backend on the same mesh, its owned PCG
+    solution against the replicated-layout solve of the same packing,
+    and the migration to conservation.  Also returns the shard length
+    each balance's sorted stage scanned (Balancer.capacity_for)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Balancer, BalanceSpec
     from repro_torch.fem import (AdaptSpec, AdaptiveSession, cylinder_mesh,
                                  uniform_refine)
+    from repro_torch.fem.adapt import free_mask
     from repro_torch.kernels import ops
     dev = comm.device
     t0 = time.perf_counter()
@@ -737,81 +748,38 @@ def sharded_session_rank(comm, rounds, max_tets):
         "helmholtz", max_steps=3, max_tets=max_tets, tol=1e-6,
         backend="sharded", vertex_layout="owned", trigger="always",
         balance=BalanceSpec(p=SHARDED_P, method="hsfc", oneD="sorted"))
-    check_launches = {}
-    steps = []
-
-    def outside_path(fn):
-        before = ops.launch_counts()
-        out = fn()
-        sync(dev)
-        for k, v in ops.launch_counts().items():
-            check_launches[k] = check_launches.get(k, 0) + v - before[k]
-        return out
-
-    session = AdaptiveSession(spec, comm=comm)
-    solve, balance = session._stages["solve"], session._stages["balance"]
-    host = Balancer(session.balance_spec.replace(backend="host"), device=dev)
-
-    def checked_solve(sess, state):
-        solve(sess, state)
-        x, iters = outside_path(lambda: replicated_layout_solve(sess, state))
-        scale = float(x.abs().max())
-        err = float((state.u - x).abs().max())
-        steps.append({"pcg_err": err / scale, "rep_iters": int(iters)})
-        check(err <= PCG_RTOL * scale, f"step {state.step}: owned PCG "
-              f"differs from the replicated-layout solve by {err / scale:.3e}"
-              f" relative (> {PCG_RTOL})")
-
-    def checked_balance(sess, state):
-        inherited = state.mesh.leaf_payload.get("parts")
-        coords = state.mesh.barycenters().astype(np.float32)
-        balance(sess, state)
-        n = state.mesh.n_tets
-        w = torch.ones(n, dtype=torch.float32, device=dev)
-        want = outside_path(lambda: host.balance(w, coords=coords,
-                                                 old_parts=inherited))
-        got = state.balance_result
-        bad = same_balance(got, want, "sorted")
-        check(bad is None, f"step {state.step}: field {bad} differs from "
-              "the host backend on the same mesh")
-        mig = {k: float(v) for k, v in got.migration.items()}
-        n_real = int(comm.psum((state.sharded.vol > 0).sum()))
-        check(mig["weight_in"] == mig["weight_out"] == n
-              and mig["overflow"] == 0 and n_real == n,
-              f"step {state.step}: migration {mig}, {n_real} packed of {n}")
-        steps[-1].update(migration=mig, n_packed=n_real)
-
-    session._stages["solve"] = checked_solve
-    session._stages["balance"] = checked_balance
-
+    kept = []               # per step: what its solve and balance left
+    scanned = []            # shard length of each balance's scan
+    seen = {"result": None, "inherited": None}
     window = {}
+
+    def on_state(stage, state):
+        br = state.balance_result
+        if br is not None and br is not seen["result"]:
+            seen["result"] = br
+            scanned.append(session.balancer.capacity_for(state.mesh.n_tets))
+        m = state.mesh
+        if stage == "solve":
+            kept.append({"solve": dict(
+                el=state.el, u=state.u.clone(),
+                parts=np.asarray(m.leaf_payload["parts"]).copy(),
+                verts=torch.as_tensor(m.verts.astype(np.float32),
+                                      device=dev),
+                free=free_mask(m, dev))})
+        elif stage == "adapt_mesh":     # the parts refinement handed down
+            inh = m.leaf_payload.get("parts")
+            seen["inherited"] = None if inh is None else np.array(inh)
+        elif stage == "balance":
+            kept[-1]["balance"] = dict(
+                result=br, inherited=seen["inherited"], n=m.n_tets,
+                coords=m.barycenters().astype(np.float32),
+                packed=(state.sharded.vol > 0).sum())
 
     def on_step(stats, state):
         if state.step == PROFILED_STEP:
             sync(dev)
             window["prof"].stop()
             window["wall"] = time.perf_counter() - window["t0"]
-        t = comm.pmax(torch.tensor([stats.t_solve, stats.t_estimate,
-                                    stats.t_refine, stats.t_balance],
-                                   device=dev))
-        rec = steps[-1]
-        rec.update(n_tets=stats.n_tets, imbalance=stats.imbalance,
-                   total_v=stats.migration_totalv, cut=stats.cut,
-                   halo_bytes=stats.comm_halo_bytes,
-                   psum_bytes=stats.comm_psum_bytes, cg_iters=stats.cg_iters,
-                   err_l2=stats.err_l2, t_max=t.tolist(),
-                   n_tets_balanced=state.mesh.n_tets)
-        if comm.rank == 0:
-            log(f"sharded step {state.step}: n_tets={stats.n_tets} "
-                f"(balanced {state.mesh.n_tets}) imbalance="
-                f"{stats.imbalance:.6f} TotalV={stats.migration_totalv:.0f} "
-                f"cut={stats.cut} halo_bytes={stats.comm_halo_bytes} "
-                f"psum_bytes={stats.comm_psum_bytes} cg_iters="
-                f"{stats.cg_iters} (replicated layout {rec['rep_iters']}) "
-                f"err_l2={stats.err_l2:.6e} owned-vs-replicated "
-                f"{rec['pcg_err']:.3e}; max over ranks: t_solve={t[0]:.4f}s "
-                f"t_estimate={t[1]:.4f}s t_refine={t[2]:.4f}s "
-                f"t_balance={t[3]:.4f}s; migration {rec['migration']}")
         if state.step + 1 == PROFILED_STEP:
             sync(dev)
             window["prof"] = profile(activities=[ProfilerActivity.CPU,
@@ -819,7 +787,8 @@ def sharded_session_rank(comm, rounds, max_tets):
             window["prof"].start()
             window["t0"] = time.perf_counter()
 
-    session.on_step = on_step
+    session = AdaptiveSession(spec, comm=comm, on_step=on_step,
+                              on_state=on_state)
     sync(dev)
     staged0 = comm.staged_bytes
     ops.reset_launch_counts()
@@ -827,24 +796,56 @@ def sharded_session_rank(comm, rounds, max_tets):
     res = session.run(mesh)
     sync(dev)
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    path = {k: counts[k] - check_launches.get(k, 0) for k in counts}
-    check(all(np.isfinite(s["err_l2"]) for s in steps), "non-finite error")
+    launches = ops.launch_counts()
+    staged = comm.staged_bytes - staged0
     check(res.u.shape == (res.mesh.n_verts,), "solution shape")
+    check(len(kept) == len(res.stats), "one kept solve per step")
     busy = sum(e.time_range.elapsed_us() for e in
                device_events(window["prof"])) / 1e6
     if comm.rank == 0:
-        trace_summary(f"rank 0, step {PROFILED_STEP} of the sharded session "
-                      "(its checks included)", window["prof"],
-                      window["wall"])
-    return dict(steps=steps, launches=path, wall=wall, t_mesh=t_mesh,
-                staged_bytes=comm.staged_bytes - staged0,
-                n_tets0=192 << rounds, busy_s=busy,
-                window_s=window["wall"])
+        trace_summary(f"rank 0, step {PROFILED_STEP} of the sharded session",
+                      window["prof"], window["wall"])
+
+    # the checks, after the counted run
+    t_max = comm.pmax(torch.tensor(
+        [[s.t_solve, s.t_estimate, s.t_refine, s.t_balance]
+         for s in res.stats], device=dev)).tolist()
+    host = Balancer(session.balance_spec.replace(backend="host"), device=dev)
+    steps = []
+    for step, (stats, k) in enumerate(zip(res.stats, kept)):
+        x, iters = replicated_layout_solve(comm, session.problem, spec,
+                                           k["solve"])
+        scale = float(x.abs().max())
+        err = float((k["solve"]["u"] - x).abs().max()) / scale
+        check(np.isfinite(stats.err_l2), f"step {step}: non-finite error")
+        check(err <= PCG_RTOL, f"step {step}: owned PCG differs from the "
+              f"replicated-layout solve by {err:.3e} relative (> {PCG_RTOL})")
+        b = k["balance"]
+        n = b["n"]
+        want = host.balance(torch.ones(n, dtype=torch.float32, device=dev),
+                            coords=b["coords"], old_parts=b["inherited"])
+        bad = same_balance(b["result"], want, "sorted")
+        check(bad is None, f"step {step}: field {bad} differs from the host "
+              "backend on the same mesh")
+        mig = {key: float(v) for key, v in b["result"].migration.items()}
+        n_packed = int(comm.psum(b["packed"]))
+        check(mig["weight_in"] == mig["weight_out"] == n
+              and mig["overflow"] == 0 and n_packed == n,
+              f"step {step}: migration {mig}, {n_packed} packed of {n}")
+        steps.append(dict(
+            n_tets=stats.n_tets, n_tets_balanced=n,
+            imbalance=stats.imbalance, total_v=stats.migration_totalv,
+            cut=stats.cut, halo_bytes=stats.comm_halo_bytes,
+            psum_bytes=stats.comm_psum_bytes, cg_iters=stats.cg_iters,
+            rep_iters=int(iters), pcg_err=err, err_l2=stats.err_l2,
+            t_max=t_max[step], migration=mig))
+    return dict(steps=steps, launches=launches, scanned=scanned, wall=wall,
+                t_mesh=t_mesh, staged_bytes=staged, n_tets0=192 << rounds,
+                busy_s=busy, window_s=window["wall"])
 
 
 def sharded_session(rounds=12, max_tets=3_000_000):
-    """Phase 12: the sharded adaptive session (main path 3)."""
+    """Phase 11: the sharded adaptive session (main path 3)."""
     outs, backend = start_world(sharded_session_rank, rounds, max_tets,
                                 join_s=1000.0)
     r0 = outs[0]
@@ -852,6 +853,19 @@ def sharded_session(rounds=12, max_tets=3_000_000):
         check([s["n_tets"] for s in o["steps"]]
               == [s["n_tets"] for s in r0["steps"]],
               f"rank {r} refined another mesh")
+        check(o["scanned"] == r0["scanned"], f"rank {r} scanned other "
+              "shard lengths")
+    for step, s in enumerate(r0["steps"]):
+        t = s["t_max"]
+        log(f"sharded step {step}: n_tets={s['n_tets']} (balanced "
+            f"{s['n_tets_balanced']}) imbalance={s['imbalance']:.6f} "
+            f"TotalV={s['total_v']:.0f} cut={s['cut']} halo_bytes="
+            f"{s['halo_bytes']} psum_bytes={s['psum_bytes']} cg_iters="
+            f"{s['cg_iters']} (replicated layout {s['rep_iters']}) err_l2="
+            f"{s['err_l2']:.6e} owned-vs-replicated {s['pcg_err']:.3e}; max "
+            f"over ranks: t_solve={t[0]:.4f}s t_estimate={t[1]:.4f}s "
+            f"t_refine={t[2]:.4f}s t_balance={t[3]:.4f}s; migration "
+            f"{s['migration']}")
     launches = {k: sum(o["launches"][k] for o in outs) for k in r0["launches"]}
     for name in ("sfc_keys", "fem_matvec", "prefix_scan"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -859,16 +873,16 @@ def sharded_session(rounds=12, max_tets=3_000_000):
     log(f"sharded session ({backend}): initial mesh {r0['n_tets0']} tets "
         f"(built on every rank in {max(o['t_mesh'] for o in outs):.1f} s), "
         f"{len(r0['steps'])} steps in {max(o['wall'] for o in outs):.2f} s "
-        f"(max over ranks, this script's checks included); host-staged "
-        f"bytes per rank {[o['staged_bytes'] for o in outs]}; path launches "
-        f"summed over ranks {launches}")
+        f"(max over ranks; the checks run after); host-staged bytes per "
+        f"rank {[o['staged_bytes'] for o in outs]}; path launches summed "
+        f"over ranks {launches}")
     busy = sum(o["busy_s"] for o in outs)
     wall = max(o["window_s"] for o in outs)
     log(f"trace step {PROFILED_STEP} of the sharded session, all ranks: "
         f"wall {wall:.4f} s, device busy {busy:.4f} s (summed over the "
         f"{SHARDED_P} ranks' device events), card idle share at least "
         f"{1 - busy / wall:.4f}")
-    return launches
+    return dict(launches=launches, scanned=r0["scanned"])
 
 
 # ---------------------------------------------------------------------------
@@ -1314,13 +1328,15 @@ def main():
     if serve is not None:
         phase("phase 9b: profile of one packed admission and 8 decode steps",
               profile_serving, serve, dev)
-    scan_row = phase("phase 10: prefix_scan against its plain version",
-                     compare_scan, dev)
-    if scan_row is not None:
-        rows["prefix_scan"] = scan_row
-    phase("phase 11: standalone sharded DLB (8M points, p = 4)", sharded_dlb)
-    sharded = phase("phase 12: the sharded adaptive session (main path 3)",
+    phase("phase 10: standalone sharded DLB (8M points, p = 4)", sharded_dlb)
+    sharded = phase("phase 11: the sharded adaptive session (main path 3)",
                     sharded_session)
+    if sharded is not None:
+        scan_row = phase("phase 12: prefix_scan against its plain version "
+                         "at the sharded session's shard lengths",
+                         compare_scan, dev, sharded["scanned"])
+        if scan_row is not None:
+            rows["prefix_scan"] = scan_row
     log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or len(rows) < len(REPLACES)):
@@ -1328,7 +1344,7 @@ def main():
         return 1
     # each path's launches, counted from 0 over its own run
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
-                "prefix_scan": sharded["prefix_scan"],
+                "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
                 "flash_attention": serve["full"][1]["flash_attention"]}
     table = [dict(name=name, route="cuda", source=SRC + name + ".cu",

@@ -143,7 +143,7 @@ def _rank_main(fn, rank: int, size: int, backend: str, init_file: str,
                results) -> None:
     torch.set_num_threads(1)
     try:
-        device = devices[rank] if devices is not None else "cpu"
+        device = devices[rank]
         if str(device).startswith("cuda"):
             torch.cuda.set_device(torch.device(device))
         dist.init_process_group(
@@ -187,7 +187,9 @@ def run_world(fn: Callable, size: int, *args, backend: str = "gloo",
     Each rank is a process of the ``spawn`` start method with one CPU
     thread, joined to a group of ``backend`` by a ``file://`` rendezvous
     at ``init_file`` (a path that must not exist yet; no network port).
-    ``devices[r]`` is rank r's device (CPU when omitted).  The group's
+    ``devices[r]`` is rank r's device.  Omitted, the ranks go on the
+    card: ``cuda:r`` under nccl, all on ``cuda:0`` under gloo; without a
+    card that raises, and CPU ranks ask for ``["cpu"] * size``.  The group's
     collectives time out after ``timeout_s``; if the ranks have not all
     answered within ``join_s``, every child is killed and this raises,
     so a hung collective never hangs the caller.  ``fn`` and ``args``
@@ -207,7 +209,13 @@ def run_world(fn: Callable, size: int, *args, backend: str = "gloo",
             devices = [f"cuda:{r}" for r in range(size)]
         if len({str(d) for d in devices}) < size:
             raise ValueError("backend='nccl' needs a distinct card per rank")
-    if devices is not None and len(devices) != size:
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "devices=['cpu'] * size to run the ranks on "
+                               "the CPU")
+        devices = ["cuda:0"] * size
+    if len(devices) != size:
         raise ValueError(f"{len(devices)} devices for {size} ranks")
     if os.path.exists(init_file):
         raise ValueError(f"rendezvous file {init_file} exists already")

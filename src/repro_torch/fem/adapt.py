@@ -341,7 +341,7 @@ def _verts(session: "AdaptiveSession", mesh: Mesh) -> torch.Tensor:
     return torch.as_tensor(mesh.verts.astype(np.float32), device=session.device)
 
 
-def _free_mask(mesh: Mesh, device) -> torch.Tensor:
+def free_mask(mesh: Mesh, device) -> torch.Tensor:
     """1.0 on interior vertices, 0.0 on boundary ones (faces used by one
     leaf), float32 on ``device``.  The same set as
     ``Mesh.boundary_vertices``, found with a device-side unique."""
@@ -389,7 +389,7 @@ def _solve_stationary(session: "AdaptiveSession", state: SessionState):
     verts = _verts(session, state.mesh)
     rhs = load_vector(el, verts, prob.f)
     sol = solve_dirichlet(el, rhs, prob.exact(verts),
-                          _free_mask(state.mesh, session.device), prob.c,
+                          free_mask(state.mesh, session.device), prob.c,
                           tol=session.spec.tol, maxiter=session.spec.maxiter,
                           use_pallas=_use_pallas(session))
     state.u = _replicated(session, sol.x)
@@ -409,7 +409,7 @@ def _solve_backward_euler(session: "AdaptiveSession", state: SessionState):
                              device=session.device)
     rhs = mass_matvec(el, u_prev) / spec.dt + fv
     sol = solve_dirichlet(el, rhs, prob.exact(verts, t_next),
-                          _free_mask(state.mesh, session.device),
+                          free_mask(state.mesh, session.device),
                           1.0 / spec.dt, tol=spec.tol, maxiter=spec.maxiter,
                           use_pallas=_use_pallas(session))
     state.u = _replicated(session, sol.x)
@@ -503,7 +503,7 @@ def _solve_stationary_owned(session: "AdaptiveSession", state: SessionState):
     rhs = _replicated(session, load_vector(el, verts, prob.f))
     sol = sharded_solve_dirichlet(
         state.sharded, session.comm, rhs, prob.exact(verts),
-        _free_mask(state.mesh, session.device), prob.c,
+        free_mask(state.mesh, session.device), prob.c,
         tol=session.spec.tol, maxiter=session.spec.maxiter,
         operators=_owned_operators(session, state, prob.c))
     state.u = sol.x
@@ -529,7 +529,7 @@ def _solve_backward_euler_owned(session: "AdaptiveSession",
     c = 1.0 / spec.dt
     sol = sharded_solve_dirichlet(
         state.sharded, session.comm, rhs, prob.exact(verts, t_next),
-        _free_mask(state.mesh, session.device), c, tol=spec.tol,
+        free_mask(state.mesh, session.device), c, tol=spec.tol,
         maxiter=spec.maxiter, operators=_owned_operators(session, state, c))
     state.u = sol.x
     state.cg_iters = int(sol.iters)
@@ -715,13 +715,16 @@ class AdaptiveSession:
     mesh; it fails fast here on a missing group, a world size other than
     ``p`` or an unknown stage variant.  Hooks: ``on_step(stats, state)``
     after each step, ``on_stage(stage, variant, dt)`` after each
-    top-level stage.  ``run(mesh)`` uses the given mesh, else the
+    top-level stage, and ``on_state(stage, state)`` after it with the
+    live ``SessionState`` (an observer: it copies what it keeps and
+    changes nothing).  ``run(mesh)`` uses the given mesh, else the
     session's, else the problem's default mesh."""
 
     def __init__(self, spec: AdaptSpec, *, mesh: Optional[Mesh] = None,
                  device=None, comm=None, verbose: bool = False,
                  on_step: Optional[Callable] = None,
                  on_stage: Optional[Callable] = None,
+                 on_state: Optional[Callable] = None,
                  tracer: Optional["telemetry.Tracer"] = None):
         self.spec = spec
         self.comm = comm if spec.backend == "sharded" else None
@@ -750,6 +753,7 @@ class AdaptiveSession:
                         for s, v in self.variants.items() if v is not None}
         self.verbose = verbose
         self.on_step, self.on_stage = on_step, on_stage
+        self.on_state = on_state
         self.tracer = tracer
         self._mesh = mesh
 
@@ -773,6 +777,8 @@ class AdaptiveSession:
         state.timings[key] = state.timings.get(key, 0.0) + dt
         if self.on_stage is not None:
             self.on_stage(stage, self.variants[stage], dt)
+        if self.on_state is not None:
+            self.on_state(stage, state)
 
     def _step_stationary(self, state: SessionState) -> None:
         _ensure_elements(self, state)

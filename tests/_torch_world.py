@@ -20,8 +20,8 @@ def world(fn, *args, tmp_path, p=4):
     collective fails the test after the join deadline."""
     from repro_torch.distributed import run_world
     init = tmp_path / f"rendezvous-{fn.__name__}"
-    return run_world(fn, p, *args, init_file=str(init), timeout_s=60.0,
-                     join_s=120.0)
+    return run_world(fn, p, *args, init_file=str(init), devices=["cpu"] * p,
+                     timeout_s=60.0, join_s=120.0)
 
 
 def _np(x):
@@ -85,6 +85,10 @@ def collectives(comm, x, w, dest, pay, valid, capacities, scan_w):
 def collectives_and_balances(comm, coll_args, bal_args):
     return {"collectives": collectives(comm, *coll_args),
             "balances": balances(comm, *bal_args)}
+
+
+def device_of(comm):
+    return str(comm.device)
 
 
 def fail_on_rank_1(comm):

@@ -157,7 +157,7 @@ def test_run_world_reports_a_failing_rank(tmp_path):
     from repro_torch.distributed import run_world
     with pytest.raises(RuntimeError, match="rank 1 failed"):
         run_world(W.fail_on_rank_1, 2, init_file=str(tmp_path / "rdv"),
-                  timeout_s=20.0, join_s=60.0)
+                  devices=["cpu"] * 2, timeout_s=20.0, join_s=60.0)
 
 
 # --- the MPI_Scan step --------------------------------------------------------

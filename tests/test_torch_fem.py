@@ -134,7 +134,7 @@ def test_solve_dirichlet_matches(c):
     rhs = TF.load_vector(tel, tv, prob.f)
     free_np = np.ones(jm.n_verts, np.float32)
     free_np[jm.boundary_vertices()] = 0.0
-    free = tadapt._free_mask(interop.mesh_from_numpy(jm), "cpu")
+    free = tadapt.free_mask(interop.mesh_from_numpy(jm), "cpu")
     np.testing.assert_array_equal(_np(free), free_np)
     g = prob.exact(tv)
     got = TF.solve_dirichlet(tel, rhs, g, free, c, tol=1e-6)

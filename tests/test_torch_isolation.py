@@ -11,9 +11,12 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core import Balancer, BalanceSpec
+from repro_torch.distributed import run_world
 from repro_torch.fem import AdaptiveSession, AdaptSpec
 from repro_torch.models import init_model
 from repro_torch.serve import ServeSession, ServeSpec
+
+import _torch_world as W
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -51,17 +54,22 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     cfg = get_smoke("llama3_8b").replace(n_layers=1, d_model=32, d_ff=64,
                                          vocab=64)
     spec = ServeSpec(decode="replicated", rebalance="tags")
+    rdv = str(tmp_path / "rdv")
     if torch.cuda.is_available():
         assert Balancer(BalanceSpec(p=4)).device.type == "cuda"
         assert AdaptiveSession(AdaptSpec()).device.type == "cuda"
         model = init_model(cfg)
         assert model.ln_f.is_cuda
         assert ServeSession(model, cfg, spec).device.type == "cuda"
+        assert run_world(W.device_of, 2, init_file=rdv) == ["cuda:0"] * 2
         return
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        run_world(W.device_of, 2, init_file=rdv)
+    assert not os.path.exists(rdv)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Balancer(BalanceSpec(p=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -109,3 +109,29 @@ def test_parabolic_session_runs():
     assert all(np.isfinite(s.err_l2) and s.err_l2 < 0.1 for s in res.stats)
     assert all(s.migration_retained > 0 for s in res.stats[1:])
     assert res.u.shape == (res.mesh.n_verts,)
+
+
+def test_on_state_follows_on_stage_with_the_live_state():
+    """``on_state(stage, state)`` is called after ``on_stage`` for every
+    top-level stage, with the session's own state: after the balance
+    stage it holds that step's partition of the current mesh."""
+    calls = []
+
+    def on_state(stage, state):
+        calls.append(("state", stage, state.step))
+        if stage == "balance":
+            assert len(state.parts) == state.mesh.n_tets
+            assert state.balance_result is not None
+
+    spec = TF.AdaptSpec.for_problem(
+        "helmholtz", max_steps=2, max_tets=3000, tol=1e-6, trigger="always",
+        balance=BalanceSpec(p=4, method="hsfc", oneD="sorted"))
+    TF.AdaptiveSession(
+        spec, device="cpu", on_state=on_state,
+        on_stage=lambda s, v, dt: calls.append(("stage", s, None))).run(
+        TF.unit_cube_mesh(2))
+    stages = ["solve", "estimate", "mark", "adapt_mesh", "balance"]
+    want = [(kind, s, step if kind == "state" else None)
+            for step in range(2) for s in stages
+            for kind in ("stage", "state")]
+    assert calls == want
