@@ -16,7 +16,9 @@ CUDA toolkit's nvcc.  It
    step of a smoke-size session on the CPU from the card's mesh;
 3. holds the FEM path's kernels against their plain PyTorch versions at
    the session's shapes, timing both by the device time torch.profiler
-   records (and, with host dispatch, by CUDA events);
+   records (and, with host dispatch, by CUDA events); the element matvec
+   also for equal bits over two calls, with its plan's build time and
+   the first design (atomic scatter) and its store-only probe beside it;
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
@@ -32,7 +34,8 @@ CUDA toolkit's nvcc.  It
 8. runs a smoke-size packed session in float32 with the kernels on the
    card and with the plain versions on the CPU, from the same weights;
 9. holds both attention kernels against their plain versions (with
-   SDPA's time as the yardstick) and profiles one packed admission plus
+   SDPA's time as the yardstick; flash in bf16 on the tensor cores and
+   in float32 on CUDA cores) and profiles one packed admission plus
    eight decode steps;
 10. holds the prefix-scan kernel against its plain version (integer
     weights equal, floats within 1e-6 of sum|x|) and times it beside
@@ -410,11 +413,18 @@ def compare_hist(kf, w, p, label):
                 library_ms=None, max_abs_err=0.0)
 
 
+MATVEC_CALLS_PER_SOLVE = 160    # ~the session's PCG iterations per solve
+
+
 def compare_matvec(mesh, dev):
+    """The plan kernel at the session's last mesh: against its plain
+    version (1e-5 of max|y|), bit-identical across calls, its plan's
+    build time, the bound of the old 80 B/element + 8 B/vertex, and a CSR
+    SpMV as the yardstick."""
     import numpy as np
     import torch
     from repro_torch.fem import build_elements
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ElementOperator, ref
     from repro_torch.kernels.fem_matvec import (fem_element_matrices,
                                                 fem_matvec_cuda)
     el = build_elements(mesh.verts, mesh.tets, device=dev)
@@ -423,12 +433,24 @@ def compare_matvec(mesh, dev):
     C, V = tets.shape[0], el.n_verts
     g = torch.Generator(device=dev).manual_seed(0)
     u = torch.rand(V, generator=g, device=dev, dtype=torch.float32)
-    got = fem_matvec_cuda(tets, kel, u, V)
+    ElementOperator(tets, kel, V)                  # warm the sorts
+    builds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op = ElementOperator(tets, kel, V)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0) * 1e3)
+    build_ms = float(np.median(builds))
+    got = op.apply(u)
     want = ref.fem_matvec_kel_ref(tets, kel, u, V)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     check(err <= 1e-5 * scale, f"fem_matvec: max err {err} > 1e-5 * {scale}")
-    ms, call_ms = timed_ms(lambda: fem_matvec_cuda(tets, kel, u, V))
+    check(torch.equal(got, op.apply(u)), "fem_matvec: two calls differ")
+    check(torch.equal(got, fem_matvec_cuda(tets, kel, u, V)),
+          "fem_matvec: a fresh plan gives other bits")
+    ms, call_ms = timed_ms(lambda: op.apply(u))
     plain_ms, plain_call_ms = timed_ms(
         lambda: ref.fem_matvec_kel_ref(tets, kel, u, V), reps=5)
     # yardstick: the assembled operator as one cuSPARSE CSR product
@@ -441,11 +463,18 @@ def compare_matvec(mesh, dev):
     lib_err = float(((A @ u) - want).abs().max())
     del A, rows, cols
     bound = (80 * C + 8 * V) / PEAK_BYTES_PER_S * 1e3
+    n = MATVEC_CALLS_PER_SOLVE
     log(f"fem_matvec C={C} V={V}: kernel_ms={ms:.4f} (call {call_ms:.4f}) "
         f"plain_ms={plain_ms:.4f} (call {plain_call_ms:.4f}) csr_spmv_ms="
         f"{lib_ms:.4f} (call {lib_call_ms:.4f}) bound_ms={bound:.4f} "
-        f"max_abs_err={err:.3e} "
-        f"(tolerance 1e-5 * max|y| = {1e-5 * scale:.3e}; csr err {lib_err:.3e})")
+        f"(80 B/element + 8 B/vertex) share={bound / ms:.4f} "
+        f"max_abs_err={err:.3e} (tolerance 1e-5 * max|y| = "
+        f"{1e-5 * scale:.3e}; csr err {lib_err:.3e}); bit-identical over "
+        f"two calls and a fresh plan")
+    log(f"fem_matvec plan: build_ms={build_ms:.4f} (runs {builds}); "
+        f"partials {op.plan.n_partials} ({op.plan.n_partials / C:.4f} per "
+        f"element); per solve of {n} calls: plan {build_ms:.3f} + {n} x "
+        f"{call_ms:.4f} = {build_ms + n * call_ms:.3f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=lib_ms, max_abs_err=err)
 
@@ -1041,6 +1070,11 @@ def serve_full_width(dev):
                                      record=True)
     log_serve("full", mf, cf, pf)
     check(cf["flash_attention"] > 0, "flash_attention was not launched")
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    variants = dict(flash_attention_cuda.variants)
+    log(f"  flash_attention launches by variant: {variants}")
+    check(variants["bf16_tensor_core"] == cf["flash_attention"],
+          "the full prefill's bf16 attention did not run on the tensor cores")
     out["full"] = (mf, cf)
     out["fullest_pack"] = max(recp.packs, key=lambda sg: int((sg >= 0).sum()))
     out["first_err"] = compare_recorded("packed vs full on the card", rp,
@@ -1074,6 +1108,71 @@ def serve_card_vs_cpu(dev):
     log(f"smoke: {ma['steps']} steps, {ma['tokens']} tokens, "
         f"{len(ma['migration_log'])} rebalances equal, prefill calls "
         f"{ma['prefill_calls']} and {mb['prefill_calls']}")
+
+
+def bf16_step(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+    mag = x.double().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def compare_mlp(serve, dev):
+    """Phase 8b: the bf16 MLP at llama3-8b width (layer 0 of the serving
+    model, 16 rows) on the card, where bf16 operands go straight into
+    float32 products (torch.mm(..., out_dtype=float32)), against the same
+    weights on the CPU, whose operands are upcast.  x.wg and x.wi agree
+    within 1e-5 of their largest value (a product rounded to bf16 is
+    ~2^-9 off); wo's product of the card's activation, rounded once, is
+    within one bf16 step per element of the CPU's (or 2^-16 of the
+    largest output, where cancellation leaves an element near 0 and
+    float32 sums in another order differ by more than its step);
+    mlp_apply on the card is exactly that composition.  The whole MLP
+    against the CPU's is read, not held: an activation that rounds to
+    the neighbouring bf16 value on one side moves the outputs of its row
+    by more than a step where they are near 0."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.layers import matmul_f32, mlp_apply
+    cfg, mlp = serve["cfg"], serve["model"].layers[0].mlp
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((16, cfg.d_model), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    w = {n: getattr(mlp, n).detach().cpu() for n in ("wg", "wi", "wo")}
+    xc = x.cpu()
+    prods = {}
+    for n in ("wg", "wi"):
+        got, want = matmul_f32(x, getattr(mlp, n)), matmul_f32(xc, w[n])
+        check(got.dtype == torch.float32, f"mlp: x.{n} is {got.dtype}")
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"mlp: x.{n} max err {err} > 1e-5 * "
+              f"{scale}")
+        prods[n] = (got, want, err, scale)
+    h = (F.silu(prods["wg"][0]) * prods["wi"][0]).to(torch.bfloat16)
+    h_cpu = (F.silu(prods["wg"][1]) * prods["wi"][1]).to(torch.bfloat16)
+    got = matmul_f32(h, mlp.wo).to(torch.bfloat16).cpu()
+    want = matmul_f32(h.cpu(), w["wo"]).to(torch.bfloat16)
+    diff = (got.double() - want.double()).abs()
+    floor = 2.0 ** -16 * float(want.double().abs().max())
+    worst = float((diff / bf16_step(want).clamp_min(floor)).max())
+    check(worst <= 1.0, f"mlp: wo's product {worst:.3f} of its limit off")
+    full = mlp_apply(mlp, x, cfg).cpu()
+    check(torch.equal(full, got), "mlp: mlp_apply on the card is not the "
+          "composition of its checked products")
+    full_cpu = mlp_apply(types.SimpleNamespace(**w), xc, cfg)
+    beyond = int(((full.double() - full_cpu.double()).abs()
+                  > bf16_step(full_cpu)).sum())
+    flips = int((h.cpu() != h_cpu).sum())
+    log(f"mlp d_model={cfg.d_model} d_ff={cfg.d_ff} bf16, 16 rows: x.wg "
+        f"max err {prods['wg'][2]:.3e}, x.wi {prods['wi'][2]:.3e} (limits "
+        f"1e-5 * max = {1e-5 * prods['wg'][3]:.3e}, "
+        f"{1e-5 * prods['wi'][3]:.3e}); wo's product worst element at "
+        f"{worst:.4f} of its limit (one bf16 step, floor {floor:.3e}); "
+        f"whole MLP: {beyond} of {full.numel()} elements beyond one bf16 "
+        f"step of the CPU's, {flips} of {h.numel()} activations rounded to "
+        f"another bf16 value")
 
 
 def attention_bound(pairs, hq, hkv, n_in, n_out, d, extra_bytes=0):
@@ -1114,20 +1213,42 @@ def _bf16(shape, gen, dev):
     return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
-def compare_flash(dev, s):
+# float32 attention: both sides sum in float32 in other orders (2e-5 of
+# the largest output, as in tests/test_torch_cuda.py)
+ATTN_F32_RTOL = 2e-5
+
+
+def compare_flash(dev, s, dtype="bfloat16"):
     """The flash kernel against mha_ref at b = 1, 32 / 8 heads, d = 128,
-    causal, bf16; SDPA (causal, GQA) as the yardstick."""
+    causal; SDPA (causal, GQA) as the yardstick.  bf16 runs the
+    tensor-core kernel, float32 the CUDA-core one (checked by the
+    per-variant counts)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (VARIANTS,
+                                                     flash_attention_cuda)
     g = torch.Generator(device=dev).manual_seed(s)
     hq, hkv, d = 32, 8, 128
-    q = _bf16((1, hq, s, d), g, dev)
-    k, v = _bf16((1, hkv, s, d), g, dev), _bf16((1, hkv, s, d), g, dev)
+    dt = getattr(torch, dtype)
+    q = torch.randn((1, hq, s, d), generator=g, device=dev).to(dt)
+    k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
+    v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
+    variant = VARIANTS[dt]
+    before = flash_attention_cuda.variants[variant]
     got = flash_attention_cuda(q, k, v, causal=True)
+    check(flash_attention_cuda.variants[variant] == before + 1,
+          f"flash_attention {dtype}: the {variant} kernel did not run")
     want = ref.mha_ref(q, k, v, causal=True)
-    err, reading = attention_err(f"flash_attention s={s}", got, want)
+    label = f"flash_attention {dtype} s={s}"
+    if dt == torch.bfloat16:
+        err, reading = attention_err(label, got, want)
+    else:
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1.0)
+        check(err <= ATTN_F32_RTOL * scale, f"{label}: max abs err {err} > "
+              f"{ATTN_F32_RTOL} * {scale}")
+        reading = f"max_abs_err={err:.3e} (limit {ATTN_F32_RTOL * scale:.3e})"
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     lib_err = float((sdpa().float() - want.float()).abs().max())
@@ -1136,11 +1257,11 @@ def compare_flash(dev, s):
                                     reps=5)
     lib_ms, lib_call = timed_ms(sdpa)
     bound, by = attention_bound(hq * s * (s + 1) // 2, hq, hkv, s, s, d)
-    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal bf16: "
-        f"kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
-        f"(call {plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f})"
-        f" bound_ms={bound:.4f} ({by}) share={bound / ms:.4f} {reading} "
-        f"(sdpa max abs err {lib_err:.3e})")
+    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal {dtype} "
+        f"({variant}): kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms="
+        f"{plain_ms:.4f} (call {plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call "
+        f"{lib_call:.4f}) bound_ms={bound:.4f} ({by}, bf16 rates) "
+        f"share={bound / ms:.4f} {reading} (sdpa max abs err {lib_err:.3e})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, max_abs_err=err)
 
@@ -1222,6 +1343,9 @@ def profile_serving(serve, dev):
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
 SRC = "src/repro_torch/kernels/csrc/"
+# the source of the kernel each row times and counts: the path's attention
+# is bf16, so flash_attention's row is the tensor-core kernel
+SOURCES = {"flash_attention": "flash_attention_tc.cu"}
 REPLACES = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
             "ksection_hist": "src/repro/kernels/ksection_hist.py:95",
             "fem_matvec": "src/repro/kernels/fem_matvec.py:108",
@@ -1273,11 +1397,13 @@ def fem_kernel_rows(res, session, balanced, dev):
 
 
 def attention_rows(serve, dev):
-    """Both attention kernels against their plain versions: flash at the
-    path's prompt length (128) and at 1024, packed on the session's
-    fullest buffer (only when the serving phase gave one: without it the
-    run fails anyway)."""
+    """Both attention kernels against their plain versions: flash in bf16
+    (tensor cores) at the path's prompt length (128) and at 1024, and in
+    float32 (CUDA cores) at 128; packed on the session's fullest buffer
+    (only when the serving phase gave one: without it the run fails
+    anyway)."""
     compare_flash(dev, 1024)
+    compare_flash(dev, 128, "float32")
     rows = {"flash_attention": compare_flash(dev, 128)}
     if serve is not None:
         rows["serve_prefill"] = compare_packed(dev, serve["fullest_pack"])
@@ -1323,6 +1449,9 @@ def main():
                   "packed; then packed against full)", serve_full_width, dev)
     phase("phase 8: serving at smoke size, card against CPU",
           serve_card_vs_cpu, dev)
+    if serve is not None:
+        phase("phase 8b: the bf16 MLP at llama3-8b width, card against CPU",
+              compare_mlp, serve, dev)
     rows.update(phase("phase 9a: attention kernels against plain versions",
                       attention_rows, serve, dev) or {})
     if serve is not None:
@@ -1347,7 +1476,7 @@ def main():
                 "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
                 "flash_attention": serve["full"][1]["flash_attention"]}
-    table = [dict(name=name, route="cuda", source=SRC + name + ".cu",
+    table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
                   plain_ms=rows[name]["plain_ms"],

@@ -29,11 +29,11 @@ Two vertex layouts:
                     legs whose volume follows the partition's cut.
 
 Every per-rank element pass is the element-matvec kernel
-(``kernels.ops.fem_matvec_op`` on element matrices built once per
-packing; its plain version on CPU tensors).  Owned packings are
-interface-first (``n_interface``), so the owned matvec computes the
-interface elements, starts the first halo leg, computes the interior
-elements while it is in flight, and then finishes the exchange.
+(``kernels.ops.ElementOperator`` on element matrices and kernel plans
+built once per packing; its plain version on CPU tensors).  Owned
+packings are interface-first (``n_interface``), so the owned matvec
+computes the interface elements, starts the first halo leg, computes the
+interior elements while it is in flight, and then finishes the exchange.
 """
 from __future__ import annotations
 
@@ -231,14 +231,20 @@ def element_apply(t, g, v, u, nv: int, c: float = 0.0) -> torch.Tensor:
 def _element_pass(sel: ShardedElements, c: float,
                   use_pallas: Optional[bool]) -> Callable:
     """``apply(lo, hi, u, n_out)``: the element matvec over rows
-    [lo, hi) of the packing, through ``fem_matvec_op`` on element
-    matrices built once here."""
+    [lo, hi) of the packing, through an ``ElementOperator`` on element
+    matrices built once here; one operator (with its kernel plan on the
+    card) per (lo, hi, n_out), built at its first call and kept with the
+    packing."""
     kel = fem_element_matrices(sel.grads, sel.vol, c).to(torch.float32)
     tets = sel.tets.contiguous()
+    element_ops = {}
 
     def apply(lo: int, hi: Optional[int], u: torch.Tensor, n_out: int):
-        return ops.fem_matvec_op(tets[lo:hi], kel[lo:hi], u, n_out,
-                                 use_pallas=use_pallas)
+        key = (lo, hi, n_out)
+        if key not in element_ops:
+            element_ops[key] = ops.ElementOperator(
+                tets[lo:hi], kel[lo:hi], n_out, use_pallas=use_pallas)
+        return element_ops[key].apply(u)
     return apply
 
 

@@ -2,10 +2,11 @@
 
 Solves (A + c M) u = b with Dirichlet dofs pinned.  ``pcg`` also runs
 on owned-layout vertex vectors over a process group (``vdot`` hook,
-``owned_vdot``; ``fem.parallel.sharded_solve_dirichlet``).  The operator is the
-hand-written element-matvec kernel (``kernels.ops.fem_matvec_op``) on
-element matrices built once per solve; the loop is a Python loop whose
-stopping test reads one scalar from the device per iteration.
+``owned_vdot``; ``fem.parallel.sharded_solve_dirichlet``).  The
+operator is the hand-written element-matvec kernel
+(``kernels.ops.ElementOperator``) on element matrices and a plan of the
+mesh built once per solve; the loop is a Python loop whose stopping test
+reads one scalar from the device per iteration.
 Counterpart of ``repro.fem.solve``.
 """
 from __future__ import annotations
@@ -79,19 +80,27 @@ def owned_vdot(owned_mask: torch.Tensor, comm) -> Callable:
     return dot
 
 
+def element_operator(el: P1Elements, c: float, *,
+                     use_pallas: Optional[bool] = None) -> ops.ElementOperator:
+    """The element operator of ``(A + c M)`` on ``el``: element matrices
+    built once, and on the card the kernel's plan of the mesh."""
+    return ops.ElementOperator(el.tets, fem_element_matrices(el.grads, el.vol,
+                                                             c),
+                               el.n_verts, use_pallas=use_pallas)
+
+
 def masked_operator(el: P1Elements, free: torch.Tensor, c: float, *,
-                    kel: Optional[torch.Tensor] = None,
+                    element_op: Optional[ops.ElementOperator] = None,
                     use_pallas: Optional[bool] = None
                     ) -> Tuple[Callable, torch.Tensor]:
     """Operator restricted to free dofs (Dirichlet rows/cols zeroed,
-    identity on pinned dofs) + its diagonal.  ``kel`` are the element
-    matrices of ``(A + c M)`` (built here when not given)."""
-    if kel is None:
-        kel = fem_element_matrices(el.grads, el.vol, c)
+    identity on pinned dofs) + its diagonal.  ``element_op`` applies
+    ``(A + c M)`` (built here when not given)."""
+    if element_op is None:
+        element_op = element_operator(el, c, use_pallas=use_pallas)
 
     def op(u):
-        au = ops.fem_matvec_op(el.tets, kel, u * free, el.n_verts,
-                               use_pallas=use_pallas)
+        au = element_op.apply(u * free)
         return torch.where(free > 0, au, u)
 
     diag = torch.where(free > 0, operator_diagonal(el, c),
@@ -106,13 +115,13 @@ def solve_dirichlet(el: P1Elements, rhs: torch.Tensor, g: torch.Tensor,
     """Solve (A + cM) u = rhs with u = g on pinned dofs.
 
     ``rhs`` is the raw load vector; the boundary lift is applied here
-    (solve for w = u - g_ext with homogeneous BCs).  The element matrices
-    are built once and serve the lift and every PCG matvec."""
-    kel = fem_element_matrices(el.grads, el.vol, c)
+    (solve for w = u - g_ext with homogeneous BCs).  The element operator
+    (element matrices, and the kernel's plan on the card) is built once
+    and serves the lift and every PCG matvec."""
+    element_op = element_operator(el, c, use_pallas=use_pallas)
     g_ext = torch.where(free > 0, torch.zeros_like(g), g)
-    lift = ops.fem_matvec_op(el.tets, kel, g_ext, el.n_verts,
-                             use_pallas=use_pallas)
+    lift = element_op.apply(g_ext)
     b = torch.where(free > 0, rhs - lift, torch.zeros_like(rhs))
-    op, diag = masked_operator(el, free, c, kel=kel, use_pallas=use_pallas)
+    op, diag = masked_operator(el, free, c, element_op=element_op)
     res = pcg(op, b, diag, torch.zeros_like(b), tol=tol, maxiter=maxiter)
     return CGResult(res.x + g_ext, res.iters, res.residual)

@@ -11,14 +11,16 @@ Kernels (the TPU kernel each replaces is named in its source):
 
   sfc_keys       Morton / Hilbert keys, one thread per element
   ksection_hist  k-section candidate-cut weight histogram
-  fem_matvec     P1 element matvec with precomputed 4x4 element matrices
+  fem_matvec     P1 element matvec with precomputed 4x4 element matrices,
+                 two passes on a plan of the mesh, no atomics
   prefix_scan    exclusive prefix sum (Algorithm 1's S_i), three passes
-  flash_attention  causal / sliding-window / GQA attention (full prefill)
+  flash_attention  causal / sliding-window / GQA attention (full prefill);
+                 bf16 on tensor cores, float32 on CUDA cores
   serve_prefill  segment-masked causal attention over a packed buffer
 
 ``build.py`` compiles ``csrc/*.cu`` with nvcc at first use on a CUDA
 tensor; nothing is built at import.
 """
-from .ops import (exclusive_scan_op, fem_matvec_op, flash_attention_op,
-                  ksection_histogram_op, launch_counts, packed_attention_op,
-                  reset_launch_counts, sfc_keys_op)
+from .ops import (ElementOperator, exclusive_scan_op, fem_matvec_op,
+                  flash_attention_op, ksection_histogram_op, launch_counts,
+                  packed_attention_op, reset_launch_counts, sfc_keys_op)

@@ -19,7 +19,8 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu",
-           "prefix_scan.cu", "flash_attention.cu", "serve_prefill.cu")
+           "prefix_scan.cu", "flash_attention.cu", "flash_attention_tc.cu",
+           "serve_prefill.cu")
 HEADERS = ("attention_tile.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,13 +95,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_sfc_keys.restype = i
     lib.repro_ksection_hist.argtypes = [p, p, ll, p, ll, p, i, p, p]
     lib.repro_ksection_hist.restype = i
-    lib.repro_fem_matvec.argtypes = [p, p, ll, p, ll, p, ll, p]
+    lib.repro_fem_matvec.argtypes = [p, p, p, p, p, p, p, ll, p, ll, p, p, p,
+                                     ll, p]
     lib.repro_fem_matvec.restype = i
+    lib.repro_fem_matvec_chunk.argtypes = []
+    lib.repro_fem_matvec_chunk.restype = i
     lib.repro_prefix_scan.argtypes = [p, ll, p, p, p]
     lib.repro_prefix_scan.restype = i
-    lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
-                                          i, i, p]
+    lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i,
+                                          i, p]
     lib.repro_flash_attention.restype = i
+    lib.repro_flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, f,
+                                             i, i, p]
+    lib.repro_flash_attention_tc.restype = i
     lib.repro_packed_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
                                            f, p]
     lib.repro_packed_attention.restype = i

@@ -1,9 +1,10 @@
-// Blocked (flash) attention with causal and sliding-window masks and GQA:
-// q (b, hq, s, d), k / v (b, hkv, s, d) -> o (b, hq, s, d) in q's type,
-// float32 or bfloat16, accumulated in float32.
+// Blocked (flash) attention with causal and sliding-window masks and GQA
+// for float32 inputs: q (b, hq, s, d), k / v (b, hkv, s, d) -> o
+// (b, hq, s, d) float32.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
-// flash_attention_pallas (_flash_kernel).
+// flash_attention_pallas (_flash_kernel) for float32 inputs; bf16 inputs
+// run the tensor-core kernel of flash_attention_tc.cu.
 //
 // What bounds it: the operations.  Causal attention over s tokens does
 // about 2 s^2 d multiply-adds per head against 4 s d values moved, so at
@@ -16,8 +17,9 @@
 // repeated in memory.  Key tiles wholly above the causal diagonal or
 // wholly outside the window are never loaded, since they contribute
 // exactly 0.  The TPU kernel needs s % 128 == 0; here the ragged last tile
-// is masked, so every s runs.  The arithmetic is float32 on CUDA cores: a
-// simple design that is right first (tensor cores are later work).
+// is masked, so every s runs.  The arithmetic is float32 on CUDA cores:
+// the tensor cores take bf16 (or TF32, which would cost float32 inputs
+// their precision), and float32 attention runs only at smoke size.
 
 #include "attention_tile.cuh"
 
@@ -98,20 +100,15 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// q: (b, hq, s, d); k, v: (b, hkv, s, d); o: (b, hq, s, d); all contiguous,
-// of one type: dtype 0 = float32, 1 = bfloat16.  hq % hkv == 0, 1 <= d <=
-// 128, window <= 0 for none.  Returns cudaGetLastError() after the launch.
+// q: (b, hq, s, d); k, v: (b, hkv, s, d); o: (b, hq, s, d); all contiguous
+// float32.  hq % hkv == 0, 1 <= d <= 128, window <= 0 for none.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int b, int hq,
-                                     int hkv, int s, int d, int dtype,
-                                     float scale, int causal, int window,
-                                     void* stream) {
+                                     int hkv, int s, int d, float scale,
+                                     int causal, int window, void* stream) {
   if (b <= 0 || s <= 0) return 0;
   if (d < 1 || d > 128 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
+                           window, (cudaStream_t)stream);
 }

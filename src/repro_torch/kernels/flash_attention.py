@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written flash-attention kernel
+"""Wrapper of the hand-written flash-attention kernels: bf16 on the
+tensor cores (``csrc/flash_attention_tc.cu``), float32 on CUDA cores
 (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel
@@ -17,6 +18,9 @@ from . import build
 
 #: tensor dtype -> the C entry's dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: flash_attention_cuda's kernel by input type
+VARIANTS = {torch.bfloat16: "bf16_tensor_core", torch.float32: "f32_cuda_core"}
 
 
 def check_attention_inputs(fn: str, q, k, v, heads_axis: int) -> None:
@@ -53,7 +57,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16, contiguous.  Query head h reads kv head
     ``h // (hq // hkv)``; key j is visible from query i iff ``j <= i``
     (causal) and ``j > i - window`` (window).  Returns (b, hq, s, d) in
-    q's dtype.  Adds one to ``flash_attention_cuda.launches`` per launch."""
+    q's dtype.  bf16 runs the tensor-core kernel, float32 the CUDA-core
+    one (``VARIANTS``).  Adds one to ``flash_attention_cuda.launches`` and
+    to its variant's entry of ``flash_attention_cuda.variants`` per
+    launch."""
     check_attention_inputs("flash_attention_cuda", q, k, v, heads_axis=1)
     b, hq, s, d = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[2] != s:
@@ -67,14 +74,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return o
     lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+            k.shape[1], s, d, scale, int(causal), window or 0)
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-            k.shape[1], s, d, DTYPES[q.dtype], scale, int(causal),
-            window or 0, torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            err = lib.repro_flash_attention_tc(*args, stream)
+        else:
+            err = lib.repro_flash_attention(*args, stream)
     build.check(err, "flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variants[VARIANTS[q.dtype]] += 1
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variants = dict.fromkeys(VARIANTS.values(), 0)

@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from . import ref
-from .fem_matvec import fem_matvec_cuda
+from .fem_matvec import build_element_plan, fem_matvec_cuda
 from .flash_attention import flash_attention_cuda
 from .ksection_hist import ksection_hist_cuda
 from .prefix_scan import exclusive_scan_cuda
@@ -80,12 +80,37 @@ def fem_matvec_op(tets: torch.Tensor, kel: torch.Tensor, u: torch.Tensor,
                   ) -> torch.Tensor:
     """P1 element matvec: (C, 4) slot ids and (C, 4, 4) element matrices
     against a (V,) vertex vector -> (n_out,) accumulated contributions.
-    Kernel and plain version differ in summation order only."""
-    if use_kernel(u, use_pallas):
-        return fem_matvec_cuda(tets.to(torch.int32).contiguous(),
-                               kel.to(torch.float32).contiguous(),
-                               u.contiguous(), n_out)
-    return ref.fem_matvec_kel_ref(tets, kel, u, n_out)
+    Kernel and plain version differ in summation order only.  One call:
+    the kernel's plan is built for it and dropped (``ElementOperator``
+    keeps one for many calls)."""
+    return ElementOperator(tets, kel, n_out, use_pallas=use_pallas).apply(u)
+
+
+class ElementOperator:
+    """The element matvec of one fixed set of elements, for many calls:
+    ``apply(u)`` is ``fem_matvec_op(tets, kel, u, n_out)``.
+
+    On the kernel's path the plan (``fem_matvec.build_element_plan``) is
+    built here, once, on the elements in the order given (the mesh's own
+    order keeps a chunk's elements together), and every ``apply``
+    launches the kernel on it.  On the plain path ``apply`` runs
+    ``ref.fem_matvec_kel_ref``."""
+
+    def __init__(self, tets: torch.Tensor, kel: torch.Tensor, n_out: int, *,
+                 use_pallas: Optional[bool] = None):
+        self.n_out, self.plan = n_out, None
+        if not use_kernel(kel, use_pallas):
+            self.tets, self.kel = tets, kel
+            return
+        self.tets = tets.to(torch.int32).contiguous()
+        self.kel = kel.to(torch.float32).contiguous()
+        self.plan = build_element_plan(self.tets, n_out)
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        if self.plan is not None:
+            return fem_matvec_cuda(self.tets, self.kel, u.contiguous(),
+                                   self.n_out, plan=self.plan)
+        return ref.fem_matvec_kel_ref(self.tets, self.kel, u, self.n_out)
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -125,3 +150,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for variant in getattr(fn, "variants", {}):
+            fn.variants[variant] = 0

@@ -10,7 +10,7 @@ import torch
 from ..core import partition1d as _p1d
 from ..core import sfc as _sfc
 from ..segment import segment_sum
-from .fem_matvec import _MASS20
+from .fem_matvec import _MASS20, CHUNK
 
 
 # --- sfc_keys --------------------------------------------------------------
@@ -51,6 +51,44 @@ def fem_matvec_kel_ref(tets: torch.Tensor, kel: torch.Tensor,
     ue = u[t.clamp(max=u.shape[0] - 1)]
     au = torch.einsum("cij,cj->ci", kel.to(u.dtype), ue)
     return segment_sum(au.reshape(-1), t.reshape(-1), n_out)
+
+
+def fem_matvec_plan_ref(plan, kel: torch.Tensor,
+                        u: torch.Tensor) -> torch.Tensor:
+    """The kernel's two passes on its plan (``fem_matvec.ElementPlan``),
+    in plain torch: ``kel`` in the plan's element order.  Row sums by
+    slot, each local vertex's run of slots in the plan's order (one
+    partial per kept local vertex), each vertex's partials in chunk
+    order.  Held against the JAX package on the CPU, it shows that a plan
+    routes every (element, corner) where the kernel needs it."""
+    n_out, C = plan.n_out, plan.n_elems
+    y = torch.zeros(n_out, dtype=u.dtype, device=u.device)
+    if C == 0 or n_out == 0:
+        return y
+    dev = u.device
+    chunk_off = plan.chunk_off.long()
+    n_chunks = chunk_off.numel() - 1
+    L = plan.gid.numel()
+    chunk_of_lv = torch.repeat_interleave(torch.arange(n_chunks, device=dev),
+                                          chunk_off.diff())
+    us = u[plan.gid.long().clamp(max=u.shape[0] - 1)]
+    elem_chunk = torch.arange(C, device=dev) // CHUNK
+    ue = us[plan.local.long() + chunk_off[elem_chunk][:, None]]
+    rs = torch.einsum("cij,cj->ci", kel.to(u.dtype), ue).reshape(-1)
+    chunk_base = torch.arange(4 * C, device=dev) // (4 * CHUNK) * (4 * CHUNK)
+    ends = plan.seg_end.long()
+    first = torch.arange(L, device=dev) == chunk_off[chunk_of_lv]
+    begins = torch.where(first, 0, torch.roll(ends, 1))
+    lv_of_pos = torch.repeat_interleave(torch.arange(L, device=dev),
+                                        ends - begins)
+    sums = torch.zeros(L, dtype=u.dtype, device=dev).index_add_(
+        0, lv_of_pos, rs[plan.inc.long() + chunk_base])
+    kept = plan.pos >= 0
+    partial = torch.zeros(plan.n_partials, dtype=u.dtype, device=dev)
+    partial[plan.pos[kept].long()] = sums[kept]
+    owner = torch.repeat_interleave(torch.arange(n_out, device=dev),
+                                    plan.vert_off.long().diff())
+    return y.index_add_(0, owner, partial)
 
 
 def fem_matvec_ref(tets: torch.Tensor, grads: torch.Tensor, vol: torch.Tensor,

@@ -290,10 +290,26 @@ class MLP(nn.Module):
         self.wo = dense_param((f, d), dt, device, gen)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., k) @ w (k, n)`` with a float32 result from operands of
+    their own type (the reference's ``preferred_element_type=float32``).
+    On the card bf16 operands go to ``torch.mm(..., out_dtype=float32)``
+    as they are, so the weights are never copied to float32; the CPU has
+    no such product, so there the operands are upcast first."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x2, w, out_dtype=F32)
+    else:
+        y = torch.mm(x2.to(F32), w.to(F32))
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = torch.nn.functional.silu(torch.matmul(x, mlp.wg).to(F32)) \
-        * torch.matmul(x, mlp.wi).to(F32)
-    return torch.matmul(h.to(cfg.act_dtype), mlp.wo).to(cfg.act_dtype)
+    """Both input products stay in float32 through the activation and
+    are rounded once to ``act_dtype`` before ``wo``, as the reference
+    does; ``wo`` too sums in float32 and rounds once."""
+    h = torch.nn.functional.silu(matmul_f32(x, mlp.wg)) * matmul_f32(x, mlp.wi)
+    return matmul_f32(h.to(cfg.act_dtype), mlp.wo).to(cfg.act_dtype)
 
 
 # ---------------------------------------------------------------------------

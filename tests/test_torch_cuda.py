@@ -18,9 +18,11 @@ from repro_torch.core import Balancer, BalanceSpec
 from repro_torch.fem import AdaptiveSession, AdaptSpec, cylinder_mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from repro_torch.kernels.fem_matvec import (fem_element_matrices,
+from repro_torch.kernels.fem_matvec import (build_element_plan,
+                                            fem_element_matrices,
                                             fem_matvec_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (VARIANTS,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
 from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
 from repro_torch.kernels.serve_prefill import packed_attention_cuda
@@ -94,6 +96,45 @@ def test_fem_matvec_kernel_close(cuda, C, V, n_out):
     assert got.shape == want.shape == (n_out,)
     scale = max(float(want.abs().max()), 1.0)
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("C,V,n_out,pad_chunk", [(100_000, 20_000, 19_999,
+                                                  False),
+                                                 (3 * 256 + 5, 90, 80, True)])
+def test_fem_matvec_kernel_bit_identical_across_calls(cuda, C, V, n_out,
+                                                      pad_chunk):
+    """No atomics: an operator's calls, and a fresh plan's, give the same
+    bits; with an all-padding chunk and the pad slot read from V > n_out,
+    within 1e-5 of max|y| of the plain version."""
+    rng = np.random.default_rng(C + 1)
+    tets = rng.integers(0, n_out + 1, (C, 4)).astype(np.int32)
+    if pad_chunk:
+        tets[256:512] = n_out
+    vol = rng.random(C).astype(np.float32)
+    vol[(tets == n_out).any(axis=1)] = 0.0
+    grads = torch.as_tensor(rng.standard_normal((C, 4, 3)).astype(np.float32),
+                            device=cuda)
+    kel = fem_element_matrices(grads, torch.as_tensor(vol, device=cuda), 1.0)
+    t = torch.as_tensor(tets, device=cuda)
+    u = torch.as_tensor(rng.standard_normal(V).astype(np.float32), device=cuda)
+    op = ops.ElementOperator(t, kel, n_out)
+    before = fem_matvec_cuda.launches
+    first = op.apply(u)
+    assert fem_matvec_cuda.launches == before + 1
+    assert torch.equal(first, op.apply(u))
+    assert torch.equal(first, fem_matvec_cuda(t, kel, u, n_out))
+    want = ref.fem_matvec_kel_ref(t, kel, u, n_out)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((first - want).abs().max()) <= 1e-5 * scale
+    plan_y = ref.fem_matvec_plan_ref(build_element_plan(t, n_out), kel, u)
+    assert float((first - plan_y).abs().max()) <= 1e-5 * scale
+
+
+def test_fem_matvec_kernel_chunk_matches_the_plan(cuda):
+    """The plan builder cuts the elements into the kernel's chunks."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fem_matvec import CHUNK
+    assert build.library().repro_fem_matvec_chunk() == CHUNK
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -282,11 +323,26 @@ def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
     rng = np.random.default_rng(s + d)
     q, k, v = _qkv(rng, (b, hq, s, d), (b, hkv, s, d), dtype, cuda)
     before = flash_attention_cuda.launches
+    variant = flash_attention_cuda.variants[VARIANTS[dtype]]
     got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.variants[VARIANTS[dtype]] == variant + 1
     want = ref.mha_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_close(got, want, dtype)
+
+
+def test_flash_attention_path_shape_runs_on_tensor_cores(cuda):
+    """The full prefill's shape on the serving path (32 / 8 heads, d = 128,
+    a 128-token prompt, causal, bf16) runs the tensor-core kernel."""
+    rng = np.random.default_rng(128)
+    q, k, v = _qkv(rng, (1, 32, 128, 128), (1, 8, 128, 128), torch.bfloat16,
+                   cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    assert flash_attention_cuda.variants == {"bf16_tensor_core": 1,
+                                             "f32_cuda_core": 0}
+    _assert_close(got, ref.mha_ref(q, k, v, causal=True), torch.bfloat16)
 
 
 def _pack(rng, C, lengths, gap):
@@ -381,6 +437,52 @@ def test_prefills_on_card_match_cpu(cuda):
     err = float((lc.cpu() - lp).abs().max())
     assert err <= 1e-4 * float(lp.abs().max()), err
     assert torch.allclose(ksc.cpu(), ksp, atol=1e-5)
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    mag = x.double().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def test_mlp_bf16_on_card_rounds_once_like_the_cpu(cuda):
+    """bf16 operands go straight into float32 products on the card
+    (``torch.mm(..., out_dtype=float32)``); the CPU upcasts them.  x.wg
+    and x.wi agree to 1e-5 of their largest value (a product rounded to
+    bf16 is ~2^-9 off); wo's product of the card's activation, rounded
+    once, is within one bf16 step per element of the CPU's (or 2^-16 of
+    the largest output, where cancellation leaves an element near 0 and
+    float32 sums in another order differ by more than its step); and
+    ``mlp_apply`` on the card is exactly that composition."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers
+    cfg = get_smoke("llama3_8b").replace(d_model=256, d_ff=1024,
+                                         dtype="bfloat16",
+                                         param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(14)
+    cpu = layers.MLP(cfg, "cpu", gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn((2, 9, cfg.d_model), generator=gen).to(torch.bfloat16)
+    prods = []
+    for w in ("wg", "wi"):
+        got = layers.matmul_f32(x.to(cuda), getattr(card, w))
+        want = layers.matmul_f32(x, getattr(cpu, w))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        prods.append(got)
+    assert card.wi.dtype == torch.bfloat16
+    h = (F.silu(prods[0]) * prods[1]).to(torch.bfloat16)
+    got = layers.matmul_f32(h, card.wo).to(torch.bfloat16)
+    want = layers.matmul_f32(h.cpu(), cpu.wo).to(torch.bfloat16)
+    diff = (got.cpu().double() - want.double()).abs()
+    tol = torch.maximum(_bf16_step(want),
+                        2.0 ** -16 * want.double().abs().max())
+    assert bool((diff <= tol).all()), (int((diff > tol).sum()),
+                                       float(diff.max()))
+    full = layers.mlp_apply(card, x.to(cuda), cfg)
+    assert full.dtype == torch.bfloat16 and torch.equal(full, got)
 
 
 @pytest.mark.parametrize("prefill", ["packed", "full"])

@@ -13,11 +13,12 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fem_matvec import fem_element_matrices as j_element_matrices
-from repro.kernels.fem_matvec import fem_matvec_pallas
+from repro.kernels.fem_matvec import fem_matvec_jnp, fem_matvec_pallas
 from repro.kernels.ksection_hist import ksection_histogram_pallas
 from repro_torch.core import sfc as tsfc
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.fem_matvec import (fem_element_matrices,
+from repro_torch.kernels.fem_matvec import (CHUNK, build_element_plan,
+                                            fem_element_matrices,
                                             fem_matvec_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
@@ -157,6 +158,142 @@ def test_fem_matvec_plain_matches_reference(C, V, n_out, c):
         np.testing.assert_allclose(got.numpy(), pallas, **tol)
 
 
+# The kernel's plan (build_element_plan) and its two passes in plain torch
+# (ref.fem_matvec_plan_ref) against the JAX package's fem_matvec_jnp and
+# its Pallas kernel in interpret mode.  Tolerance 1e-5 of max|y|: the
+# same float32 products summed in other orders.
+
+def _plan_case(case):
+    """(tets, kel (numpy, JAX's element matrices), u, n_out, ranges)."""
+    C, V, n_out, pad_chunk = case
+    tets, grads, vol, u = _matvec_case(C, V, n_out, C + V + n_out)
+    if pad_chunk:                # elements [CHUNK, 2 CHUNK) all padding
+        tets[CHUNK:2 * CHUNK] = n_out
+        vol[CHUNK:2 * CHUNK] = 0.0
+    kel = np.array(j_element_matrices(jnp.asarray(grads), jnp.asarray(vol),
+                                      1.0))
+    return tets, kel, u, n_out
+
+
+PLAN_CASES = {
+    "ragged": (700, 150, 150, False),          # C not a multiple of CHUNK
+    "pad_chunk": (3 * 256 + 5, 90, 90, True),  # an all-padding chunk
+    "pad_slot": (600, 200, 180, False),        # V > n_out, slot n_out read
+    "empty": (0, 10, 10, False),
+}
+
+
+def _plan_y(tets, kel, u, n_out):
+    plan = build_element_plan(torch.as_tensor(tets), n_out)
+    return plan, ref.fem_matvec_plan_ref(plan, torch.as_tensor(kel),
+                                         torch.as_tensor(u))
+
+
+def _hold_against_jax(got, tets, kel, u, n_out):
+    want = np.asarray(fem_matvec_jnp(jnp.asarray(tets), jnp.asarray(kel),
+                                     jnp.asarray(u), n_out))
+    scale = max(float(np.abs(want).max(initial=0.0)), 1.0)
+    assert got.shape == (n_out,)
+    assert float(np.abs(got - want).max(initial=0.0)) <= 1e-5 * scale
+    if tets.shape[0]:
+        pallas = np.asarray(fem_matvec_pallas(jnp.asarray(tets),
+                                              jnp.asarray(kel),
+                                              jnp.asarray(u), n_out,
+                                              interpret=True))
+        assert float(np.abs(got - pallas).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_element_plan_matches_reference(name):
+    tets, kel, u, n_out = _plan_case(PLAN_CASES[name])
+    plan, got = _plan_y(tets, kel, u, n_out)
+    _hold_against_jax(got.numpy(), tets, kel, u, n_out)
+    op = ops.ElementOperator(torch.as_tensor(tets), torch.as_tensor(kel),
+                             n_out)
+    _hold_against_jax(op.apply(torch.as_tensor(u)).numpy(), tets, kel, u,
+                      n_out)
+    if name == "pad_chunk":      # the padding chunk has one local vertex
+        off = plan.chunk_off.numpy()
+        assert off[2] - off[1] == 1 and plan.gid[off[1]] == n_out
+
+
+@pytest.mark.parametrize("lo,hi", [(0, None), (0, 300), (300, None)])
+def test_element_plan_sharded_ranges(lo, hi):
+    """The three element ranges of the overlapped owned matvec (all, the
+    interface rows, the interior rows), each with a plan of its own."""
+    tets, kel, u, n_out = _plan_case((700, 150, 140, False))
+    _, got = _plan_y(tets[lo:hi], kel[lo:hi], u, n_out)
+    _hold_against_jax(got.numpy(), tets[lo:hi], kel[lo:hi], u, n_out)
+
+
+def test_element_plan_in_another_order():
+    """A plan of the elements in another order gives the same y."""
+    tets, kel, u, n_out = _plan_case(PLAN_CASES["ragged"])
+    perm = np.random.default_rng(3).permutation(tets.shape[0])
+    _, got = _plan_y(tets[perm], kel[perm], u, n_out)
+    _hold_against_jax(got.numpy(), tets, kel, u, n_out)
+
+
+@pytest.mark.parametrize("name", ["ragged", "pad_chunk", "pad_slot"])
+def test_element_plan_invariants(name):
+    """Every (element, corner) below n_out lands in exactly one partial,
+    the partial of its vertex in its chunk; each chunk's incidence runs
+    hold each of its slots once; each vertex's partials are in chunk
+    order; slots >= n_out have no partial."""
+    tets, _, _, n_out = _plan_case(PLAN_CASES[name])
+    C = tets.shape[0]
+    plan = build_element_plan(torch.as_tensor(tets), n_out)
+    local, inc = plan.local.numpy().astype(int), plan.inc.numpy().astype(int)
+    off, gid = plan.chunk_off.numpy(), plan.gid.numpy()
+    seg_end, pos = plan.seg_end.numpy().astype(int), plan.pos.numpy()
+    vert_off = plan.vert_off.numpy()
+    n_chunks = -(-C // CHUNK)
+    assert off.shape == (n_chunks + 1,) and off[-1] == gid.size
+    partial_of = {}                           # partial -> (vertex, chunk)
+    hits = np.zeros(4 * C, int)
+    for k in range(n_chunks):
+        slots = np.arange(4 * k * CHUNK, min(4 * (k + 1) * CHUNK, 4 * C))
+        ids = tets.reshape(-1)[slots]
+        loc = gid[off[k]:off[k + 1]]
+        assert np.array_equal(loc, np.unique(ids))     # sorted, distinct
+        assert np.array_equal(loc[local.reshape(-1)[slots]], ids)
+        run = inc[4 * k * CHUNK:4 * k * CHUNK + slots.size]
+        assert np.array_equal(np.sort(run), np.arange(slots.size))
+        begin = 0
+        for j, lv in enumerate(range(off[k], off[k + 1])):
+            members = run[begin:seg_end[lv]] + 4 * k * CHUNK
+            assert np.all(tets.reshape(-1)[members] == loc[j])
+            assert np.all(np.diff(members) > 0)        # slot order
+            if loc[j] < n_out:
+                assert 0 <= pos[lv] < plan.n_partials
+                partial_of[int(pos[lv])] = (int(loc[j]), k)
+                hits[members] += 1
+            else:
+                assert pos[lv] == -1
+            begin = seg_end[lv]
+        assert begin == slots.size
+    kept = tets.reshape(-1) < n_out
+    assert np.all(hits[kept] == 1) and np.all(hits[~kept] == 0)
+    assert sorted(partial_of) == list(range(plan.n_partials))
+    for v in range(n_out):
+        owners = [partial_of[q] for q in range(vert_off[v], vert_off[v + 1])]
+        assert all(w == v for w, _ in owners)
+        chunks = [k for _, k in owners]
+        assert chunks == sorted(set(chunks))           # chunk order
+
+
+def test_element_plan_of_a_mesh_is_local():
+    """In the mesh's own order (children written in place of their
+    parent) a chunk's elements share vertices: well under one partial per
+    element, where a chunk of unrelated elements would give ~4."""
+    from repro_torch.fem import cylinder_mesh, uniform_refine
+    mesh = cylinder_mesh(8, 2, length=4.0, radius=0.5)
+    uniform_refine(mesh, 6)
+    plan = build_element_plan(torch.as_tensor(mesh.tets).to(torch.int32),
+                              mesh.n_verts)
+    assert plan.n_partials < 0.6 * mesh.n_tets
+
+
 # --- prefix_scan -------------------------------------------------------------
 # Integer weights: every order of additions is exact below 2^24, so the
 # scans are equal.  Float weights: the sums are taken in other orders, so
@@ -253,3 +390,16 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         packed_attention_cuda(q[0], q[0], q[0],
                               torch.zeros(8, dtype=torch.int32))
+
+
+def test_flash_attention_variants():
+    """bf16 goes to the tensor-core kernel and float32 to the CUDA-core
+    one, each with its own launch count beside the total."""
+    from repro_torch.kernels.flash_attention import VARIANTS
+    assert VARIANTS == {torch.bfloat16: "bf16_tensor_core",
+                        torch.float32: "f32_cuda_core"}
+    assert set(flash_attention_cuda.variants) == set(VARIANTS.values())
+    flash_attention_cuda.variants["bf16_tensor_core"] = 3
+    ops.reset_launch_counts()
+    assert flash_attention_cuda.variants == {"bf16_tensor_core": 0,
+                                             "f32_cuda_core": 0}

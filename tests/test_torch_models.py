@@ -233,6 +233,44 @@ def test_mlp_embed_and_head(tiny):
     _close(got, JL.lm_logits(params["embed"], jnp.asarray(x), jcfg))
 
 
+def _bf16_step(x: np.ndarray) -> np.ndarray:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    mag = np.maximum(np.abs(x.astype(np.float64)), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def test_mlp_bf16_rounds_once_like_the_reference():
+    """In bf16 the reference keeps x·wg and x·wi in float32 until after
+    the activation and rounds once before wo.  The same numpy weights and
+    inputs through both packages agree within one bf16 step per element
+    (float32 sums in another order can move a rounding by one step)."""
+    from repro.distributed.sharding import Boxed
+    kw = dict(d_model=64, d_ff=256, dtype="bfloat16", param_dtype="bfloat16")
+    jcfg = jconfigs.get_smoke("llama3_8b").replace(**kw)
+    cfg = configs.get_smoke("llama3_8b").replace(**kw)
+    rng = np.random.default_rng(14)
+    bf16 = jnp.bfloat16
+    w = {name: jnp.asarray(rng.standard_normal(shape) / np.sqrt(shape[0]),
+                           bf16)
+         for name, shape in (("wi", (64, 256)), ("wg", (64, 256)),
+                             ("wo", (256, 64)))}
+    x = jnp.asarray(rng.standard_normal((2, 9, 64)), bf16)
+    want = np.asarray(JL.mlp_apply({k: Boxed(v, (None, None))
+                                    for k, v in w.items()}, x, jcfg),
+                      np.float32)
+    mlp = TL.MLP(cfg, "cpu")
+    with torch.no_grad():
+        for name, v in w.items():
+            getattr(mlp, name).copy_(torch.as_tensor(np.asarray(v,
+                                                                np.float32)))
+    tx = torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+    got = TL.mlp_apply(mlp, tx, cfg)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = np.abs(got.float().numpy() - want)
+    assert np.all(diff <= _bf16_step(want)), (
+        int((diff > _bf16_step(want)).sum()), float(diff.max()))
+
+
 # --- attention plain versions against the Pallas kernels ---------------------
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
