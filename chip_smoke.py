@@ -12,13 +12,14 @@ CUDA toolkit's nvcc.  It
    Example 3.1) from 786,432 tets with incremental k-section balancing on
    64 parts -- and checks that each of its kernels was launched; its
    first two steps run under torch.profiler, whose summary gives the
-   device's idle share and where the host time goes; then replays each
-   step of a smoke-size session on the CPU from the card's mesh;
+   device's idle share and where the host time goes; then runs a
+   smoke-size session on the card twice (equal bit for bit at every
+   step: the FEM's sums add in a fixed order) and replays each of its
+   steps on the CPU from the card's mesh;
 3. holds the FEM path's kernels against their plain PyTorch versions at
    the session's shapes, timing both by the device time torch.profiler
    records (and, with host dispatch, by CUDA events); the element matvec
-   also for equal bits over two calls, with its plan's build time and
-   the first design (atomic scatter) and its store-only probe beside it;
+   also for equal bits over two calls, with its plan's build time;
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
@@ -35,19 +36,22 @@ CUDA toolkit's nvcc.  It
    card and with the plain versions on the CPU, from the same weights;
 9. holds both attention kernels against their plain versions (with
    SDPA's time as the yardstick; flash in bf16 on the tensor cores and
-   in float32 on CUDA cores) and profiles one packed admission plus
-   eight decode steps;
-10. holds the prefix-scan kernel against its plain version (integer
-    weights equal, floats within 1e-6 of sum|x|) and times it beside
-    torch.cumsum;
-11. runs the standalone sharded DLB step: 8M points over 4 ranks
+   in float32 on CUDA cores; packed in bf16 on the tensor cores, on the
+   session's fullest buffer and on a full buffer of long requests) and
+   profiles one packed admission plus eight decode steps;
+10. runs the standalone sharded DLB step: 8M points over 4 ranks
     (hsfc, sorted and k-section, with old parts and the all_to_all
     migration), equal to the host backend on the card;
-12. drives the third main path: the sharded adaptive session over 4
+11. drives the third main path: the sharded adaptive session over 4
     ranks from the 786,432-tet mesh, owned vertex layout, repartition
     and migration every step; each step's partition is held against the
     host backend, its owned PCG solution against the replicated-layout
-    solve of the same packing, and its migration to conservation;
+    solve of the same packing, its migration to conservation, and every
+    rank's own load vector against rank 0's, bit for bit;
+12. holds the prefix-scan kernel against its plain version at the
+    shard lengths phase 11 scanned and more (integer weights equal,
+    floats within 1e-6 of sum|x|, the same bits every call) and times
+    it beside torch.cumsum, device and call times;
 13. prints the kernel table as one JSON line, the card's name and power
     limit, and ``{"ok": true, ...}`` as the last line.
 
@@ -91,10 +95,16 @@ def device_events(prof):
 def timed_ms(fn, reps=20, warmup=3):
     """(device ms, call ms) per call of ``fn`` on the card.
 
-    Device ms sums the durations of the device events that torch.profiler
-    records over ``reps`` calls, so host dispatch drops out.  Call ms is
-    CUDA events around ``reps`` back-to-back calls: it includes host
-    dispatch wherever that outlasts the device work."""
+    Call ms is CUDA events around ``reps`` back-to-back calls: it
+    includes host dispatch wherever that outlasts the device work.
+    Device ms is the same, with the calls queued behind a sleep on the
+    card that outlasts their dispatch, so the card runs them back to
+    back: host dispatch drops out, the card's own gap between two queued
+    kernels (about a microsecond) stays in, and a call that waits for
+    the card inside is timed with its host work (a printed note says
+    so).  torch.profiler's device events are not used here: on the card
+    they have come back with kernels missing from a window (16 of 20)
+    and with times that disagree with these by 2x."""
     import torch
     for _ in range(warmup):
         fn()
@@ -107,11 +117,25 @@ def timed_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    prof, _ = profiled(lambda: [fn() for _ in range(reps)])
-    dev_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
-    return dev_us / 1e3 / reps, call_ms
+    sleep_ms = 2.0 * reps * call_ms + 1.0
+    torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if dispatch_ms > sleep_ms / 2:
+        log(f"timed_ms: dispatching {reps} calls took {dispatch_ms:.3f} ms "
+            f"against a {sleep_ms:.3f} ms sleep: the device time includes "
+            "host work")
+    return start.elapsed_time(end) / reps, call_ms
 
 
+# the sleep kernel spins on the SM clock: cycles per ms at the H100's top
+# clock (1.98 GHz), so that at a lower clock the sleep only lasts longer
+SLEEP_CYCLES_PER_MS = 1_980_000
 PROFILE_ATTEMPTS = 3
 
 
@@ -270,19 +294,23 @@ TIE_RTOL = 1e-3        # an element marked on one side only is a tie
 
 
 def small_session_agreement(dev):
-    """The session with kernels on the card against the plain versions on
-    the CPU at the quickstart's smoke size (which the CPU tests hold
-    against the JAX package), step by step on the card's own meshes.
+    """The session with kernels on the card, twice, and against the plain
+    versions on the CPU at the quickstart's smoke size (which the CPU
+    tests hold against the JAX package), step by step on the card's own
+    meshes.
 
-    Dörfler marking sorts float32 indicators, and the cylinder mesh has
-    many equal ones.  The card's atomic sums change their last bits from
-    run to run, so the card can mark another of several tied elements
-    than the CPU does, after which two whole sessions refine different
-    meshes.  So each step the card ran is replayed on the CPU, as a
-    one-step session from a copy of the mesh that step solved on, and
-    held to it: cg iterations within 2, err_l2 and total eta within
-    SMALL_RTOL, and the same marked set up to ties (an element marked on
-    one side only has the smallest marked indicator, within TIE_RTOL)."""
+    The card's sums add in an order fixed by the mesh, so the two card
+    sessions must agree bit for bit at every step: n_tets, cg
+    iterations, err_l2, every indicator and every mark.  The CPU sums in
+    another order, and Dörfler marking sorts float32 indicators among
+    which the cylinder mesh has many equal ones, so the CPU can mark
+    another of several tied elements, after which two whole sessions
+    refine different meshes.  So each step the card ran is replayed on
+    the CPU, as a one-step session from a copy of the mesh that step
+    solved on, and held to it: cg iterations within 2, err_l2 and total
+    eta within SMALL_RTOL, and the same marked set up to ties (an element
+    marked on one side only has the smallest marked indicator, within
+    TIE_RTOL)."""
     import copy
     import numpy as np
     from repro_torch.core import BalanceSpec
@@ -300,7 +328,23 @@ def small_session_agreement(dev):
                 meshes.append(copy.deepcopy(state.mesh))
         return on_step
 
-    AdaptiveSession(spec, device=dev, on_step=keep(card, solved_on)).run(mesh)
+    again = []
+    AdaptiveSession(spec, device=dev, on_step=keep(card, solved_on)).run(
+        copy.deepcopy(mesh))
+    AdaptiveSession(spec, device=dev, on_step=keep(again)).run(mesh)
+    check(len(card) == len(again), "small session: two card runs took "
+          f"{len(card)} and {len(again)} steps")
+    for step, ((sa, ma, ea), (sb, mb, eb)) in enumerate(zip(card, again)):
+        same = ((sa.n_tets, sa.cg_iters, sa.err_l2, sa.eta)
+                == (sb.n_tets, sb.cg_iters, sb.err_l2, sb.eta)
+                and np.array_equal(ma, mb) and np.array_equal(ea, eb))
+        check(same, f"small session step {step}: two card runs differ: "
+              f"n_tets {sa.n_tets} / {sb.n_tets}, err_l2 {sa.err_l2!r} / "
+              f"{sb.err_l2!r}, {int((ma != mb).sum())} marks and "
+              f"{int((ea != eb).sum())} indicators differ")
+        log(f"small session step {step}, card run twice: n_tets "
+            f"{sa.n_tets}, cg_iters {sa.cg_iters}, err_l2 {sa.err_l2!r}, "
+            f"{int(ma.sum())} marked: equal bit for bit")
     one_step = spec.replace(max_steps=1)
     for step, (sa, marked_a, _) in enumerate(card):
         cpu = []
@@ -479,6 +523,38 @@ def compare_matvec(mesh, dev):
                 library_ms=lib_ms, max_abs_err=err)
 
 
+def compare_sums(mesh, dev):
+    """The FEM's fixed-order segment sum at the last mesh (4 contributions
+    per tet into the vertices, as the load vector and diagonal add them):
+    its time against index_add_'s atomics on the same data, and the
+    largest difference between the two relative to max|sum|."""
+    import torch
+    from repro_torch.fem import build_elements
+    from repro_torch.segment import (SegmentOrder, segment_sum,
+                                     segment_sum_any_order)
+    el = build_elements(mesh.verts, mesh.tets, device=dev)
+    ids = el.tets.reshape(-1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.repeat_interleave(el.vol, 4) * torch.rand(
+        ids.numel(), generator=g, device=dev)
+    fixed = segment_sum(x, ids, el.n_verts)
+    check(torch.equal(fixed, segment_sum(x, ids, el.n_verts)),
+          "segment_sum: two calls differ on the card")
+    atomic = segment_sum_any_order(x, ids, el.n_verts)
+    rel = float((fixed - atomic).abs().max() / atomic.abs().max())
+    ms, call_ms = timed_ms(lambda: segment_sum(x, ids, el.n_verts), reps=5)
+    order = SegmentOrder(ids, el.n_verts)
+    apply_ms, apply_call = timed_ms(lambda: order.sum(x), reps=5)
+    any_ms, any_call = timed_ms(
+        lambda: segment_sum_any_order(x, ids, el.n_verts), reps=5)
+    log(f"segment_sum fixed order, {ids.numel()} contributions into "
+        f"{el.n_verts} vertices: device {ms:.4f} ms (call {call_ms:.4f}), "
+        f"of which the sum on a built order {apply_ms:.4f} (call "
+        f"{apply_call:.4f}) and {len(order.steps)} tree steps; index_add_ "
+        f"{any_ms:.4f} (call {any_call:.4f}); bit-identical over two calls; "
+        f"max |fixed - index_add_| / max|sum| = {rel:.3e}")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: balance with kernels against plain versions
 # ---------------------------------------------------------------------------
@@ -602,9 +678,10 @@ def compare_scan(dev, path_lengths):
     (torch.cumsum(x) - x) at every shard length the sharded session's
     sorted stage scanned (a rank's C = Balancer.capacity_for(n_tets), as
     recorded by phase 11), then at SCAN_EXTRA_SIZES: integer weights
-    equal, uniform floats within 1e-6 * sum|x|; timed beside torch.cumsum
-    alone (the library yardstick).  The table row is the length the path
-    scanned most often."""
+    equal, uniform floats within 1e-6 * sum|x| and the same bits over
+    three more calls; timed beside torch.cumsum alone (the library
+    yardstick), device and call times side by side.  The table row is
+    the length the path scanned most often."""
     import collections
     import numpy as np
     import torch
@@ -627,8 +704,8 @@ def compare_scan(dev, path_lengths):
         err = float((got - want).abs().max())
         tol = 1e-6 * float(xf.abs().sum())
         check(err <= tol, f"prefix_scan n={n}: float err {err} > {tol}")
-        check(torch.equal(got, exclusive_scan_cuda(xf)),
-              f"prefix_scan n={n}: not deterministic")
+        check(all(torch.equal(got, exclusive_scan_cuda(xf))
+                  for _ in range(3)), f"prefix_scan n={n}: not deterministic")
         ms, call_ms = timed_ms(lambda: exclusive_scan_cuda(xf))
         plain_ms, plain_call_ms = timed_ms(lambda: ref.exclusive_scan_ref(xf))
         lib_ms, lib_call_ms = timed_ms(lambda: torch.cumsum(xf, dim=0))
@@ -640,7 +717,8 @@ def compare_scan(dev, path_lengths):
             f"{plain_call_ms:.4f}) cumsum_ms={lib_ms:.4f} (call "
             f"{lib_call_ms:.4f}) bound_ms={bound:.4f} share={bound / ms:.3f} "
             f"max_abs_err={err:.3e} (tolerance 1e-6 * sum|x| = {tol:.3e}); "
-            f"integers equal")
+            f"integers equal; against torch.cumsum: "
+            f"device {ms / lib_ms:.3f}x, call {call_ms / lib_call_ms:.3f}x")
         if n == row_n:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by="bytes", library_ms=lib_ms, max_abs_err=err)
@@ -726,7 +804,8 @@ def sharded_dlb(n=8_000_000):
 def replicated_layout_solve(comm, problem, spec, kept):
     """The replicated-layout solve of a kept solve's packing: the same
     masked system, PCG over the replicated vertex vector with one psum
-    per matvec (fem.parallel's replicated layout)."""
+    per matvec (fem.parallel's replicated layout).  Also says whether
+    this rank's load vector equals rank 0's bit for bit."""
     import torch
     from repro_torch.fem import load_vector
     from repro_torch.fem.parallel import (make_sharded_matvec,
@@ -736,9 +815,11 @@ def replicated_layout_solve(comm, problem, spec, kept):
     el, verts, free = kept["el"], kept["verts"], kept["free"]
     sel = shard_elements_on_device(el, kept["parts"], SHARDED_P, comm)
     mv, _ = make_sharded_matvec(sel, comm, problem.c)
-    # the same right-hand side on every rank (its atomic sums may differ
-    # in the last bits), so every rank's PCG takes the same iterations
-    rhs = comm.broadcast(load_vector(el, verts, problem.f))
+    # rank 0's right-hand side on every rank, as the session does, so
+    # every rank's PCG takes the same iterations; the fixed-order sums
+    # should make every rank's own copy equal to it already
+    own = load_vector(el, verts, problem.f)
+    rhs = comm.broadcast(own)
     g = problem.exact(verts)
     zero = torch.zeros((), device=rhs.device)
     g_ext = torch.where(free > 0, zero, g)
@@ -747,7 +828,7 @@ def replicated_layout_solve(comm, problem, spec, kept):
                        torch.ones_like(free))
     res = pcg(lambda u: torch.where(free > 0, mv(u * free), u), b, diag,
               torch.zeros_like(b), tol=spec.tol, maxiter=spec.maxiter)
-    return res.x + g_ext, res.iters
+    return res.x + g_ext, res.iters, bool(torch.equal(own, rhs))
 
 
 def sharded_session_rank(comm, rounds, max_tets):
@@ -842,8 +923,8 @@ def sharded_session_rank(comm, rounds, max_tets):
     host = Balancer(session.balance_spec.replace(backend="host"), device=dev)
     steps = []
     for step, (stats, k) in enumerate(zip(res.stats, kept)):
-        x, iters = replicated_layout_solve(comm, session.problem, spec,
-                                           k["solve"])
+        x, iters, rhs_equal = replicated_layout_solve(
+            comm, session.problem, spec, k["solve"])
         scale = float(x.abs().max())
         err = float((k["solve"]["u"] - x).abs().max()) / scale
         check(np.isfinite(stats.err_l2), f"step {step}: non-finite error")
@@ -867,6 +948,7 @@ def sharded_session_rank(comm, rounds, max_tets):
             cut=stats.cut, halo_bytes=stats.comm_halo_bytes,
             psum_bytes=stats.comm_psum_bytes, cg_iters=stats.cg_iters,
             rep_iters=int(iters), pcg_err=err, err_l2=stats.err_l2,
+            rhs_equal=rhs_equal,
             t_max=t_max[step], migration=mig))
     return dict(steps=steps, launches=launches, scanned=scanned, wall=wall,
                 t_mesh=t_mesh, staged_bytes=staged, n_tets0=192 << rounds,
@@ -884,6 +966,8 @@ def sharded_session(rounds=12, max_tets=3_000_000):
               f"rank {r} refined another mesh")
         check(o["scanned"] == r0["scanned"], f"rank {r} scanned other "
               "shard lengths")
+        check(all(s["rhs_equal"] for s in o["steps"]), f"rank {r}'s own "
+              "load vector differs from rank 0's in some step")
     for step, s in enumerate(r0["steps"]):
         t = s["t_max"]
         log(f"sharded step {step}: n_tets={s['n_tets']} (balanced "
@@ -894,7 +978,8 @@ def sharded_session(rounds=12, max_tets=3_000_000):
             f"{s['err_l2']:.6e} owned-vs-replicated {s['pcg_err']:.3e}; max "
             f"over ranks: t_solve={t[0]:.4f}s t_estimate={t[1]:.4f}s "
             f"t_refine={t[2]:.4f}s t_balance={t[3]:.4f}s; migration "
-            f"{s['migration']}")
+            f"{s['migration']}; every rank's own load vector equal to "
+            f"rank 0's bit for bit")
     launches = {k: sum(o["launches"][k] for o in outs) for k in r0["launches"]}
     for name in ("sfc_keys", "fem_matvec", "prefix_scan"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -1058,8 +1143,14 @@ def serve_full_width(dev):
         serve_run(model, cfg, dev, dict(SERVE_SPEC, prefill=prefill), warm)
     out = {"cfg": cfg, "model": model, "trace": trace}
     m, reqs, counts, peak, _ = serve_run(model, cfg, dev, SERVE_SPEC, trace)
+    from repro_torch.kernels.serve_prefill import packed_attention_cuda
+    packed_variants = dict(packed_attention_cuda.variants)
     log_serve("packed, the main path", m, counts, peak)
+    log(f"  serve_prefill launches by variant: {packed_variants}")
     check(counts["serve_prefill"] > 0, "serve_prefill was not launched")
+    check(packed_variants["bf16_tensor_core"] == counts["serve_prefill"],
+          "the packed prefill's bf16 attention did not run on the tensor "
+          "cores at every launch")
     out["packed"] = (m, counts)
     mp, rp, cp, pp, recp = serve_run(model, cfg, dev, SERVE_SPEC, trace,
                                      record=True)
@@ -1266,10 +1357,12 @@ def compare_flash(dev, s, dtype="bfloat16"):
                 library_ms=lib_ms, max_abs_err=err)
 
 
-def compare_packed(dev, seg_np):
+def compare_packed(dev, seg_np, label="the path's fullest buffer"):
     """The packed kernel against packed_attention_ref on one packed buffer
-    of the session (32 / 8 heads, d = 128, bf16); SDPA with a boolean
-    segment-causal mask as the yardstick, compared on real rows."""
+    (32 / 8 heads, d = 128, bf16): every element within one bf16 step,
+    pad rows exactly 0, the same bits on a second call, on the tensor
+    cores; SDPA with a boolean segment-causal mask as the yardstick,
+    compared on real rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1280,11 +1373,16 @@ def compare_packed(dev, seg_np):
     q = _bf16((hq, C, d), g, dev)
     k, v = _bf16((hkv, C, d), g, dev), _bf16((hkv, C, d), g, dev)
     seg = torch.as_tensor(seg_np, dtype=torch.int32, device=dev)
+    before = packed_attention_cuda.variants["bf16_tensor_core"]
     got = packed_attention_cuda(q, k, v, seg)
+    check(packed_attention_cuda.variants["bf16_tensor_core"] == before + 1,
+          "serve_prefill bf16: the tensor-core kernel did not run")
     want = ref.packed_attention_ref(q, k, v, seg)
     err, reading = attention_err("serve_prefill", got, want)
     real = seg >= 0
     check(bool((got[:, ~real] == 0).all()), "serve_prefill: pad rows not 0")
+    check(torch.equal(got, packed_attention_cuda(q, k, v, seg)),
+          "serve_prefill: two calls differ")
     i = torch.arange(C, device=dev)
     mask = (i[None, :] <= i[:, None]) & (seg[:, None] == seg[None, :]) \
         & real[:, None]
@@ -1302,14 +1400,30 @@ def compare_packed(dev, seg_np):
     n_real = int(real.sum())
     bound, by = attention_bound(pairs, hq, hkv, n_real, C, d,
                                 extra_bytes=4 * C)
-    log(f"serve_prefill C={C} hq={hq} hkv={hkv} d={d} bf16, segments "
-        f"{lens.tolist()} ({n_real} real tokens): kernel_ms="
+    log(f"serve_prefill ({label}) C={C} hq={hq} hkv={hkv} d={d} bf16, "
+        f"segments {lens.tolist()} ({n_real} real tokens, {pairs} visible "
+        f"pairs over the heads): kernel_ms="
         f"{ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
         f"{plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f}) "
         f"bound_ms={bound:.4f} ({by}) share={bound / ms:.4f} {reading} "
-        f"(sdpa max abs err on real rows {lib_err:.3e})")
+        f"(sdpa max abs err on real rows {lib_err:.3e}); bit-identical "
+        f"over two calls, pad rows 0")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, max_abs_err=err)
+
+
+# a full buffer whose requests span the buckets the trace never reaches
+FULL_BUFFER = (1024, 512, 256, 128, 128)
+
+
+def full_buffer_seg(C=2048, lengths=FULL_BUFFER):
+    import numpy as np
+    seg = np.full(C, -1, np.int32)
+    off = 0
+    for sid, n in enumerate(lengths):
+        seg[off:off + n] = sid
+        off += n
+    return seg
 
 
 def profile_serving(serve, dev):
@@ -1376,7 +1490,8 @@ def phase(name, fn, *args):
 
 def fem_kernel_rows(res, session, balanced, dev):
     """Phases 3-5 of the FEM path: its kernels at the session's shapes,
-    the balance replay and the standalone DLB step."""
+    the fixed-order segment sum's cost, the balance replay and the
+    standalone DLB step."""
     import torch
     from repro_torch.core.sfc import sfc_keys
     # keys and histogram at the shapes of the session's last
@@ -1391,6 +1506,7 @@ def fem_kernel_rows(res, session, balanced, dev):
                                          64, "p=64")
     compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024")
     rows["fem_matvec"] = compare_matvec(res.mesh, dev)
+    compare_sums(res.mesh, dev)
     replay_balance(res, session, dev)
     standalone_dlb(dev)
     return rows
@@ -1399,12 +1515,14 @@ def fem_kernel_rows(res, session, balanced, dev):
 def attention_rows(serve, dev):
     """Both attention kernels against their plain versions: flash in bf16
     (tensor cores) at the path's prompt length (128) and at 1024, and in
-    float32 (CUDA cores) at 128; packed on the session's fullest buffer
-    (only when the serving phase gave one: without it the run fails
-    anyway)."""
+    float32 (CUDA cores) at 128; packed in bf16 (tensor cores) on a full
+    buffer of requests of 1024, 512, 256, 128 and 128 tokens (a reading
+    beside flash at 1024) and on the session's fullest buffer (only when
+    the serving phase gave one: without it the run fails anyway)."""
     compare_flash(dev, 1024)
     compare_flash(dev, 128, "float32")
     rows = {"flash_attention": compare_flash(dev, 128)}
+    compare_packed(dev, full_buffer_seg(), "a full buffer, a reading")
     if serve is not None:
         rows["serve_prefill"] = compare_packed(dev, serve["fullest_pack"])
     return rows
@@ -1438,7 +1556,7 @@ def main():
 
     fem = phase("phase 2: the adaptive FEM session (main path 1)",
                 run_session, dev)
-    phase("phase 2b: small session, card against CPU",
+    phase("phase 2b: small session, card twice and against CPU",
           small_session_agreement, dev)
     rows = {}
     if fem is not None:

@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 
 
 class PartitionQuality(NamedTuple):
@@ -31,13 +31,13 @@ def cut_links(parts: torch.Tensor, adjacency: torch.Tensor) -> torch.Tensor:
 
 
 def imbalance(parts: torch.Tensor, weights: torch.Tensor, p: int) -> torch.Tensor:
-    return imbalance_of_part_weights(segment_sum(weights, parts, p))
+    return imbalance_of_part_weights(segment_sum_any_order(weights, parts, p))
 
 
 def quality(parts: torch.Tensor, weights: torch.Tensor, p: int,
             adjacency: Optional[torch.Tensor] = None) -> PartitionQuality:
     """adjacency: (m, 2) pairs of item ids that communicate (shared faces)."""
-    pw = segment_sum(weights, parts, p)
+    pw = segment_sum_any_order(weights, parts, p)
     cut = None if adjacency is None else cut_links(parts, adjacency)
     return PartitionQuality(imbalance_of_part_weights(pw), pw, cut)
 
@@ -47,8 +47,8 @@ def migration_volume(old_parts: torch.Tensor, new_parts: torch.Tensor,
     """TotalV / MaxV of moving from old to new assignment."""
     moved = old_parts != new_parts
     moved_w = torch.where(moved, weights, 0.0)
-    outgoing = segment_sum(moved_w, old_parts, p)
-    incoming = segment_sum(moved_w, new_parts, p)
+    outgoing = segment_sum_any_order(moved_w, old_parts, p)
+    incoming = segment_sum_any_order(moved_w, new_parts, p)
     return {
         "TotalV": moved_w.sum(),
         "MaxV": torch.maximum(outgoing.max(), incoming.max()),

@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 
 
 class Partition1DResult(NamedTuple):
@@ -64,7 +64,7 @@ def sorted_exact(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
     parts_sorted = prefix_sum_parts(weights[order], p, use_pallas=use_pallas)
     parts = torch.empty_like(parts_sorted)
     parts[order] = parts_sorted
-    part_weights = segment_sum(weights, parts, p)
+    part_weights = segment_sum_any_order(weights, parts, p)
     ksorted = keys[order].to(torch.float32)
     # a_j = key of the first item assigned to parts >= j, or max_key + 1
     # when every item lies below part j (an empty part collapses onto the
@@ -219,7 +219,7 @@ def ksection(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
         targets, blo, bhi, hfn, k=k, iters=iters, tol=tol)
     parts = torch.searchsorted(splitters.contiguous(), kf.contiguous(),
                                right=True)
-    part_weights = segment_sum(w, parts, p)
+    part_weights = segment_sum_any_order(w, parts, p)
     return Partition1DResult(parts, splitters, part_weights, rounds)
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 
 
 def _segment_extreme(x: torch.Tensor, ids: torch.Tensor, n: int,
@@ -42,7 +42,7 @@ def rcb_partition(coords: torch.Tensor, weights: torch.Tensor,
         order = by_c[torch.argsort(parts[by_c], stable=True)]
         ps, ws = parts[order], w[order]
         cum = torch.cumsum(ws, dim=0)
-        part_tot = segment_sum(ws, ps, nparts)
+        part_tot = segment_sum_any_order(ws, ps, nparts)
         part_start_cum = torch.cat([torch.zeros(1, dtype=torch.float32,
                                                 device=coords.device),
                                     torch.cumsum(part_tot, dim=0)])[:-1]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 
 
 def similarity_matrix(old_parts: torch.Tensor, new_parts: torch.Tensor,
@@ -23,7 +23,7 @@ def similarity_matrix(old_parts: torch.Tensor, new_parts: torch.Tensor,
     ``p_old``) land outside the ``p_old * p_new`` segments and are
     dropped."""
     fused = old_parts.long() * p_new + new_parts.long()
-    flat = segment_sum(weights, fused, p_old * p_new)
+    flat = segment_sum_any_order(weights, fused, p_old * p_new)
     return flat.reshape(p_old, p_new)
 
 

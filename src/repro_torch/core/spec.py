@@ -33,7 +33,7 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 from . import metrics as _metrics
 from . import partition1d as _p1d
 from .remap import guarded_greedy_perm, similarity_matrix
@@ -317,8 +317,8 @@ def _migrate_metrics_host(spec: BalanceSpec, old_parts, new_parts, weights):
     w = torch.where(valid, weights, 0.0)
     moved = (old_parts != new_parts) & valid
     moved_w = torch.where(moved, w, 0.0)
-    outgoing = segment_sum(moved_w, old_parts, p)
-    incoming = segment_sum(moved_w, new_parts, p)
+    outgoing = segment_sum_any_order(moved_w, old_parts, p)
+    incoming = segment_sum_any_order(moved_w, new_parts, p)
     return {
         "total_v": moved_w.sum(),
         "max_v": torch.maximum(outgoing.max(), incoming.max()),
@@ -394,7 +394,7 @@ class Balancer:
                 spec, old_parts, new, weights)
             total_v, max_v, retained = (mv["total_v"], mv["max_v"],
                                         mv["retained"])
-        pw = segment_sum(weights, new, p)
+        pw = segment_sum_any_order(weights, new, p)
         return BalanceResult(parts=new, part_weights=pw,
                              imbalance=_metrics.imbalance_of_part_weights(pw),
                              total_v=total_v, max_v=max_v, retained=retained,

@@ -34,7 +34,7 @@ from ..core import partition1d as _p1d
 from ..core import sfc as _sfc
 from ..core.remap import guarded_greedy_perm, similarity_matrix
 from ..core.spec import BalanceSpec, get_stage, register_stage, resolve_variants
-from ..segment import segment_sum
+from ..segment import segment_sum_any_order
 from .migrate import migrate_items
 
 
@@ -183,8 +183,8 @@ def _migrate_metrics_sharded(spec: BalanceSpec, old_parts, new_parts,
     valid = old_parts < p
     w = torch.where(valid, weights, 0.0)
     moved = torch.where((old_parts != new_parts) & valid, w, 0.0)
-    outgoing = comm.psum(segment_sum(moved, old_parts, p))
-    incoming = comm.psum(segment_sum(moved, new_parts, p))
+    outgoing = comm.psum(segment_sum_any_order(moved, old_parts, p))
+    incoming = comm.psum(segment_sum_any_order(moved, new_parts, p))
     return {
         "total_v": outgoing.sum(),
         "max_v": torch.maximum(outgoing.max(), incoming.max()),
@@ -251,7 +251,7 @@ def build_balance_fn(spec: BalanceSpec, comm, has_old: bool,
                 spec, old, new, w, comm=comm)
             aux["remap_perm"] = perm
         valid_w = torch.where(old < p, w, 0.0) if old is not None else w
-        pw = comm.psum(segment_sum(valid_w, new, p))
+        pw = comm.psum(segment_sum_any_order(valid_w, new, p))
         aux["part_weights"] = pw
         aux["imbalance"] = _metrics.imbalance_of_part_weights(pw)
         if old is not None:

@@ -374,8 +374,13 @@ def _use_pallas(session: "AdaptiveSession") -> Optional[bool]:
 
 def _replicated(session: "AdaptiveSession", x: torch.Tensor) -> torch.Tensor:
     """Rank 0's copy of a replicated quantity on every rank (sharded
-    sessions): the card's atomic sums may differ in the last bits between
-    ranks, and the replicated mesh must not."""
+    sessions).  The replicated mesh must not differ between ranks.  Every
+    rank computes these values with the same operations on the same
+    inputs, and the FEM's sums add in an order fixed by the mesh
+    (``segment_sum``), so on one kind of card the copies agree bit for
+    bit; the broadcast keeps that true where ranks run on cards or
+    libraries that round differently (the NCCL route, one rank per card,
+    has not run on more than one card)."""
     if session.comm is None:
         return x
     return session.comm.broadcast(x.contiguous())

@@ -48,6 +48,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..segment import segment_sum
+
 
 @dataclass(frozen=True)
 class HaloPlan:
@@ -534,17 +536,17 @@ def halo_start(y: torch.Tensor, send_idx: torch.Tensor, comm):
 
 def halo_finish(y: torch.Tensor, pending, send_idx: torch.Tensor,
                 recv_idx: torch.Tensor, comm) -> torch.Tensor:
-    """Wait for leg 1, scatter-add it into the owned slots, then leg 2
-    (restore): the assembled owner values go back to every toucher's
-    ghost slots."""
+    """Wait for leg 1, add it into the owned slots, then leg 2 (restore):
+    the assembled owner values go back to every toucher's ghost slots.
+    Leg 1's contributions are summed per slot by ``segment_sum``, in an
+    order fixed by the plan on the card (padding slots, index V,
+    dropped), then added to ``y``."""
     V = y.shape[0]
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
     r = recv_idx.reshape(-1).long()
     s = send_idx.reshape(-1).long()
     contrib = pending.wait()                      # (p*H,), blocks = source
-    keep = r < V
-    y = y.clone()
-    y.index_add_(0, r[keep], contrib[keep])
+    y = y + segment_sum(contrib, r, V)
     back = torch.where(r < V, y[r.clamp(max=V - 1)], zero)
     ghosts = comm.all_to_all(back)                # blocks = owner
     keep = s < V

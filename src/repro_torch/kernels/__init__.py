@@ -13,10 +13,13 @@ Kernels (the TPU kernel each replaces is named in its source):
   ksection_hist  k-section candidate-cut weight histogram
   fem_matvec     P1 element matvec with precomputed 4x4 element matrices,
                  two passes on a plan of the mesh, no atomics
-  prefix_scan    exclusive prefix sum (Algorithm 1's S_i), three passes
+  prefix_scan    exclusive prefix sum (Algorithm 1's S_i), one pass with a
+                 look-back over tile aggregates, deterministic
   flash_attention  causal / sliding-window / GQA attention (full prefill);
                  bf16 on tensor cores, float32 on CUDA cores
-  serve_prefill  segment-masked causal attention over a packed buffer
+  serve_prefill  segment-masked causal attention over a packed buffer;
+                 bf16 on tensor cores (the body shared with flash attention,
+                 csrc/attention_tc.cuh), float32 on CUDA cores
 
 ``build.py`` compiles ``csrc/*.cu`` with nvcc at first use on a CUDA
 tensor; nothing is built at import.

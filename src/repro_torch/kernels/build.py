@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu",
            "prefix_scan.cu", "flash_attention.cu", "flash_attention_tc.cu",
            "serve_prefill.cu")
-HEADERS = ("attention_tile.cuh",)
+HEADERS = ("attention_tile.cuh", "attention_tc.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -100,8 +100,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_fem_matvec.restype = i
     lib.repro_fem_matvec_chunk.argtypes = []
     lib.repro_fem_matvec_chunk.restype = i
-    lib.repro_prefix_scan.argtypes = [p, ll, p, p, p]
+    lib.repro_prefix_scan.argtypes = [p, ll, p, p, ctypes.c_uint, p]
     lib.repro_prefix_scan.restype = i
+    lib.repro_prefix_scan_tile.argtypes = []
+    lib.repro_prefix_scan_tile.restype = i
     lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i,
                                           i, p]
     lib.repro_flash_attention.restype = i

@@ -9,36 +9,52 @@
 // writes each output once, 8 bytes per element; the n additions are
 // nothing beside that.  The TPU kernel walks 2048-wide blocks in grid
 // order and carries the running total in a VMEM cell from one step to
-// the next.  Hopper blocks run in no order, so the carry becomes three
-// passes over tiles of 4096 items (256 threads x 16 items):
+// the next.  Hopper blocks run in no order, so the carry becomes a
+// single pass with a look-back over tile aggregates only:
 //
-//   1. every block sums its tile and writes the total to a scratch row;
-//   2. one block scans the tile totals in place (exclusive), looping over
-//      chunks of 1024 with a carry, so any number of tiles works;
-//   3. every block scans its tile again and writes offset + local prefix.
+//   1. a block draws its tile from an atomic ticket, so every tile with
+//      a lower index has started (and none waits on a later one);
+//   2. it loads its tile once (16 items a thread, staged through shared
+//      memory with coalesced loads), scans it in the block and
+//      publishes the tile's aggregate with a flag (one 64-bit store);
+//   3. warp 0 waits for the aggregates of ALL lower tiles -- none of
+//      them depends on another tile, so nothing is chained -- and adds
+//      them in a fixed order: lane l takes tiles l, l + 32, ... in
+//      order, then the lanes' sums meet in a fixed butterfly;
+//   4. every thread writes its items once: tile prefix + in-tile prefix.
 //
-// Passes 1 and 3 read the input, so the kernel moves 12 bytes per
-// element against the 8 of the bound; a single-pass decoupled look-back
-// scan would reach 8 and is the design for a later optimisation.  A tile
-// is staged through shared memory with coalesced loads, then each thread
-// adds its 16 consecutive items in order (the shared-memory index is
-// padded by one word every 32, so the 16-strided reads hit 32 banks), the
-// thread totals are scanned with warp shuffles and the warp totals by
-// warp 0.  Every sum is taken in an order fixed by n alone (no atomics),
-// so the result is the same on every run; on integer weights whose total
-// stays below 2^24 every partial sum is exact and the result equals
-// torch.cumsum(x) - x bit for bit.  Any n runs: the ragged last tile
-// reads zeros past the end and stores nothing there.
+// So one launch moves the bound's 8 bytes per element.  A textbook
+// decoupled look-back stops at the first predecessor whose inclusive
+// prefix is ready, a point that depends on timing, so float sums would
+// change from run to run; here the order of every addition is fixed by
+// n alone, and the result is the same on every run.  On integer weights
+// whose total stays below 2^24 every partial sum is exact and the result
+// equals torch.cumsum(x) - x bit for bit.  Any n runs: the ragged last
+// tile reads zeros past the end and stores nothing there.
+//
+// Tiles: 4096 items (256 threads) up to 2^19 items, 8192 (512 threads)
+// above.  On the H100 the larger tile was faster from ~10^6 items on
+// (fewer blocks, and fewer flags for each to read) and slower at 2^18,
+// where 64 blocks of 4096 fill more of the card.  The tile depends on n
+// alone, so the bits do too.
+//
+// Status memory: word 0 holds the ticket counter, word 1 + t holds
+// (epoch << 32) | the aggregate's bits of tile t.  The wrapper keeps one
+// status buffer per stream (calls on one stream run in order) and passes
+// a new epoch with every call, so a flag left by an earlier call of any
+// length never matches; the block that draws the last ticket resets the
+// counter for the next call.  No memset, no allocation per call.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;                    // consecutive items per thread
-constexpr int kTile = kThreads * kItems;      // 4096 items per block
-constexpr int kScanThreads = 1024;            // pass 2
+constexpr int kLoads = 8;                     // look-back loads in flight
+constexpr int kSmallThreads = 256;            // 4096-item tiles ...
+constexpr long long kSmallUpTo = 1 << 19;     // ... up to 2^19 items
+constexpr int kLargeThreads = 512;            // 8192-item tiles above
 
 __host__ __device__ constexpr int padded(int k) { return k + (k >> 5); }
 
@@ -56,14 +72,76 @@ __device__ __forceinline__ float warp_exclusive(float v, float* total) {
   return lane == 0 ? 0.0f : ex;
 }
 
-// Stage one tile in shared memory, add each thread's 16 items, and give
-// each thread the exclusive prefix of its run inside the tile.  Returns
-// the thread's offset; *tile_total gets the tile's sum (every thread).
-__device__ __forceinline__ float tile_offsets(const float* __restrict__ x,
-                                              long long n, long long base,
-                                              float* smem, float* warp_tot,
-                                              float* tile_total) {
-  const int t = threadIdx.x;
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// The sum of the aggregates of tiles 0 .. tile - 1, by warp 0, waiting
+// for each flag to carry this call's epoch.  Lane l adds tiles l, l + 32,
+// l + 64, ... in that order; the lanes' sums meet in a fixed butterfly.
+__device__ __forceinline__ float lookback(const unsigned long long* flags,
+                                          unsigned tile, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  for (unsigned base = 0; base < tile; base += 32 * kLoads) {
+    unsigned long long v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const unsigned j = base + u * 32 + lane;
+      v[u] = j < tile ? load_acquire(flags + j) : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const unsigned j = base + u * 32 + lane;
+      if (j < tile) {
+        while ((unsigned)(v[u] >> 32) != epoch)
+          v[u] = load_acquire(flags + j);
+        acc += __uint_as_float((unsigned)v[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const float* __restrict__ x, long long n, float* __restrict__ out,
+            unsigned long long* __restrict__ status, unsigned tiles,
+            unsigned epoch) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kTile = kThreads * kItems;
+  __shared__ float smem[padded(kTile)];
+  __shared__ float warp_tot[kWarps + 1];
+  __shared__ unsigned tile_s;
+  __shared__ float tile_off;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  unsigned* ticket = reinterpret_cast<unsigned*>(status);
+  unsigned long long* flags = status + 1;
+  if (t == 0) {
+    const unsigned mine = atomicAdd(ticket, 1u);
+    if (mine == tiles - 1) atomicExch(ticket, 0u);   // every ticket is out
+    tile_s = mine;
+  }
+  __syncthreads();
+  const unsigned tile = tile_s;
+  const long long base = (long long)tile * kTile;
+
+  // stage the tile with coalesced loads; each thread adds its 16
+  // consecutive items (the index is padded by one word every 32, so the
+  // 16-strided reads hit 32 banks)
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int k = i * kThreads + t;
@@ -76,7 +154,6 @@ __device__ __forceinline__ float tile_offsets(const float* __restrict__ x,
   for (int j = 0; j < kItems; ++j) run += smem[padded(t * kItems + j)];
   float wsum;
   const float lane_off = warp_exclusive(run, &wsum);
-  const int warp = t >> 5, lane = t & 31;
   if (lane == 0) warp_tot[warp] = wsum;
   __syncthreads();
   if (warp == 0) {
@@ -85,62 +162,19 @@ __device__ __forceinline__ float tile_offsets(const float* __restrict__ x,
     const float ex = warp_exclusive(v, &all);
     __syncwarp();
     if (lane < kWarps) warp_tot[lane] = ex;
-    if (lane == 0) warp_tot[kWarps] = all;
+    if (lane == 0) {
+      store_release(flags + tile,
+                    ((unsigned long long)epoch << 32) | __float_as_uint(all));
+    }
+    const float prior = lookback(flags, tile, epoch);
+    if (lane == 0) tile_off = prior;
   }
   __syncthreads();
-  *tile_total = warp_tot[kWarps];
-  return warp_tot[warp] + lane_off;
-}
+  const float off = tile_off + (warp_tot[warp] + lane_off);
 
-__global__ void __launch_bounds__(kThreads)
-tile_totals_kernel(const float* __restrict__ x, long long n,
-                   float* __restrict__ totals) {
-  __shared__ float smem[padded(kTile)];
-  __shared__ float warp_tot[kWarps + 1];
-  float total;
-  tile_offsets(x, n, (long long)blockIdx.x * kTile, smem, warp_tot, &total);
-  if (threadIdx.x == 0) totals[blockIdx.x] = total;
-}
-
-// One block: exclusive scan of the nb tile totals in place.
-__global__ void __launch_bounds__(kScanThreads)
-scan_totals_kernel(float* __restrict__ totals, long long nb) {
-  __shared__ float warp_tot[kScanThreads / 32 + 1];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  float carry = 0.0f;
-  for (long long start = 0; start < nb; start += kScanThreads) {
-    const long long i = start + t;
-    const float v = i < nb ? totals[i] : 0.0f;
-    float wsum;
-    const float ex = warp_exclusive(v, &wsum);
-    if (lane == 0) warp_tot[warp] = wsum;
-    __syncthreads();
-    if (warp == 0) {
-      float all;
-      const float wex = warp_exclusive(warp_tot[lane], &all);
-      __syncwarp();
-      warp_tot[lane] = wex;
-      if (lane == 0) warp_tot[32] = all;
-    }
-    __syncthreads();
-    if (i < nb) totals[i] = carry + (warp_tot[warp] + ex);
-    carry += warp_tot[32];
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const float* __restrict__ x, long long n,
-                 const float* __restrict__ offsets, float* __restrict__ out) {
-  __shared__ float smem[padded(kTile)];
-  __shared__ float warp_tot[kWarps + 1];
-  const long long base = (long long)blockIdx.x * kTile;
-  float total;
-  const float off = offsets[blockIdx.x] +
-                    tile_offsets(x, n, base, smem, warp_tot, &total);
-  const int t = threadIdx.x;
-  // exclusive prefix of each item, written back over the staged tile
-  float run = 0.0f;
+  // exclusive prefix of each item, written back over the staged tile,
+  // then stored with coalesced writes
+  run = 0.0f;
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int k = padded(t * kItems + j);
@@ -157,22 +191,31 @@ tile_scan_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+template <int kThreads>
+int launch(const float* x, long long n, float* out, void* status,
+           unsigned epoch, cudaStream_t stream) {
+  const long long tiles = (n + kThreads * kItems - 1) / (kThreads * kItems);
+  scan_kernel<kThreads><<<(unsigned)tiles, kThreads, 0, stream>>>(
+      x, n, out, static_cast<unsigned long long*>(status), (unsigned)tiles,
+      epoch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, out: (n,) float32 on one device; scratch: (ceil(n / 4096),) float32.
-// Launches the three passes on `stream` and returns cudaGetLastError()
-// (0 on success).
+// The smallest tile: the wrapper sizes the status buffer by it.
+extern "C" int repro_prefix_scan_tile() { return kSmallThreads * kItems; }
+
+// x, out: (n,) float32 on one device; status: at least
+// 1 + ceil(n / 4096) 64-bit words, reused across calls on `stream` with a
+// new epoch (> 0) each call, zero before its first use.  Launches one
+// kernel on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int repro_prefix_scan(const float* x, long long n, float* out,
-                                 float* scratch, void* stream) {
+                                 void* status, unsigned epoch,
+                                 void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const long long nb = (n + kTile - 1) / kTile;
-  tile_totals_kernel<<<(unsigned)nb, kThreads, 0, s>>>(x, n, scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_totals_kernel<<<1, kScanThreads, 0, s>>>(scratch, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_scan_kernel<<<(unsigned)nb, kThreads, 0, s>>>(x, n, scratch, out);
-  return (int)cudaGetLastError();
+  if (n <= kSmallUpTo)
+    return launch<kSmallThreads>(x, n, out, status, epoch, s);
+  return launch<kLargeThreads>(x, n, out, status, epoch, s);
 }

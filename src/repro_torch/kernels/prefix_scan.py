@@ -7,19 +7,44 @@ Its plain version is ``kernels.ref.exclusive_scan_ref`` (``torch.cumsum(x)
 """
 from __future__ import annotations
 
+from typing import Dict, List, Tuple
+
 import torch
 
 from . import build
 
-SCAN_TILE = 4096     # items per block: kTile in csrc/prefix_scan.cu
+#: items in the smallest tile of csrc/prefix_scan.cu; sizes the status buffer
+SCAN_TILE = 4096
+_MIN_STATUS_WORDS = 1024
+_LAST_EPOCH = (1 << 32) - 1
+
+#: (device index, raw stream) -> [status words (int64), last epoch]: the
+#: kernel's ticket and per-tile flags, one buffer per stream, since calls
+#: on one stream run in order and each passes a new epoch
+_status: Dict[Tuple[int, int], List] = {}
+
+
+def _status_for(device: torch.device, stream: int,
+                tiles: int) -> Tuple[torch.Tensor, int]:
+    """The stream's status buffer (zeroed when made or grown) and the
+    epoch of this call."""
+    entry = _status.get((device.index, stream))
+    if (entry is None or entry[0].numel() < tiles + 1
+            or entry[1] == _LAST_EPOCH):
+        words = max(_MIN_STATUS_WORDS, 1 << tiles.bit_length())
+        # made on the current stream, which is the kernel's
+        entry = [torch.zeros(words, dtype=torch.int64, device=device), 0]
+        _status[(device.index, stream)] = entry
+    entry[1] += 1
+    return entry[0], entry[1]
 
 
 def exclusive_scan_cuda(x: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of a contiguous (n,) float32 CUDA tensor, any n.
 
-    Deterministic (a fixed order of additions, no atomics); exact on
-    integer weights whose total stays below 2^24.  Adds one to
-    ``exclusive_scan_cuda.launches`` per launch."""
+    One launch; deterministic (an order of additions fixed by n, no
+    float atomics); exact on integer weights whose total stays below
+    2^24.  Adds one to ``exclusive_scan_cuda.launches`` per launch."""
     if not x.is_cuda:
         raise ValueError(f"exclusive_scan_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -32,13 +57,17 @@ def exclusive_scan_cuda(x: torch.Tensor) -> torch.Tensor:
         return out
     if n >= 2 ** 31:
         raise ValueError(f"exclusive_scan_cuda: too many items: {n}")
-    scratch = torch.empty(-(-n // SCAN_TILE), dtype=torch.float32,
-                          device=x.device)
+    dev = x.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    status, epoch = _status_for(dev, stream, -(-n // SCAN_TILE))
     lib = build.library()
-    with torch.cuda.device(x.device):
-        err = lib.repro_prefix_scan(x.data_ptr(), n, out.data_ptr(),
-                                    scratch.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), n, out.data_ptr(), status.data_ptr(), epoch,
+            stream)
+    if dev.index == torch.cuda.current_device():
+        err = lib.repro_prefix_scan(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.repro_prefix_scan(*args)
     build.check(err, "prefix_scan")
     exclusive_scan_cuda.launches += 1
     return out

@@ -1,5 +1,7 @@
-"""Wrapper of the hand-written packed-prefill attention kernel
-(``csrc/serve_prefill.cu``).
+"""Wrapper of the hand-written packed-prefill attention kernels
+(``csrc/serve_prefill.cu``): bf16 on the tensor cores (the body shared
+with flash attention, ``csrc/attention_tc.cuh``), float32 on CUDA cores
+(``csrc/attention_tile.cuh``).
 
 Replaces the TPU kernel
 ``repro/kernels/serve_prefill.py::packed_attention_pallas``.  Its plain
@@ -14,7 +16,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .flash_attention import DTYPES, check_attention_inputs
+from .flash_attention import DTYPES, VARIANTS, check_attention_inputs
 
 
 def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -25,8 +27,10 @@ def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device: q (hq, C, d), k / v (hkv, C, d), float32 or bfloat16,
     contiguous; seg (C,) int32 request ids, -1 = pad.  Key j is visible
     from query i iff ``j <= i`` and ``seg[i] == seg[j] >= 0``; rows that
-    see no key are exactly 0.  Returns (hq, C, d) in q's dtype.  Adds one
-    to ``packed_attention_cuda.launches`` per launch."""
+    see no key are exactly 0.  Returns (hq, C, d) in q's dtype.  bf16
+    runs the tensor-core kernel, float32 the CUDA-core one (``VARIANTS``).
+    Adds one to ``packed_attention_cuda.launches`` and to its variant's
+    entry of ``packed_attention_cuda.variants`` per launch."""
     check_attention_inputs("packed_attention_cuda", q, k, v, heads_axis=0)
     hq, C, d = q.shape
     if k.dim() != 3 or k.shape[1] != C:
@@ -52,7 +56,9 @@ def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             softcap or 0.0, torch.cuda.current_stream().cuda_stream)
     build.check(err, "packed_attention")
     packed_attention_cuda.launches += 1
+    packed_attention_cuda.variants[VARIANTS[q.dtype]] += 1
     return o
 
 
 packed_attention_cuda.launches = 0
+packed_attention_cuda.variants = dict.fromkeys(VARIANTS.values(), 0)

@@ -155,7 +155,11 @@ def test_wrappers_reject_bad_inputs(cuda):
 # 1e-6 of the sum of |x| (other orders of additions), and the kernel gives
 # the same bits on every run (no atomics).
 
-@pytest.mark.parametrize("n", [1, 31, 4095, 4096, 4097, 1_000_003, 1 << 21,
+SCAN_LENGTHS = [1, 4095, 4096, 4097, 1 << 19, (1 << 19) + 1, 1 << 22]
+
+
+@pytest.mark.parametrize("n", [1, 31, 4095, 4096, 4097, 1_000_003, 1 << 19,
+                               (1 << 19) + 1, 1 << 21, 1 << 22,
                                4096 * 1030 + 7])
 def test_prefix_scan_kernel_exact_on_integers(cuda, n):
     rng = np.random.default_rng(n)
@@ -177,6 +181,71 @@ def test_prefix_scan_kernel_float_close_and_deterministic(cuda):
     assert float((got.double() - want).abs().max()) <= tol
     assert torch.equal(got, exclusive_scan_cuda(x))
     assert exclusive_scan_cuda(x[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_prefix_scan_kernel_float_close_and_repeats_at_lengths(cuda, n):
+    rng = np.random.default_rng(n + 1)
+    x = torch.as_tensor(rng.random(n).astype(np.float32), device=cuda)
+    got = exclusive_scan_cuda(x)
+    want = ref.exclusive_scan_ref(x.double())
+    tol = 1e-6 * float(x.abs().sum())
+    assert float((got.double() - want).abs().max()) <= tol
+    for _ in range(3):
+        assert torch.equal(got, exclusive_scan_cuda(x))
+
+
+def test_prefix_scan_status_is_never_stale(cuda):
+    """The kernel's per-tile flags live in a buffer kept per stream and
+    told apart by a per-call epoch: alternating lengths (a long call
+    leaves flags a short one must not read, and the other way round; both
+    tile sizes) and a second stream give the same bits as fresh calls."""
+    rng = np.random.default_rng(5)
+    xs = [torch.as_tensor(rng.random(n).astype(np.float32), device=cuda)
+          for n in (1 << 22, 4097, 1 << 19, 1, 2_588_188)]
+    want = [exclusive_scan_cuda(x) for x in xs]
+    side = torch.cuda.Stream()
+    for _ in range(3):
+        for x, w in zip(xs + xs[::-1], want + want[::-1]):
+            assert torch.equal(exclusive_scan_cuda(x), w)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = [exclusive_scan_cuda(x) for x in xs[::-1]]
+        torch.cuda.current_stream().wait_stream(side)
+        for g, w in zip(got, want[::-1]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1 << 19, 2_588_188])
+def test_prefix_scan_is_one_launch(cuda, n):
+    """One kernel and nothing else on the device per call, once the
+    stream's status buffer exists.  The profiler has come back with
+    device events missing, so a window that shows none is run again; one
+    that shows more than one fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(n, device=cuda)
+    out = torch.empty_like(x)
+    exclusive_scan_cuda(x)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = exclusive_scan_cuda(x)
+            torch.cuda.synchronize()
+        on_device = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        assert len(on_device) <= 1, on_device
+        if on_device:
+            break
+    assert len(on_device) == 1 and "scan" in on_device[0], on_device
+    assert float(out[-1]) == n - 1
+
+
+def test_prefix_scan_tile_matches_the_wrapper(cuda):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.prefix_scan import SCAN_TILE
+    assert build.library().repro_prefix_scan_tile() == SCAN_TILE
 
 
 def test_prefix_scan_rejects_bad_inputs(cuda):
@@ -286,6 +355,134 @@ def test_session_on_card_launches_all_kernels_and_tracks_cpu(cuda):
     assert a.n_repartitions == n_repartitions
 
 
+# --- sums in a fixed order ----------------------------------------------------
+# On the card segment_sum adds each segment's contributions in an order
+# fixed by the ids (repro_torch.segment.SegmentOrder): the FEM's sums give
+# the same bits on every call, so whole sessions repeat bit for bit.
+# Against the CPU's index_add_ on the same elements: float32 sums in
+# another order, within 1e-5 of the largest value (1e-4 for the
+# estimator, whose recovered gradient is differenced).
+
+def _random_elements(n_tets, seed):
+    """Elements of a random tet mesh of ``n_tets`` (the FEM session's
+    786,432): uniform vertices in the unit cube, 5.6 tets per vertex as
+    in the refined cylinder, numbered in Morton order of a 64^3 grid so
+    that each tet's 4 distinct vertices, close in number, lie close in
+    space (small tets, as in a refined mesh)."""
+    from repro_torch.core.sfc import morton_encode
+    from repro_torch.fem import build_elements
+    rng = np.random.default_rng(seed)
+    nv = int(n_tets / 5.6)
+    verts = rng.random((nv, 3))
+    cells = torch.as_tensor((verts * 64).astype(np.int64))
+    verts = verts[np.argsort(morton_encode(cells, 6).numpy(), kind="stable")]
+    base = rng.integers(0, nv, n_tets)
+    steps = rng.integers(1, 20, (n_tets, 3)).cumsum(axis=1)
+    tets = np.concatenate([base[:, None], (base[:, None] + steps) % nv],
+                          axis=1).astype(np.int32)
+    return verts.astype(np.float32), build_elements(verts, tets,
+                                                    device="cpu")
+
+
+def test_fem_sums_repeat_bits_on_card(cuda):
+    """The load vector, diagonal, mass matvec and estimator on the card
+    give the same bits on two calls, and agree with the CPU's; the
+    fixed-order sum alone, on the card's own contributions, agrees with
+    the CPU's index_add_ within 1e-5 of each vertex's sum of |x|."""
+    from repro_torch.fem import (HelmholtzProblem, load_vector, mass_matvec,
+                                 operator_diagonal, zz_estimate)
+    from repro_torch.fem.assemble import P1Elements
+    from repro_torch.segment import segment_sum, segment_sum_any_order
+    verts, el_cpu = _random_elements(786_432, 0)
+    el = P1Elements(*(t.to(cuda) for t in el_cpu[:3]), el_cpu.n_verts)
+    u = np.random.default_rng(1).standard_normal(el.n_verts).astype(
+        np.float32)
+    prob = HelmholtzProblem()
+
+    def sums(e, dev):
+        tu = torch.as_tensor(u, device=dev)
+        tv = torch.as_tensor(verts, device=dev)
+        return {"load_vector": load_vector(e, tv, prob.f),
+                "operator_diagonal": operator_diagonal(e, 1.0),
+                "mass_matvec": mass_matvec(e, tu),
+                "zz_estimate": zz_estimate(e, tu)}
+
+    first, second, cpu = sums(el, cuda), sums(el, cuda), sums(el_cpu, "cpu")
+    errs = {}
+    for name, got in first.items():
+        assert torch.equal(got, second[name]), name
+        want = cpu[name]
+        errs[name] = float((got.cpu() - want).abs().max()) / float(
+            want.abs().max())
+    assert all(e <= (1e-4 if name == "zz_estimate" else 1e-5)
+               for name, e in errs.items()), errs
+    ids = el.tets.reshape(-1)
+    x = torch.repeat_interleave(el.vol, 4) * torch.randn(
+        ids.numel(), device=cuda)
+    got = segment_sum(x, ids, el.n_verts)
+    assert torch.equal(got, segment_sum(x, ids, el.n_verts))
+    want = segment_sum_any_order(x.cpu(), ids.cpu(), el.n_verts)
+    abs_sum = segment_sum_any_order(x.abs().cpu(), ids.cpu(), el.n_verts)
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * abs_sum).all())
+
+
+def test_halo_finish_repeats_bits_on_card(cuda):
+    """halo_finish adds leg 1 through the fixed-order sum: one part whose
+    exchange returns what it is given, 200k slots, 150k contributions of
+    which many land on a slot with others; every ghost slot once."""
+    from repro_torch.fem.halo import halo_finish
+
+    class OneRank:
+        def all_to_all(self, x):
+            return x
+
+    class Done:
+        def __init__(self, x):
+            self.x = x
+
+        def wait(self):
+            return self.x
+
+    rng = np.random.default_rng(3)
+    V, H = 200_000, 150_000
+    y = torch.as_tensor(rng.standard_normal(V).astype(np.float32),
+                        device=cuda)
+    recv = torch.as_tensor(rng.integers(0, V + 1, (1, H)), device=cuda)
+    send = torch.as_tensor(rng.permutation(V + 1)[None, :H],
+                           device=cuda)
+    contrib = torch.as_tensor(rng.standard_normal(H).astype(np.float32),
+                              device=cuda)
+    contrib = torch.where(recv[0] < V, contrib, 0.0)
+    args = (y, Done(contrib), send, recv, OneRank())
+    first = halo_finish(*args)
+    assert torch.equal(first, halo_finish(*args))
+    want = halo_finish(*(a.cpu() if torch.is_tensor(a) else a
+                         for a in (y, Done(contrib.cpu()), send, recv,
+                                   OneRank())))
+    assert float((first.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_small_sessions_on_card_repeat_bit_for_bit(cuda):
+    """Two smoke-size sessions on the card: equal n_tets, err_l2, eta and
+    marks at every step."""
+    spec = AdaptSpec.for_problem(
+        "helmholtz", max_steps=3, max_tets=6000, tol=1e-6, incremental=True,
+        balance=BalanceSpec(p=16, method="hsfc", oneD="ksection"))
+    runs = []
+    for _ in range(2):
+        steps = []
+        AdaptiveSession(spec, device=cuda, on_step=lambda st, s: steps.append(
+            (st.n_tets, st.err_l2, st.eta, st.cg_iters, s.marked.copy(),
+             s.eta.copy()))).run(cylinder_mesh(8, 2, length=4.0, radius=0.5))
+        runs.append(steps)
+    assert len(runs[0]) == len(runs[1]) == spec.max_steps
+    for step, (a, b) in enumerate(zip(*runs)):
+        assert a[:4] == b[:4], step
+        np.testing.assert_array_equal(a[4], b[4])
+        np.testing.assert_array_equal(a[5], b[5])
+
+
 # --- attention kernels -------------------------------------------------------
 # Tolerances: float32 inputs agree with the plain version to float32
 # rounding of differently ordered sums (2e-5 of the output scale).  Both
@@ -363,6 +560,13 @@ def _pack(rng, C, lengths, gap):
     (256, 4, 1, 64, (200,), 0, 30.0),             # softcap, GQA 4:1
     (130, 2, 2, 48, (1, 1, 70), 3, 5.0),
     (64, 2, 1, 16, (), 0, None),                  # all pad
+    (2048, 32, 8, 128, (128,) * 7, 0, None),      # the path's fullest buffer
+    (2048, 32, 8, 128, (1024, 512, 256, 128, 128), 0, None),   # full buffer
+    (2048, 4, 1, 64, (700, 300), 16, 20.0),       # GQA 4:1, d 64, softcap
+    (300, 4, 1, 100, (37, 90, 64, 20), 5, 50.0),  # d % 8 != 0, ragged C
+    (1000, 8, 2, 128, (1000,), 0, None),          # one request, ragged C
+    (200, 8, 2, 72, (63, 65, 1, 40), 0, None),    # requests straddle tiles
+    (513, 4, 4, 128, (64, 64, 64), 130, 10.0),    # pad-only tiles between
 ])
 def test_packed_attention_kernel_close(cuda, dtype, C, hq, hkv, d, lengths,
                                        gap, softcap):
@@ -376,6 +580,43 @@ def test_packed_attention_kernel_close(cuda, dtype, C, hq, hkv, d, lengths,
     _assert_close(got, want, dtype)
     pad = seg < 0
     assert bool((got[:, pad] == 0).all())       # pad rows exactly 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_kernel_any_layout(cuda, dtype):
+    """Requests interleaved token by token (no order a search could use):
+    the key-tile ranges only over-approximate, so the result stays
+    right."""
+    rng = np.random.default_rng(9)
+    C, hq, hkv, d = 300, 4, 2, 64
+    q, k, v = _qkv(rng, (hq, C, d), (hkv, C, d), dtype, cuda)
+    seg = torch.as_tensor(rng.integers(-1, 5, C).astype(np.int32),
+                          device=cuda)
+    got = ops.packed_attention_op(q, k, v, seg, softcap=15.0)
+    _assert_close(got, ref.packed_attention_ref(q, k, v, seg, softcap=15.0),
+                  dtype)
+    assert bool((got[:, seg < 0] == 0).all())
+
+
+def test_packed_attention_bf16_on_tensor_cores_repeats_bits(cuda):
+    """The packed trace's shape (32 / 8 heads, d = 128, 7 x 128 tokens in
+    a 2,048 buffer, bf16) runs the tensor-core kernel and gives the same
+    bits on every call; float32 runs the CUDA-core one."""
+    rng = np.random.default_rng(2048)
+    C, hq, hkv, d = 2048, 32, 8, 128
+    q, k, v = _qkv(rng, (hq, C, d), (hkv, C, d), torch.bfloat16, cuda)
+    seg = torch.as_tensor(_pack(rng, C, (128,) * 7, 0), device=cuda)
+    ops.reset_launch_counts()
+    first = ops.packed_attention_op(q, k, v, seg)
+    assert packed_attention_cuda.variants == {"bf16_tensor_core": 1,
+                                              "f32_cuda_core": 0}
+    for _ in range(2):
+        assert torch.equal(first, ops.packed_attention_op(q, k, v, seg))
+    ops.packed_attention_op(q[:, :64].float().contiguous(),
+                            k[:, :64].float().contiguous(),
+                            v[:, :64].float().contiguous(), seg[:64])
+    assert packed_attention_cuda.variants == {"bf16_tensor_core": 3,
+                                              "f32_cuda_core": 1}
 
 
 def test_attention_wrappers_reject_bad_inputs(cuda):
