@@ -10,16 +10,22 @@ CUDA toolkit's nvcc.  It
    ``src/repro_torch/kernels/csrc`` (into ``build/kernels``);
 2. drives the first main path -- an adaptive Helmholtz session (paper
    Example 3.1) from 786,432 tets with incremental k-section balancing on
-   64 parts -- and checks that each of its kernels was launched; its
-   first two steps run under torch.profiler, whose summary gives the
-   device's idle share and where the host time goes; then runs a
+   64 parts -- and checks that each of its kernels was launched, with
+   the summation orders built per step; its first two steps run under
+   torch.profiler, whose summary gives the device's idle share (an upper
+   bound where the profiler's kernel events fall short of the wrappers'
+   launches) and where the host time goes; then runs a
    smoke-size session on the card twice (equal bit for bit at every
    step: the FEM's sums add in a fixed order) and replays each of its
    steps on the CPU from the card's mesh;
 3. holds the FEM path's kernels against their plain PyTorch versions at
-   the session's shapes, timing both by the device time torch.profiler
-   records (and, with host dispatch, by CUDA events); the element matvec
-   also for equal bits over two calls, with its plan's build time;
+   the session's shapes, timing both by CUDA events (device and call
+   times); the SFC keys also on every point of the 2^30 grid, both
+   curves, with the integer instructions a key costs (from the SASS);
+   the histogram with its kernels a call; the element matvec also for
+   equal bits over two calls, with its plan's build time; the FEM's
+   fixed-order sum on the mesh's kept order beside an order built per
+   call;
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
@@ -133,6 +139,42 @@ def timed_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps, call_ms
 
 
+# bytes read between two calls of cold_ms: 2.5x the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(calls, rounds=5):
+    """Device ms per call with the L2 cache flushed before each call: each
+    of ``calls`` (callables) runs ``rounds`` times, after a read of
+    FLUSH_BYTES that evicts its inputs, between two CUDA events; all of it
+    queued behind a sleep on the card, so host dispatch drops out.  The
+    warm times of ``timed_ms`` run a call back to back on inputs that may
+    stay in L2 (50 MB), which a byte bound on HBM's rate does not see."""
+    import torch
+    scratch = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    for fn in calls:
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(rounds * len(calls))]
+
+    def run():
+        for (a, b), fn in zip(pairs, calls * rounds):
+            scratch.sum()
+            a.record()
+            fn()
+            b.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    sleep_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+    run()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
 # the sleep kernel spins on the SM clock: cycles per ms at the H100's top
 # clock (1.98 GHz), so that at a lower clock the sleep only lasts longer
 SLEEP_CYCLES_PER_MS = 1_980_000
@@ -161,9 +203,49 @@ def profiled(body, setup=None):
     raise AssertionError("torch.profiler recorded no device activity")
 
 
-def trace_summary(label, prof, wall_s, top_host=8, top_dev=5):
+# the device kernels of each wrapper, by the name the profiler gives them
+WRAPPER_KERNELS = {
+    "sfc_keys": ("sfc_keys_kernel",),
+    "ksection_hist": ("prep_kernel", "bucket_kernel"),
+    "fem_matvec": ("element_pass", "vertex_pass"),
+    "prefix_scan": ("scan_kernel",),
+    "flash_attention": ("flash_kernel", "flash_tc_kernel"),
+    "serve_prefill": ("packed_kernel", "packed_tc_kernel")}
+
+
+def kernels_launched(launches):
+    """Device kernels the wrappers launched, from their launch counts (a
+    window's difference): fem_matvec and ksection_hist run two kernels a
+    call, the others one."""
+    out = dict(launches)
+    for name in ("fem_matvec", "ksection_hist"):
+        out[name] = 2 * launches.get(name, 0)
+    return out
+
+
+def wrapper_events(prof):
+    """The profiler's kernel events per wrapper, by WRAPPER_KERNELS."""
+    import re
+    seen = {}
+    for e in device_events(prof):
+        for wrapper, kernels in WRAPPER_KERNELS.items():
+            if any(re.search(rf"::{k}[<(]", e.name) for k in kernels):
+                seen[wrapper] = seen.get(wrapper, 0) + 1
+    return seen
+
+
+def count_diff(after, before):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def trace_summary(label, prof, wall_s, top_host=8, top_dev=5,
+                  launches=None):
     """Device busy share of a profiled window, the host ops with the most
-    self time and the device kernels with the most time."""
+    self time and the device kernels with the most time.  With
+    ``launches`` (the window's difference of ``ops.launch_counts``), each
+    wrapper's kernel events beside the kernels its counts say it
+    launched; where the profiler recorded fewer, it left kernels out of
+    the window, and the idle share is printed as an upper bound."""
     from torch.autograd import DeviceType
     host, dev = {}, {}
     for e in prof.events():
@@ -174,8 +256,19 @@ def trace_summary(label, prof, wall_s, top_host=8, top_dev=5):
             t, c = host.get(e.name, (0.0, 0))
             host[e.name] = (t + e.self_cpu_time_total, c + 1)
     busy_s = sum(t for t, _ in dev.values()) / 1e6
+    missing = False
+    if launches is not None:
+        want = kernels_launched(launches)
+        seen = wrapper_events(prof)
+        missing = any(seen.get(k, 0) < v for k, v in want.items())
+        log(f"trace {label}: kernel events per wrapper "
+            f"{ {k: seen.get(k, 0) for k in want} } against kernels "
+            f"launched {want}")
+    idle = 1 - busy_s / wall_s
+    share = (f"idle share at most {idle:.4f} (the profiler missed kernels)"
+             if missing else f"idle share {idle:.4f}")
     log(f"trace {label}: wall {wall_s:.4f} s, device busy {busy_s:.4f} s "
-        f"(summed event durations), idle share {1 - busy_s / wall_s:.4f}")
+        f"(summed event durations), {share}")
     for kind, table, top in (("host self", host, top_host),
                              ("device", dev, top_dev)):
         for name, (t, c) in sorted(table.items(), key=lambda kv: -kv[1][0]
@@ -209,6 +302,7 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
     from repro_torch.fem import (AdaptSpec, AdaptiveSession, cylinder_mesh,
                                  uniform_refine)
     from repro_torch.kernels import ops
+    from repro_torch.segment import SegmentOrder
 
     t0 = time.perf_counter()
     mesh = cylinder_mesh(8, 2, length=4.0, radius=0.5)
@@ -225,8 +319,10 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
     hook_s = [0.0]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     window, traces = {}, []
+    builds = []
 
     def open_window():
+        window["counts"] = ops.launch_counts()
         window["prof"] = profile(activities=acts)
         window["prof"].start()
         window["t0"] = time.perf_counter()
@@ -236,9 +332,11 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
         if state.step < TRACED_STEPS:
             torch.cuda.synchronize()
             window["prof"].stop()
-            traces.append((state.step, window["prof"], t_hook - window["t0"]))
+            traces.append((state.step, window["prof"], t_hook - window["t0"],
+                           count_diff(ops.launch_counts(), window["counts"])))
             window["prof"] = None
         per_step.append(dict(ops.launch_counts()))
+        builds.append(SegmentOrder.builds)
         if state.repartitioned:
             balanced["coords"] = state.mesh.barycenters().astype(np.float32)
             balanced["step"] = state.step
@@ -257,6 +355,7 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
 
     session = AdaptiveSession(spec, device=dev, on_step=on_step)
     ops.reset_launch_counts()
+    SegmentOrder.builds = 0
     open_window()
     t0 = time.perf_counter()
     res = session.run(mesh)
@@ -271,11 +370,12 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
     prev = {k: 0 for k in counts}
     for i, c in enumerate(per_step):
         log(f"  launches in step {i}: "
-            f"{ {k: c[k] - prev[k] for k in c} }")
+            f"{ {k: c[k] - prev[k] for k in c} }; summation orders built "
+            f"{builds[i] - (builds[i - 1] if i else 0)}")
         prev = c
-    for step, prof, wall_s in traces:
+    for step, prof, wall_s, launched in traces:
         trace_summary("session start to the end of step 0" if step == 0
-                      else f"step {step}", prof, wall_s)
+                      else f"step {step}", prof, wall_s, launches=launched)
     for name in FEM_KERNELS:
         check(counts[name] > 0, f"kernel {name} was not launched on the "
               "main path")
@@ -415,18 +515,137 @@ def compare_sfc(coords_np, dev):
         want = plain(grid)
         check(torch.equal(got, want), f"sfc_keys {curve}: kernel != plain")
         ms, call_ms = timed_ms(lambda: sfc_keys_cuda(grid, curve=curve))
+        cold = cold_ms([lambda: sfc_keys_cuda(grid, curve=curve)], rounds=20)
         plain_ms, plain_call_ms = timed_ms(lambda: plain(grid), reps=5)
         bound = 16 * n / PEAK_BYTES_PER_S * 1e3
         log(f"sfc_keys[{curve}] n={n}: kernel_ms={ms:.4f} (call "
-            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
-            f"{plain_call_ms:.4f}) bound_ms={bound:.4f} equal=True")
+            f"{call_ms:.4f}; L2 flushed {cold:.4f}) plain_ms={plain_ms:.4f} "
+            f"(call {plain_call_ms:.4f}) bound_ms={bound:.4f} share warm "
+            f"{bound / ms:.4f}, L2 flushed {bound / cold:.4f} equal=True")
         if curve == "hilbert":   # the main path's curve (method hsfc)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by="bytes", library_ms=None, max_abs_err=0.0)
+    sfc_every_point(dev)
+    counts = key_instructions()
+    log(f"sfc_keys integer instructions a key costs (SASS of "
+        f"{os.path.relpath(SFC_SOURCE, ROOT)}, bits = 10): {counts}")
     return row, coords, lo, hi
 
 
-def compare_hist(kf, w, p, label):
+SFC_CHUNK_BITS = 24     # points per chunk of the every-point check: 2^24
+
+
+def sfc_every_point(dev, bits=10):
+    """Both curves' keys from the kernel against the plain version on
+    every point of the 2^bits grid (2^30 at bits = 10), 2^24 points a
+    chunk."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sfc_keys import sfc_keys_cuda
+    side = 1 << bits
+    chunk = 1 << SFC_CHUNK_BITS
+    for curve in ("hilbert", "morton"):
+        plain = ref.hilbert_keys_ref if curve == "hilbert" else ref.morton_keys_ref
+        sync(dev)
+        t0 = time.perf_counter()
+        for start in range(0, side ** 3, chunk):
+            i = torch.arange(start, start + chunk, device=dev,
+                             dtype=torch.int32)
+            g = torch.stack([i // (side * side), (i // side) % side,
+                             i % side], dim=1).contiguous()
+            check(torch.equal(sfc_keys_cuda(g, curve=curve, bits=bits).long(),
+                              plain(g, bits)),
+                  f"sfc_keys {curve}: kernel != plain on points "
+                  f"[{start}, {start + chunk})")
+        sync(dev)
+        log(f"sfc_keys[{curve}] every point of the 2^{bits} grid "
+            f"({side ** 3} points, {side ** 3 // chunk} chunks): equal to "
+            f"the plain version, {time.perf_counter() - t0:.2f} s")
+
+
+SFC_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                          "sfc_keys.cu")
+# integer ALU opcodes of the SASS (Hopper), for key_instructions
+INT_OPS = ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD",
+           "LEA", "ISETP", "SEL", "PRMT", "BFE", "BFI", "IABS", "IMNMX",
+           "VIADD", "VIMNMX", "FLO", "POPC", "BREV", "IMUL", "ICMP", "PLOP3",
+           "MOV", "P2R", "R2P")
+
+
+def key_instructions():
+    """Integer instructions one key costs in ``csrc/sfc_keys.cu``, per
+    curve at bits = 10, from the SASS of a probe kernel that includes the
+    source and computes one key a thread from a loaded (x, y, z): the
+    probe's integer instructions minus those of the same probe that only
+    stores x ^ y ^ z.  The Hilbert walk's table lookups count apart
+    (``loads``, beyond the probe's three)."""
+    import re
+    import shutil
+    import tempfile
+    from repro_torch.kernels import build
+    probe = f"""#include "{SFC_SOURCE}"
+namespace {{
+__global__ void probe_base(const unsigned* in, unsigned* out) {{
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned x = in[3 * i], y = in[3 * i + 1], z = in[3 * i + 2];
+  out[i] = x ^ y ^ z;
+}}
+__global__ void probe_morton(const unsigned* in, unsigned* out) {{
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned x = in[3 * i], y = in[3 * i + 1], z = in[3 * i + 2];
+  out[i] = morton_key(x, y, z);
+}}
+__global__ void probe_hilbert(const unsigned* in, unsigned* out,
+                              const unsigned short* tab) {{
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned x = in[3 * i], y = in[3 * i + 1], z = in[3 * i + 2];
+  out[i] = hilbert_key<5>(x, y, z, tab, 0u);
+}}
+}}
+void* probe_keep[] = {{(void*)probe_base, (void*)probe_morton,
+                      (void*)probe_hilbert}};
+"""
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    try:
+        src = os.path.join(work, "probe.cu")
+        with open(src, "w") as f:
+            f.write(probe)
+        cubin = os.path.join(work, "probe.cubin")
+        nvcc = build.nvcc()
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-cubin", src, "-o", cubin],
+                       check=True, capture_output=True, text=True)
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"probe_(base|morton|hilbert)", line)
+            current = m.group(1) if m else None
+            if current:
+                counts[current] = {"int": 0, "loads": 0}
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                       line)
+        if current and op:
+            if op.group(1) in INT_OPS:
+                counts[current]["int"] += 1
+            if op.group(1).startswith("LD"):
+                counts[current]["loads"] += 1
+    base = counts["base"]
+    return {curve: {k: counts[curve][k] - base[k] for k in base}
+            for curve in ("morton", "hilbert")}
+
+
+def compare_hist(kf, w, p, label, faster=False):
+    """The histogram kernel against its plain version on every cut array
+    of a k-section search on (kf, w) at p parts (equal bits: integer
+    weights), timed per call; ``faster``: fail unless the kernel beats
+    its plain version."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ksection_hist import ksection_hist_cuda
@@ -437,8 +656,13 @@ def compare_hist(kf, w, p, label):
         check(torch.equal(got, want), f"ksection_hist {label}: kernel != plain")
     ms, call_ms = timed_ms(lambda: [ksection_hist_cuda(kf, w, c)
                                     for c in seq], reps=5)
+    cold = cold_ms([lambda c=c: ksection_hist_cuda(kf, w, c) for c in seq])
     plain_ms, plain_call_ms = timed_ms(
         lambda: [ref.ksection_histogram_ref(kf, w, c) for c in seq], reps=5)
+    before = ksection_hist_cuda.launches
+    prof, _ = profiled(lambda: [ksection_hist_cuda(kf, w, c) for c in seq])
+    launches = ksection_hist_cuda.launches - before
+    events = wrapper_events(prof).get("ksection_hist", 0)
     r = len(seq)
     ms, call_ms, plain_ms, plain_call_ms = (
         ms / r, call_ms / r, plain_ms / r, plain_call_ms / r)
@@ -450,9 +674,16 @@ def compare_hist(kf, w, p, label):
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"ksection_hist[{label}] n={n} m={m} rounds={r}: kernel_ms="
-        f"{ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
-        f"{plain_call_ms:.4f}) bound_ms={bound:.4f} ({by}; bytes "
-        f"{t_bytes:.4f}, ops {t_ops:.4f}) equal=True per call")
+        f"{ms:.4f} (call {call_ms:.4f}; L2 flushed {cold:.4f}) plain_ms="
+        f"{plain_ms:.4f} (call {plain_call_ms:.4f}) bound_ms={bound:.4f} "
+        f"({by}; bytes {t_bytes:.4f}, ops {t_ops:.4f}) share warm "
+        f"{bound / ms:.4f}, L2 flushed {bound / cold:.4f} equal=True per "
+        f"call; launches a call {launches / r:g}, kernel events a call "
+        f"(profiler) {events / r:g}")
+    if faster:
+        check(ms < plain_ms, f"ksection_hist {label}: the kernel "
+              f"({ms:.4f} ms) is not faster than its plain version "
+              f"({plain_ms:.4f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None, max_abs_err=0.0)
 
@@ -538,21 +769,27 @@ def compare_sums(mesh, dev):
     x = torch.repeat_interleave(el.vol, 4) * torch.rand(
         ids.numel(), generator=g, device=dev)
     fixed = segment_sum(x, ids, el.n_verts)
+    kept = segment_sum(x, ids, el.n_verts, el.order)
     check(torch.equal(fixed, segment_sum(x, ids, el.n_verts)),
           "segment_sum: two calls differ on the card")
+    check(torch.equal(fixed, kept), "segment_sum: the mesh's kept order "
+          "gives other bits than a fresh one")
     atomic = segment_sum_any_order(x, ids, el.n_verts)
     rel = float((fixed - atomic).abs().max() / atomic.abs().max())
     ms, call_ms = timed_ms(lambda: segment_sum(x, ids, el.n_verts), reps=5)
-    order = SegmentOrder(ids, el.n_verts)
-    apply_ms, apply_call = timed_ms(lambda: order.sum(x), reps=5)
+    kept_ms, kept_call = timed_ms(
+        lambda: segment_sum(x, ids, el.n_verts, el.order), reps=5)
+    build_ms, _ = timed_ms(lambda: SegmentOrder(ids, el.n_verts), reps=5)
     any_ms, any_call = timed_ms(
         lambda: segment_sum_any_order(x, ids, el.n_verts), reps=5)
     log(f"segment_sum fixed order, {ids.numel()} contributions into "
-        f"{el.n_verts} vertices: device {ms:.4f} ms (call {call_ms:.4f}), "
-        f"of which the sum on a built order {apply_ms:.4f} (call "
-        f"{apply_call:.4f}) and {len(order.steps)} tree steps; index_add_ "
-        f"{any_ms:.4f} (call {any_call:.4f}); bit-identical over two calls; "
-        f"max |fixed - index_add_| / max|sum| = {rel:.3e}")
+        f"{el.n_verts} vertices: on the mesh's kept order device "
+        f"{kept_ms:.4f} ms (call {kept_call:.4f}); building an order "
+        f"every call {ms:.4f} (call {call_ms:.4f}), of which the build "
+        f"{build_ms:.4f}, {len(el.order.steps)} tree steps; index_add_ "
+        f"{any_ms:.4f} (call {any_call:.4f}); bit-identical over two calls "
+        f"and on the kept order; max |fixed - index_add_| / max|sum| = "
+        f"{rel:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -620,7 +857,8 @@ def standalone_dlb(dev, n=8_000_000):
     lo, hi = bounding_box(coords)
     keys = sfc_keys(coords, lo, hi).to(torch.float32)
     kf, wf = pad_pow2(keys, w)
-    return compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024")
+    return compare_hist(kf.contiguous(), wf.contiguous(), 1024, "p=1024",
+                        faster=True)
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +1087,7 @@ def sharded_session_rank(comm, rounds, max_tets):
                                  uniform_refine)
     from repro_torch.fem.adapt import free_mask
     from repro_torch.kernels import ops
+    from repro_torch.segment import SegmentOrder
     dev = comm.device
     t0 = time.perf_counter()
     mesh = cylinder_mesh(8, 2, length=4.0, radius=0.5)
@@ -885,13 +1124,19 @@ def sharded_session_rank(comm, rounds, max_tets):
                 coords=m.barycenters().astype(np.float32),
                 packed=(state.sharded.vol > 0).sum())
 
+    builds = []             # summation orders built, per step
+
     def on_step(stats, state):
+        builds.append(SegmentOrder.builds)
         if state.step == PROFILED_STEP:
             sync(dev)
             window["prof"].stop()
             window["wall"] = time.perf_counter() - window["t0"]
+            window["counts"] = count_diff(ops.launch_counts(),
+                                          window["counts"])
         if state.step + 1 == PROFILED_STEP:
             sync(dev)
+            window["counts"] = ops.launch_counts()
             window["prof"] = profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA])
             window["prof"].start()
@@ -902,6 +1147,7 @@ def sharded_session_rank(comm, rounds, max_tets):
     sync(dev)
     staged0 = comm.staged_bytes
     ops.reset_launch_counts()
+    SegmentOrder.builds = 0
     t0 = time.perf_counter()
     res = session.run(mesh)
     sync(dev)
@@ -914,7 +1160,8 @@ def sharded_session_rank(comm, rounds, max_tets):
                device_events(window["prof"])) / 1e6
     if comm.rank == 0:
         trace_summary(f"rank 0, step {PROFILED_STEP} of the sharded session",
-                      window["prof"], window["wall"])
+                      window["prof"], window["wall"],
+                      launches=window["counts"])
 
     # the checks, after the counted run
     t_max = comm.pmax(torch.tensor(
@@ -948,7 +1195,8 @@ def sharded_session_rank(comm, rounds, max_tets):
             cut=stats.cut, halo_bytes=stats.comm_halo_bytes,
             psum_bytes=stats.comm_psum_bytes, cg_iters=stats.cg_iters,
             rep_iters=int(iters), pcg_err=err, err_l2=stats.err_l2,
-            rhs_equal=rhs_equal,
+            rhs_equal=rhs_equal, builds=builds[step] - (
+                builds[step - 1] if step else 0),
             t_max=t_max[step], migration=mig))
     return dict(steps=steps, launches=launches, scanned=scanned, wall=wall,
                 t_mesh=t_mesh, staged_bytes=staged, n_tets0=192 << rounds,
@@ -979,7 +1227,8 @@ def sharded_session(rounds=12, max_tets=3_000_000):
             f"over ranks: t_solve={t[0]:.4f}s t_estimate={t[1]:.4f}s "
             f"t_refine={t[2]:.4f}s t_balance={t[3]:.4f}s; migration "
             f"{s['migration']}; every rank's own load vector equal to "
-            f"rank 0's bit for bit")
+            f"rank 0's bit for bit; summation orders built on rank 0 "
+            f"{s['builds']} (none per PCG iteration)")
     launches = {k: sum(o["launches"][k] for o in outs) for k in r0["launches"]}
     for name in ("sfc_keys", "fem_matvec", "prefix_scan"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -1430,6 +1679,7 @@ def profile_serving(serve, dev):
     """Phase 9: one packed admission (the trace's first eight requests,
     one buffer) plus eight decode steps under torch.profiler."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.serve import Request, ServeSession, ServeSpec
 
     def setup():
@@ -1447,10 +1697,19 @@ def profile_serving(serve, dev):
         torch.cuda.synchronize()
         return session, time.perf_counter() - t0
 
-    prof, (session, wall) = profiled(body, setup)
+    counts = {}
+
+    def counted(session):
+        counts["before"] = ops.launch_counts()
+        out = body(session)
+        counts["window"] = count_diff(ops.launch_counts(), counts["before"])
+        return out
+
+    prof, (session, wall) = profiled(counted, setup)
     check(session.prefill_stats["calls"] == 1, "one packed admission")
     trace_summary("one packed admission (8 x 128 tokens) + 8 decode steps",
-                  prof, wall, top_host=10, top_dev=8)
+                  prof, wall, top_host=10, top_dev=8,
+                  launches=counts["window"])
 
 
 # ---------------------------------------------------------------------------

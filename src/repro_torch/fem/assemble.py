@@ -12,21 +12,28 @@ backward-Euler parabolic step (M/dt + A).  Dirichlet BCs by masking.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..segment import segment_sum
+from ..segment import SegmentOrder, fixed_order, segment_sum
 
 
 class P1Elements(NamedTuple):
-    """Per-element geometry for matrix-free P1 operators (device tensors)."""
+    """Per-element geometry for matrix-free P1 operators (device tensors).
+
+    ``order`` fixes the order of the sums over ``tets`` into the vertices
+    (``segment.SegmentOrder`` of ``tets.reshape(-1)`` into ``n_verts``):
+    ``build_elements`` builds it once per mesh on the card, and every
+    FEM sum below applies it; None on the CPU, or where the elements were
+    put together without one (then each sum builds its own)."""
     tets: torch.Tensor    # (nt, 4) int32 vertex ids
     grads: torch.Tensor   # (nt, 4, 3) gradients of the 4 basis functions
     vol: torch.Tensor     # (nt,) element volumes
     n_verts: int
+    order: Optional[SegmentOrder] = None
 
 
 def build_elements(verts: np.ndarray, tets: np.ndarray,
@@ -43,7 +50,10 @@ def build_elements(verts: np.ndarray, tets: np.ndarray,
     binv = torch.linalg.inv(b)
     g0 = -binv.sum(dim=1, keepdim=True)
     grads = torch.cat([g0, binv], dim=1)                 # (nt, 4, 3)
-    return P1Elements(t.to(torch.int32), grads, vol, int(verts.shape[0]))
+    n_verts = int(verts.shape[0])
+    t = t.to(torch.int32)
+    return P1Elements(t, grads, vol, n_verts,
+                      fixed_order(t.reshape(-1), n_verts))
 
 
 def _mass(dtype, device) -> torch.Tensor:
@@ -68,14 +78,14 @@ def stiffness_matvec(el: P1Elements, u: torch.Tensor,
     if c != 0.0:
         au = au + c * torch.einsum("ij,tj->ti", _mass(u.dtype, u.device),
                                    ue) * el.vol[:, None]
-    return segment_sum(au.reshape(-1), t.reshape(-1), el.n_verts)
+    return segment_sum(au.reshape(-1), t.reshape(-1), el.n_verts, el.order)
 
 
 def mass_matvec(el: P1Elements, u: torch.Tensor) -> torch.Tensor:
     t = el.tets.long()
     mu = torch.einsum("ij,tj->ti", _mass(u.dtype, u.device),
                       u[t]) * el.vol[:, None]
-    return segment_sum(mu.reshape(-1), t.reshape(-1), el.n_verts)
+    return segment_sum(mu.reshape(-1), t.reshape(-1), el.n_verts, el.order)
 
 
 def operator_diagonal(el: P1Elements, c: float = 0.0) -> torch.Tensor:
@@ -83,7 +93,8 @@ def operator_diagonal(el: P1Elements, c: float = 0.0) -> torch.Tensor:
     d = torch.einsum("tid,tid->ti", el.grads, el.grads) * el.vol[:, None]
     if c != 0.0:
         d = d + c * (1.0 / 10.0) * el.vol[:, None]
-    return segment_sum(d.reshape(-1), el.tets.reshape(-1), el.n_verts)
+    return segment_sum(d.reshape(-1), el.tets.reshape(-1), el.n_verts,
+                       el.order)
 
 
 def load_vector(el: P1Elements, verts: torch.Tensor,
@@ -95,7 +106,8 @@ def load_vector(el: P1Elements, verts: torch.Tensor,
     xq = torch.einsum("qb,tbd->tqd", q, xe)              # (nt, 4pts, 3)
     fq = f(xq.reshape(-1, 3)).reshape(xq.shape[:2])      # (nt, 4pts)
     contrib = torch.einsum("tq,qi->ti", fq, q) * (el.vol[:, None] / 4.0)
-    return segment_sum(contrib.reshape(-1), t.reshape(-1), el.n_verts)
+    return segment_sum(contrib.reshape(-1), t.reshape(-1), el.n_verts,
+                       el.order)
 
 
 def element_gradients(el: P1Elements, u: torch.Tensor) -> torch.Tensor:

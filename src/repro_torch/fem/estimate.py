@@ -21,9 +21,9 @@ def zz_estimate(el: P1Elements, u: torch.Tensor) -> torch.Tensor:
     wv = el.vol[:, None]
     flat_ids = el.tets.reshape(-1)
     num = segment_sum(torch.repeat_interleave(gt * wv, 4, dim=0), flat_ids,
-                      el.n_verts)
+                      el.n_verts, el.order)
     den = segment_sum(torch.repeat_interleave(el.vol, 4), flat_ids,
-                      el.n_verts)
+                      el.n_verts, el.order)
     gnode = num / torch.clamp(den, min=1e-30)[:, None]  # (nv, 3)
     gv = gnode[el.tets.long()]                          # (nt, 4, 3)
     diff = gv - gt[:, None, :]

@@ -42,13 +42,13 @@ on each rank over a ``distributed.Comm``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..segment import segment_sum
+from ..segment import SegmentOrder, fixed_order, segment_sum
 
 
 @dataclass(frozen=True)
@@ -87,6 +87,8 @@ class HaloPlan:
     n_local: Tuple[int, ...]
     n_owned: Tuple[int, ...]
     n_ghost_total: int
+    # (rank, device) -> that rank's rows as tensors, made once
+    _rows: Dict = field(default_factory=dict, repr=False, compare=False)
 
     # -- communication model -----------------------------------------------
     def halo_bytes(self, itemsize: int = 4) -> int:
@@ -117,13 +119,24 @@ class HaloPlan:
         return (g2l < self.V).sum(axis=0) >= 2
 
     # -- one rank's rows and layout conversions ------------------------------
-    def rank_rows(self, rank: int, device) -> Dict[str, torch.Tensor]:
+    def rank_rows(self, rank: int, device) -> Dict:
         """Rank ``rank``'s rows as tensors on ``device``: ``local_verts``
-        and ``owned_mask`` (V,), ``send_idx`` and ``recv_idx`` (p, H)."""
-        return {name: torch.as_tensor(np.asarray(getattr(self, name)[rank]),
-                                      device=device)
-                for name in ("local_verts", "owned_mask", "send_idx",
-                             "recv_idx")}
+        and ``owned_mask`` (V,), ``send_idx`` and ``recv_idx`` (p, H),
+        and ``recv_order``, the fixed order of ``halo_finish``'s sum over
+        ``recv_idx`` (a ``SegmentOrder`` on the card, else None).  Made
+        at the first call for a (rank, device) and kept with the plan,
+        so every matvec of a packing reuses one order."""
+        key = (rank, str(torch.device(device)))
+        rows = self._rows.get(key)
+        if rows is None:
+            rows = {name: torch.as_tensor(
+                        np.asarray(getattr(self, name)[rank]), device=device)
+                    for name in ("local_verts", "owned_mask", "send_idx",
+                                 "recv_idx")}
+            rows["recv_order"] = fixed_order(rows["recv_idx"].reshape(-1),
+                                             self.V)
+            self._rows[key] = rows
+        return rows
 
     def to_local(self, u: torch.Tensor, rank: int) -> torch.Tensor:
         """Replicated (n_verts,) -> rank's (V,) local layout (padding 0)."""
@@ -510,7 +523,8 @@ def update_halo_plan(plan: HaloPlan, old_tets, old_parts, tets, parts,
 
 
 def halo_reduce(y: torch.Tensor, send_idx: torch.Tensor,
-                recv_idx: torch.Tensor, comm) -> torch.Tensor:
+                recv_idx: torch.Tensor, comm,
+                order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Assemble shared-vertex sums with two neighbour ``all_to_all`` legs.
 
     ``y``: (V,) this part's local partial sums (every local slot holds
@@ -518,9 +532,11 @@ def halo_reduce(y: torch.Tensor, send_idx: torch.Tensor,
     ``recv_idx``: this part's (p, H) rows of the plan.  Returns (V,) with
     every slot -- owned and ghost -- holding the fully assembled value.
     Padding slots (index V) contribute zeros on the wire and are masked
-    out of the scatters (the JAX package drops them)."""
+    out of the scatters (the JAX package drops them).  ``order``: the
+    plan's ``recv_order`` (``HaloPlan.rank_rows``), as for
+    ``halo_finish``."""
     return halo_finish(y, halo_start(y, send_idx, comm), send_idx, recv_idx,
-                       comm)
+                       comm, order)
 
 
 def halo_start(y: torch.Tensor, send_idx: torch.Tensor, comm):
@@ -535,20 +551,25 @@ def halo_start(y: torch.Tensor, send_idx: torch.Tensor, comm):
 
 
 def halo_finish(y: torch.Tensor, pending, send_idx: torch.Tensor,
-                recv_idx: torch.Tensor, comm) -> torch.Tensor:
+                recv_idx: torch.Tensor, comm,
+                order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Wait for leg 1, add it into the owned slots, then leg 2 (restore):
     the assembled owner values go back to every toucher's ghost slots.
     Leg 1's contributions are summed per slot by ``segment_sum``, in an
     order fixed by the plan on the card (padding slots, index V,
-    dropped), then added to ``y``."""
+    dropped), then added to ``y``.  ``order`` is that order built once
+    (the plan's ``recv_order``); with it, nothing here waits for the
+    card beyond what the exchange itself does."""
     V = y.shape[0]
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
     r = recv_idx.reshape(-1).long()
     s = send_idx.reshape(-1).long()
     contrib = pending.wait()                      # (p*H,), blocks = source
-    y = y + segment_sum(contrib, r, V)
+    y = y + segment_sum(contrib, r, V, order)
     back = torch.where(r < V, y[r.clamp(max=V - 1)], zero)
     ghosts = comm.all_to_all(back)                # blocks = owner
-    keep = s < V
-    y[s[keep]] = ghosts[keep]
-    return y
+    # each ghost slot from its owner; padding (index V) lands in a spare
+    # slot past the end, so no mask is read back to the host
+    out = torch.cat([y, y.new_zeros(1)])
+    out.index_copy_(0, s, ghosts)
+    return out[:V]

@@ -44,7 +44,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.fem_matvec import fem_element_matrices
-from ..segment import segment_sum
+from ..segment import SegmentOrder, fixed_order, segment_sum
 from .assemble import _mass, P1Elements
 from .halo import (HaloPlan, build_halo_plan, halo_finish, halo_reduce,
                    halo_start)
@@ -62,7 +62,10 @@ class ShardedElements(NamedTuple):
     (padding ``halo.V``, dropped by the local scatter), packed
     interface-first: the row leads with the elements that touch a shared
     vertex, and ``n_interface`` (the max per-part interface count, equal
-    on every rank) is the split point."""
+    on every rank) is the split point.  ``order``: the fixed order of
+    the sums over ``tets`` into the layout's vertex slots (``n_verts``
+    replicated, ``halo.V`` owned), built once by the packers on the card
+    (``segment.fixed_order``), None elsewhere."""
     tets: torch.Tensor    # (C, 4) int32
     grads: torch.Tensor   # (C, 4, 3)
     vol: torch.Tensor     # (C,)  (0 on padding -> padded elements are no-ops)
@@ -72,6 +75,7 @@ class ShardedElements(NamedTuple):
     halo: Optional[HaloPlan] = None
     layout: str = "replicated"
     n_interface: Optional[int] = None
+    order: Optional[SegmentOrder] = None
 
 
 def _resolve_layout(sel: ShardedElements, vertex_layout: Optional[str]) -> str:
@@ -117,10 +121,11 @@ def shard_elements(el: P1Elements, parts: np.ndarray, p: int,
     sv = el.vol.new_zeros((C,))
     sg[:idx.size] = el.grads[rows]
     sv[:idx.size] = el.vol[rows]
-    return ShardedElements(torch.as_tensor(st, device=dev), sg, sv,
-                           el.n_verts, p, rank, halo=halo,
+    st = torch.as_tensor(st, device=dev)
+    return ShardedElements(st, sg, sv, el.n_verts, p, rank, halo=halo,
                            layout="replicated" if halo is None else "owned",
-                           n_interface=n_interface)
+                           n_interface=n_interface,
+                           order=_packing_order(st, el.n_verts, halo))
 
 
 def shard_elements_on_device(el: P1Elements, parts, p: int, comm,
@@ -181,10 +186,18 @@ def shard_elements_on_device(el: P1Elements, parts, p: int, comm,
         t = torch.where(val[:, None], t, halo.V)
     g = torch.where(val[:, None, None], g, 0.0)
     v = torch.where(val, v, 0.0)
-    return ShardedElements(t.to(torch.int32).contiguous(), g, v, el.n_verts,
-                           p, r, halo=halo,
+    t = t.to(torch.int32).contiguous()
+    return ShardedElements(t, g, v, el.n_verts, p, r, halo=halo,
                            layout="replicated" if halo is None else "owned",
-                           n_interface=n_interface)
+                           n_interface=n_interface,
+                           order=_packing_order(t, el.n_verts, halo))
+
+
+def _packing_order(tets: torch.Tensor, n_verts: int,
+                   halo: Optional[HaloPlan]) -> Optional[SegmentOrder]:
+    """The fixed order of a packing's sums over its slots (None off the
+    card)."""
+    return fixed_order(tets.reshape(-1), n_verts if halo is None else halo.V)
 
 
 def reshard_elements(el: P1Elements, coords, p: int, comm, *,
@@ -282,6 +295,7 @@ def make_sharded_matvec(sel: ShardedElements, comm, c: float = 0.0,
     plan = sel.halo
     rows = plan.rank_rows(comm.rank, sel.vol.device)
     send, recv = rows["send_idx"], rows["recv_idx"]
+    order = rows["recv_order"]
     S = sel.n_interface
     if overlap is None:
         overlap = S is not None
@@ -293,11 +307,11 @@ def make_sharded_matvec(sel: ShardedElements, comm, c: float = 0.0,
 
     def matvec_owned(u):
         if not overlap:
-            return halo_reduce(apply(0, None, u, V), send, recv, comm)
+            return halo_reduce(apply(0, None, u, V), send, recv, comm, order)
         y_if = apply(0, S, u, V)
         pending = halo_start(y_if, send, comm)
         y_int = apply(S, None, u, V)
-        return halo_finish(y_if, pending, send, recv, comm) + y_int
+        return halo_finish(y_if, pending, send, recv, comm, order) + y_int
 
     return matvec_owned, arrays
 
@@ -306,7 +320,8 @@ def _local_diag(sel: ShardedElements, c: float, n_out: int) -> torch.Tensor:
     d = torch.einsum("cid,cid->ci", sel.grads, sel.grads) * sel.vol[:, None]
     if c != 0.0:
         d = d + c * 0.1 * sel.vol[:, None]
-    return segment_sum(d.reshape(-1), sel.tets.reshape(-1), n_out)
+    return segment_sum(d.reshape(-1), sel.tets.reshape(-1), n_out,
+                       sel.order)
 
 
 def sharded_diagonal(sel: ShardedElements, comm, c: float = 0.0,
@@ -318,7 +333,7 @@ def sharded_diagonal(sel: ShardedElements, comm, c: float = 0.0,
         return comm.psum(_local_diag(sel, c, sel.n_verts))
     rows = sel.halo.rank_rows(comm.rank, sel.vol.device)
     return halo_reduce(_local_diag(sel, c, sel.halo.V), rows["send_idx"],
-                       rows["recv_idx"], comm)
+                       rows["recv_idx"], comm, rows["recv_order"])
 
 
 def make_owned_operators(sel: ShardedElements, comm, c: float = 0.0, *,
@@ -359,7 +374,7 @@ def measure_matvec_phases(sel: ShardedElements, comm, c: float = 0.0, *,
 
     def interface():
         return halo_reduce(apply(0, S, u, plan.V), rows["send_idx"],
-                           rows["recv_idx"], comm)
+                           rows["recv_idx"], comm, rows["recv_order"])
 
     def interior():
         return apply(S, None, u, plan.V)

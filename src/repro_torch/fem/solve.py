@@ -86,7 +86,8 @@ def element_operator(el: P1Elements, c: float, *,
     built once, and on the card the kernel's plan of the mesh."""
     return ops.ElementOperator(el.tets, fem_element_matrices(el.grads, el.vol,
                                                              c),
-                               el.n_verts, use_pallas=use_pallas)
+                               el.n_verts, use_pallas=use_pallas,
+                               order=el.order)
 
 
 def masked_operator(el: P1Elements, free: torch.Tensor, c: float, *,

@@ -9,8 +9,10 @@ Each kernel ships four pieces:
 
 Kernels (the TPU kernel each replaces is named in its source):
 
-  sfc_keys       Morton / Hilbert keys, one thread per element
-  ksection_hist  k-section candidate-cut weight histogram
+  sfc_keys       Morton / Hilbert keys, four elements a thread; Hilbert as
+                 a walk of a two-level table of Skilling's encoder
+  ksection_hist  k-section candidate-cut weight histogram: cut ranks, a
+                 binary search per item, 64-bit fixed-point sums
   fem_matvec     P1 element matvec with precomputed 4x4 element matrices,
                  two passes on a plan of the mesh, no atomics
   prefix_scan    exclusive prefix sum (Algorithm 1's S_i), one pass with a

@@ -91,8 +91,10 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
-    lib.repro_sfc_keys.argtypes = [p, p, ll, i, i, p]
+    lib.repro_sfc_keys.argtypes = [p, p, ll, i, i, p, i, p]
     lib.repro_sfc_keys.restype = i
+    lib.repro_ksection_hist_workspace.argtypes = [ll, ll, i]
+    lib.repro_ksection_hist_workspace.restype = ll
     lib.repro_ksection_hist.argtypes = [p, p, ll, p, ll, p, i, p, p]
     lib.repro_ksection_hist.restype = i
     lib.repro_fem_matvec.argtypes = [p, p, p, p, p, p, p, ll, p, ll, p, p, p,

@@ -16,6 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..segment import fixed_order
 from . import ref
 from .fem_matvec import build_element_plan, fem_matvec_cuda
 from .flash_attention import flash_attention_cuda
@@ -94,13 +95,17 @@ class ElementOperator:
     built here, once, on the elements in the order given (the mesh's own
     order keeps a chunk's elements together), and every ``apply``
     launches the kernel on it.  On the plain path ``apply`` runs
-    ``ref.fem_matvec_kel_ref``."""
+    ``ref.fem_matvec_kel_ref`` on the sum's fixed order: ``order`` where
+    the caller keeps one for these ids (``P1Elements.order``), else built
+    once here (``segment.fixed_order``: on CUDA tensors only)."""
 
     def __init__(self, tets: torch.Tensor, kel: torch.Tensor, n_out: int, *,
-                 use_pallas: Optional[bool] = None):
-        self.n_out, self.plan = n_out, None
+                 use_pallas: Optional[bool] = None, order=None):
+        self.n_out, self.plan, self.order = n_out, None, None
         if not use_kernel(kel, use_pallas):
             self.tets, self.kel = tets, kel
+            self.order = (order if order is not None
+                          else fixed_order(tets.reshape(-1), n_out))
             return
         self.tets = tets.to(torch.int32).contiguous()
         self.kel = kel.to(torch.float32).contiguous()
@@ -110,7 +115,8 @@ class ElementOperator:
         if self.plan is not None:
             return fem_matvec_cuda(self.tets, self.kel, u.contiguous(),
                                    self.n_out, plan=self.plan)
-        return ref.fem_matvec_kel_ref(self.tets, self.kel, u, self.n_out)
+        return ref.fem_matvec_kel_ref(self.tets, self.kel, u, self.n_out,
+                                      self.order)
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

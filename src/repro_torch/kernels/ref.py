@@ -5,12 +5,14 @@ each kernel against on the card.  Counterpart of ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import partition1d as _p1d
 from ..core import sfc as _sfc
 from ..segment import segment_sum
 from .fem_matvec import _MASS20, CHUNK
+from .sfc_keys import ODD_START, hilbert_table
 
 
 # --- sfc_keys --------------------------------------------------------------
@@ -21,6 +23,60 @@ def morton_keys_ref(grid: torch.Tensor, bits: int = 10) -> torch.Tensor:
 
 def hilbert_keys_ref(grid: torch.Tensor, bits: int = 10) -> torch.Tensor:
     return _sfc.hilbert_encode(grid.to(torch.int64), bits)
+
+
+def hilbert_keys_identities_ref(grid: torch.Tensor,
+                                bits: int = 10) -> torch.Tensor:
+    """Skilling's loop followed by the two identities that replace its
+    tail: the Gray loop's ``t`` is the prefix XOR of ``x2 >> 1`` from the
+    top, and the 30-step interleave is ``(spread(x0) << 2) | (spread(x1)
+    << 1) | spread(x2)`` with the Morton ``spread``.  Used only by the
+    tests, which hold it against the reference encoder."""
+    g = grid.to(torch.int64)
+    x0, x1, x2 = g[..., 0], g[..., 1], g[..., 2]
+    q = 1 << (bits - 1)
+    while q > 1:
+        p = q - 1
+        x0 = torch.where((x0 & q) != 0, x0 ^ p, x0)
+        for which in (1, 2):
+            xi = x1 if which == 1 else x2
+            cond = (xi & q) != 0
+            t = (x0 ^ xi) & p
+            x0, xi = torch.where(cond, x0 ^ p, x0 ^ t), torch.where(
+                cond, xi, xi ^ t)
+            if which == 1:
+                x1 = xi
+            else:
+                x2 = xi
+        q >>= 1
+    x1 = x1 ^ x0
+    x2 = x2 ^ x1
+    t = x2 >> 1
+    for shift in (1, 2, 4, 8):
+        t = t ^ (t >> shift)
+    return ((_sfc._part1by2(x0 ^ t) << 2) | (_sfc._part1by2(x1 ^ t) << 1)
+            | _sfc._part1by2(x2 ^ t))
+
+
+def hilbert_keys_table_ref(grid: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """The kernel's table walk in plain torch: ``ceil(bits / 2)`` lookups
+    of ``sfc_keys.hilbert_table``, two levels each, from the top (the
+    odd-start row first where ``bits`` is odd).  Used only by the tests,
+    which hold it against the reference encoder."""
+    g = grid.to(torch.int64)
+    table = torch.as_tensor(hilbert_table().astype(np.int64),
+                            device=g.device)
+    steps = (bits + 1) // 2
+    row = torch.full(g.shape[:-1], 0 if bits % 2 == 0 else ODD_START * 64,
+                     dtype=torch.int64, device=g.device)
+    key = torch.zeros_like(row)
+    for s in range(steps - 1, -1, -1):
+        pair = (g >> (2 * s)) & 3
+        e = table[row | (pair[..., 0] << 4) | (pair[..., 1] << 2)
+                  | pair[..., 2]]
+        key = (key << 6) | (e & 63)
+        row = e & ~63
+    return key
 
 
 # --- prefix_scan -----------------------------------------------------------
@@ -40,17 +96,46 @@ def ksection_histogram_ref(keys: torch.Tensor, weights: torch.Tensor,
                              cuts.to(torch.float32))
 
 
+def ksection_rank_ref(keys: torch.Tensor, weights: torch.Tensor,
+                      cuts: torch.Tensor) -> torch.Tensor:
+    """The kernel's formulation in plain torch: each cut's rank among
+    the cuts' order-preserving bits (ties by index), each item's bucket
+    ``#{cuts <= key}`` (``searchsorted(right=True)`` over the sorted
+    cuts), the bucket sums, their inclusive prefix ``S`` and ``out[j] =
+    S[rank_j]``.  Used only by the tests, which hold it against the JAX
+    package's kernel."""
+    f32 = torch.float32
+    c, k, w = cuts.to(f32), keys.to(f32), weights.to(f32)
+    m = c.shape[0]
+    if m == 0:
+        return torch.zeros(0, dtype=f32, device=c.device)
+    bits = c.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ordered = torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF,
+                          bits | 1 << 31)
+    by_rank = torch.argsort(ordered, stable=True)
+    rank = torch.empty_like(by_rank)
+    rank[by_rank] = torch.arange(m, device=c.device)
+    bucket = torch.searchsorted(c[by_rank].contiguous(), k.contiguous(),
+                                right=True)
+    hist = torch.zeros(m + 1, dtype=f32, device=c.device).index_add_(
+        0, bucket, w)
+    return torch.cumsum(hist[:m], dim=0)[rank]
+
+
 # --- fem_matvec ------------------------------------------------------------
 
 def fem_matvec_kel_ref(tets: torch.Tensor, kel: torch.Tensor,
-                       u: torch.Tensor, n_out: int) -> torch.Tensor:
+                       u: torch.Tensor, n_out: int,
+                       order=None) -> torch.Tensor:
     """The kernel's function on the kernel's inputs: gather the 4 vertex
     values (pad slot clamped to ``V - 1``), apply the precomputed 4x4
-    ``K_e``, scatter-add into ``n_out`` slots (slot ``n_out`` dropped)."""
+    ``K_e``, scatter-add into ``n_out`` slots (slot ``n_out`` dropped).
+    ``order``: the ``segment.SegmentOrder`` of ``tets`` into ``n_out``
+    where the caller keeps one (``ops.ElementOperator``)."""
     t = tets.long()
     ue = u[t.clamp(max=u.shape[0] - 1)]
     au = torch.einsum("cij,cj->ci", kel.to(u.dtype), ue)
-    return segment_sum(au.reshape(-1), t.reshape(-1), n_out)
+    return segment_sum(au.reshape(-1), t.reshape(-1), n_out, order)
 
 
 def fem_matvec_plan_ref(plan, kel: torch.Tensor,

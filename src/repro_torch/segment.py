@@ -9,11 +9,17 @@ Two routes:
   same bits on every call, every run and every rank; ``index_add_`` on
   the card adds with atomics in a new order every time.  On the CPU it
   is ``index_add_``, which adds in input order, as the reference does.
+  Where the ids stay fixed over many sums (a mesh's elements, a halo
+  plan's rows), the caller builds their order once (``fixed_order``) and
+  passes it to every sum: building one sorts the ids and reads one
+  number back to the host.
 * ``segment_sum_any_order`` -- ``index_add_`` everywhere, for sums that
   are exact in any order: the balancer's, on the integer weights of the
   adaptive loop.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,19 +29,38 @@ def _in_fixed_order(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def segment_sum(data: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                order: Optional["SegmentOrder"] = None) -> torch.Tensor:
     """Sum the rows of ``data`` into ``num_segments`` buckets by ``ids``.
 
     Ids outside ``[0, num_segments)`` are dropped, as
     ``jax.ops.segment_sum`` drops them (the pad slot ``n_out`` of the
     element matvec, the pad slot ``V`` of the halo plan).  On CUDA
-    tensors the order of additions is fixed by ``ids`` alone
-    (``SegmentOrder``); on CPU tensors it is ``index_add_``'s input
-    order."""
+    tensors the order of additions is fixed by ``ids`` alone: ``order``,
+    the ``SegmentOrder`` of these ids built once by the caller, or a new
+    one built here.  On CPU tensors it is ``index_add_``'s input order
+    and ``order`` is not read."""
     if _in_fixed_order(data):
-        return SegmentOrder(ids, num_segments).sum(data)
+        if order is None:
+            order = SegmentOrder(ids, num_segments)
+        elif order.num_segments != num_segments or order.n != ids.numel():
+            raise ValueError(
+                f"segment_sum: an order of {order.n} ids into "
+                f"{order.num_segments} segments given for {ids.numel()} ids "
+                f"into {num_segments}")
+        return order.sum(data)
     return segment_sum_any_order(data, ids, num_segments)
+
+
+def fixed_order(ids: torch.Tensor,
+                num_segments: int) -> Optional["SegmentOrder"]:
+    """The ``SegmentOrder`` that ``segment_sum`` would build for ``ids``
+    on every call, built once here where it takes the fixed-order route
+    (CUDA tensors); None where it does not, so callers keep one value
+    either way and pass it as ``order``."""
+    if _in_fixed_order(ids):
+        return SegmentOrder(ids, num_segments)
+    return None
 
 
 def segment_sum_any_order(data: torch.Tensor, ids: torch.Tensor,
@@ -67,9 +92,15 @@ class SegmentOrder:
     depend on the ids and the data alone: not on timing, other segments or
     the device's scheduling.  Plain elementwise PyTorch (sort, gather,
     add): it runs on any device, the CPU tests included.  Building it
-    reads the longest run back to the host (one synchronisation)."""
+    reads the longest run back to the host (one synchronisation); ``sum``
+    does not synchronise.  ``SegmentOrder.builds`` counts the orders
+    built, so a run can show that a loop builds none."""
+
+    #: orders built since the count was last set to 0
+    builds = 0
 
     def __init__(self, ids: torch.Tensor, num_segments: int):
+        SegmentOrder.builds += 1
         ids = ids.reshape(-1).long()
         self.num_segments = num_segments
         self.n = ids.numel()

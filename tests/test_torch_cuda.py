@@ -749,3 +749,174 @@ def test_serve_session_on_card_matches_cpu(cuda, prefill):
         logs.append(m["migration_log"])
     assert outs[0] == outs[1]
     assert logs[0] == logs[1]
+
+
+# --- the redesigned histogram and SFC keys -------------------------------------
+# The histogram ranks the cuts, buckets every item by a search over them and
+# adds in an order fixed by the inputs: equal to the plain version on integer
+# weights, the same bits on every call on float weights.
+
+def _hist_inputs(n, m, seed, cuda, *, floats=False, dup=False):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 20, n).astype(np.float32)
+    w = (rng.random(n) if floats else rng.integers(0, 3, n)).astype(np.float32)
+    cuts = rng.integers(0, 1 << 20, m).astype(np.float32)
+    if dup and m > 16:
+        cuts[: m // 2] = np.repeat(cuts[: m // 16 + 1], 8)[: m // 2]  # boxes
+    if m and n:
+        cuts[::7] = keys[rng.integers(0, n, len(cuts[::7]))]     # cut == key
+    if n > 64:
+        keys[-50:] = np.inf                                      # padded tail
+        w[-50:] = 0.0
+    return tuple(torch.as_tensor(a, device=cuda) for a in (keys, w, cuts))
+
+
+@pytest.mark.parametrize("n,m", [(1 << 21, 504), (1 << 21, 8184),
+                                 (100_000, 40_000)])
+def test_ksection_hist_same_bits_on_floats(cuda, n, m):
+    k, w, c = _hist_inputs(n, m, 1, cuda, floats=True)
+    first = ksection_hist_cuda(k, w, c)
+    assert all(torch.equal(first, ksection_hist_cuda(k, w, c))
+               for _ in range(3))
+    want = ref.ksection_histogram_ref(k, w, c)
+    assert float((first - want).abs().max()) <= 1e-6 * float(w.abs().sum())
+
+
+@pytest.mark.parametrize("n,m", [(1 << 23, 8184), (2_097_152, 504),
+                                 (300_000, 40_000), (50_000, 16_385)])
+def test_ksection_hist_equal_on_integers_with_duplicate_cuts(cuda, n, m):
+    k, w, c = _hist_inputs(n, m, n + m, cuda, dup=True)
+    got = ksection_hist_cuda(k, w, c)
+    assert torch.equal(got, ref.ksection_histogram_ref(k, w, c))
+    assert torch.equal(got, ksection_hist_cuda(k, w, c))
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1023, 1025, 4097,
+                               100_003])
+@pytest.mark.parametrize("m", [1, 504, 9000])
+def test_ksection_hist_tails(cuda, n, m):
+    k, w, c = _hist_inputs(n, m, n * 3 + m, cuda)
+    assert torch.equal(ksection_hist_cuda(k, w, c),
+                       ref.ksection_histogram_ref(k, w, c))
+
+
+def test_ksection_hist_sorted_keys_and_misaligned_input(cuda):
+    """Keys in order (every lane of a warp in one bucket) and keys /
+    weights that start 4 bytes into their storage."""
+    k, w, c = _hist_inputs(1_000_001, 8184, 5, cuda)
+    k = torch.sort(k).values
+    want = ref.ksection_histogram_ref(k[1:], w[1:], c)
+    assert k[1:].data_ptr() % 16 != 0
+    assert torch.equal(ksection_hist_cuda(k[1:], w[1:], c), want)
+    assert torch.equal(ksection_hist_cuda(k, w, c),
+                       ref.ksection_histogram_ref(k, w, c))
+
+
+def test_ksection_hist_counts_one_launch_a_call(cuda):
+    k, w, c = _hist_inputs(1 << 20, 504, 2, cuda)
+    before = ksection_hist_cuda.launches
+    ksection_hist_cuda(k, w, c)
+    ksection_hist_cuda(k, w, c[:100])
+    assert ksection_hist_cuda.launches - before == 2
+
+
+def _all_points(bits, cuda):
+    side = 1 << bits
+    g = torch.arange(side ** 3, device=cuda, dtype=torch.int32)
+    return torch.stack([g // (side * side), (g // side) % side, g % side],
+                       dim=1).contiguous()
+
+
+@pytest.mark.parametrize("curve", ["morton", "hilbert"])
+@pytest.mark.parametrize("bits", list(range(1, 9)))
+def test_sfc_keys_kernel_equal_on_every_point(cuda, curve, bits):
+    g = _all_points(bits, cuda)
+    plain = ref.hilbert_keys_ref if curve == "hilbert" else ref.morton_keys_ref
+    assert torch.equal(sfc_keys_cuda(g, curve=curve, bits=bits).long(),
+                       plain(g, bits))
+
+
+@pytest.mark.parametrize("curve", ["morton", "hilbert"])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 1001, 100_003])
+def test_sfc_keys_kernel_ragged_tail(cuda, curve, n):
+    g = torch.as_tensor(np.random.default_rng(n).integers(0, 1 << 10, (n, 3)),
+                        dtype=torch.int32, device=cuda)
+    plain = ref.hilbert_keys_ref if curve == "hilbert" else ref.morton_keys_ref
+    assert torch.equal(sfc_keys_cuda(g, curve=curve).long(), plain(g))
+
+
+@pytest.mark.parametrize("curve", ["morton", "hilbert"])
+@pytest.mark.parametrize("start", [1, 2, 3, 4])
+def test_sfc_keys_kernel_misaligned_slice(cuda, curve, start):
+    """A contiguous slice of a larger grid starts 12 * start bytes in."""
+    full = torch.as_tensor(_grid(100_007, 10, 3), device=cuda).to(torch.int32)
+    g = full[start:]
+    assert g.is_contiguous()
+    plain = ref.hilbert_keys_ref if curve == "hilbert" else ref.morton_keys_ref
+    assert torch.equal(ops.sfc_keys_op(g, curve=curve), plain(g))
+
+
+# --- the kept summation order ---------------------------------------------------
+
+def test_halo_finish_on_a_kept_order_does_not_sync(cuda):
+    """With the plan's order built beforehand, halo_finish over a one-part
+    exchange makes no host synchronisation; building an order does."""
+    from repro_torch.fem.halo import halo_finish
+    from repro_torch.segment import SegmentOrder
+
+    class OneRank:
+        def all_to_all(self, x):
+            return x
+
+    class Done:
+        def __init__(self, x):
+            self.x = x
+
+        def wait(self):
+            return self.x
+
+    rng = np.random.default_rng(4)
+    V, H = 50_000, 30_000
+    y = torch.as_tensor(rng.standard_normal(V).astype(np.float32),
+                        device=cuda)
+    recv = torch.as_tensor(rng.integers(0, V + 1, (1, H)), device=cuda)
+    send = torch.as_tensor(rng.permutation(V + 1)[None, :H], device=cuda)
+    contrib = torch.as_tensor(rng.standard_normal(H).astype(np.float32),
+                              device=cuda)
+    args = (y, Done(contrib), send, recv, OneRank())
+    order = SegmentOrder(recv.reshape(-1), V)
+    fresh = halo_finish(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kept = halo_finish(*args, order)
+        with pytest.raises(RuntimeError):
+            halo_finish(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(kept, fresh)
+
+
+def test_fem_sums_on_the_mesh_order_equal_fresh_ones_on_card(cuda):
+    """build_elements keeps the mesh's order on the card; the FEM sums on
+    it give the bits of sums that each build their own."""
+    from repro_torch.fem import (HelmholtzProblem, build_elements,
+                                 load_vector, mass_matvec, operator_diagonal,
+                                 zz_estimate)
+    from repro_torch.segment import SegmentOrder
+    verts, el_cpu = _random_elements(200_000, 2)
+    el = build_elements(verts, el_cpu.tets.numpy(), device=cuda)
+    assert el.order is not None
+    fresh = el._replace(order=None)
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        el.n_verts).astype(np.float32), device=cuda)
+    tv = torch.as_tensor(verts, device=cuda)
+    prob = HelmholtzProblem()
+    for name, fn in (("load_vector", lambda e: load_vector(e, tv, prob.f)),
+                     ("operator_diagonal", lambda e: operator_diagonal(e, 1.0)),
+                     ("mass_matvec", lambda e: mass_matvec(e, u)),
+                     ("zz_estimate", lambda e: zz_estimate(e, u))):
+        before = SegmentOrder.builds
+        kept = fn(el)
+        assert SegmentOrder.builds == before, name
+        assert torch.equal(kept, fn(fresh)), name

@@ -14,6 +14,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fem_matvec import fem_element_matrices as j_element_matrices
 from repro.kernels.fem_matvec import fem_matvec_jnp, fem_matvec_pallas
+from repro.kernels import ksection_hist as jks
 from repro.kernels.ksection_hist import ksection_histogram_pallas
 from repro_torch.core import sfc as tsfc
 from repro_torch.kernels import ops, ref
@@ -67,6 +68,52 @@ def test_sfc_decoders_invert_and_match(bits):
         np.testing.assert_array_equal(dec(enc(gt, bits), bits).numpy(), g)
 
 
+def _all_points(bits):
+    """Every point of the 2^bits grid, (2^(3 bits), 3)."""
+    g = np.arange(1 << (3 * bits))
+    side = 1 << bits
+    return np.stack([g // (side * side), (g // side) % side, g % side], 1)
+
+
+@pytest.mark.parametrize("twin", ["table", "identities"])
+@pytest.mark.parametrize("bits", list(range(1, 8)))
+def test_hilbert_kernel_twins_match_jax_everywhere(twin, bits):
+    """The kernel's formulations of Hilbert, in plain torch, on every
+    point of the grid: the table walk, and Skilling's loop with the
+    prefix-XOR Gray step and the spread interleave."""
+    from repro.kernels.sfc_keys import _hilbert_body
+    g = _all_points(bits)
+    want = np.asarray(_hilbert_body(*(jnp.asarray(g[:, a], jnp.int32)
+                                      for a in range(3)), bits))
+    fn = (ref.hilbert_keys_table_ref if twin == "table"
+          else ref.hilbert_keys_identities_ref)
+    got = fn(torch.as_tensor(g), bits)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("twin", ["table", "identities"])
+def test_hilbert_kernel_twins_at_ten_bits(twin):
+    g = _grid(50_000, 10, 10)
+    fn = (ref.hilbert_keys_table_ref if twin == "table"
+          else ref.hilbert_keys_identities_ref)
+    want = np.asarray(jref.hilbert_keys_ref(jnp.asarray(g.astype(np.uint32)),
+                                            10))
+    np.testing.assert_array_equal(fn(torch.as_tensor(g), 10).numpy(),
+                                  want.astype(np.int64))
+
+
+def test_hilbert_table_shape():
+    """48 states (24 orientations x 2 parities) and the odd-start row;
+    every entry's next row is a state row."""
+    from repro_torch.kernels.sfc_keys import (HILBERT_STATES, ODD_START,
+                                              hilbert_states, hilbert_table)
+    states, _ = hilbert_states()
+    table = hilbert_table()
+    assert len(states) == HILBERT_STATES == 48 and ODD_START == 48
+    assert table.shape == (49 * 64,) and table.dtype == np.int16
+    assert int((table >> 6).max()) < HILBERT_STATES
+
+
 # --- ksection_hist -----------------------------------------------------------
 # Integer weights make every partial sum exact: the plain version, the JAX
 # oracle and the Pallas kernel agree bit for bit.
@@ -112,6 +159,48 @@ def test_ksection_hist_sentinel_tail():
         got, ops.ksection_histogram_op(torch.as_tensor(keys[:-100]),
                                        torch.as_tensor(w[:-100]),
                                        torch.as_tensor(cuts)).numpy())
+
+
+# The kernel's own formulation (cut ranks, buckets by searchsorted(right),
+# prefix, scatter by rank) in plain torch: equal to the JAX package's
+# kernel on integer weights, within 1e-6 of sum|w| on float weights.
+
+TWIN_CASES = {"dups": (4096, 504), "chunked": (3000, 9000), "one": (1, 9),
+              "one_cut": (500, 1), "no_items": (0, 5), "no_cuts": (7, 0),
+              "none": (0, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(TWIN_CASES))
+def test_ksection_rank_twin_exact_on_integers(name):
+    n, m = TWIN_CASES[name]
+    keys, w, cuts = _hist_case(n, m, n * 7 + m)
+    if n > 20:
+        keys[-20:] = np.inf                                 # padded tail
+        w[-20:] = 0.0
+    if m > 8:
+        cuts[3:8] = cuts[2]                                 # a collapsed box
+    args = [jnp.asarray(a) for a in (keys, w, cuts)]
+    got = ref.ksection_rank_ref(*(torch.as_tensor(a)
+                                  for a in (keys, w, cuts))).numpy()
+    assert got.dtype == np.float32 and got.shape == (m,)
+    np.testing.assert_array_equal(
+        got, np.asarray(ksection_histogram_pallas(*args, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jks.ksection_histogram_jnp(*args)))
+
+
+@pytest.mark.parametrize("n,m", [(5000, 504), (2000, 8184)])
+def test_ksection_rank_twin_close_on_floats(n, m):
+    rng = np.random.default_rng(m)
+    keys = rng.standard_normal(n).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    cuts = rng.standard_normal(m).astype(np.float32)
+    cuts[::9] = keys[:len(cuts[::9])]
+    got = ref.ksection_rank_ref(*(torch.as_tensor(a)
+                                  for a in (keys, w, cuts))).numpy()
+    want = np.asarray(ksection_histogram_pallas(
+        *(jnp.asarray(a) for a in (keys, w, cuts)), interpret=True))
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(w).sum()
 
 
 # --- fem_matvec --------------------------------------------------------------

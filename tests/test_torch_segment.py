@@ -209,3 +209,139 @@ def test_halo_finish_sums_leg_one(monkeypatch, route):
     want[send[0][s]] = back[s]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got, halo_finish(*args).numpy())
+
+
+# --- the order built once per id array ---------------------------------------
+# On the card the FEM keeps one SegmentOrder per mesh (P1Elements.order),
+# per packing (ShardedElements.order) and per halo plan (rank_rows'
+# recv_order).  The order depends on the ids alone, so a kept order gives
+# the bits a fresh one gives.
+
+@pytest.mark.parametrize("name", ["load_vector", "operator_diagonal",
+                                  "mass_matvec", "stiffness_matvec",
+                                  "zz_estimate"])
+def test_cached_order_gives_the_bits_of_a_fresh_one(fixed_order, name):
+    jm, jel, tel = _elements()
+    assert tel.order is not None
+    fresh = tel._replace(order=None)
+    before = SegmentOrder.builds
+    kept = _fem_pairs(jm, jel, tel)[name][0]()
+    assert SegmentOrder.builds == before          # the kept order serves
+    assert torch.equal(kept, _fem_pairs(jm, jel, fresh)[name][0]())
+    assert SegmentOrder.builds > before           # each sum built its own
+
+
+def test_no_order_kept_off_the_card():
+    """On the CPU the sums are index_add_, so nothing builds an order."""
+    before = SegmentOrder.builds
+    _, _, tel = _elements()
+    assert tel.order is None
+    TF.operator_diagonal(tel, 1.0)
+    assert SegmentOrder.builds == before
+
+
+def test_packing_order_gives_the_bits_of_a_fresh_one(fixed_order):
+    """The sharded packings' order (the local diagonal)."""
+    from repro_torch.fem.halo import build_halo_plan
+    from repro_torch.fem.parallel import _local_diag, shard_elements
+    jm, _, tel = _elements()
+    rng = np.random.default_rng(5)
+    parts = rng.integers(0, 3, jm.n_tets)
+    for halo in (None, build_halo_plan(tel.tets.numpy(), parts, tel.n_verts,
+                                       3)):
+        sel = shard_elements(tel, parts, 3, halo, rank=1)
+        n_out = tel.n_verts if halo is None else halo.V
+        assert sel.order is not None and sel.order.num_segments == n_out
+        fresh = sel._replace(order=None)
+        assert torch.equal(_local_diag(sel, 2.0, n_out),
+                           _local_diag(fresh, 2.0, n_out))
+
+
+@pytest.mark.parametrize("route", ["cpu", "fixed"])
+def test_halo_finish_on_a_kept_order(monkeypatch, route):
+    """halo_finish on the plan's kept order equals halo_finish building
+    its own, bit for bit."""
+    if route == "fixed":
+        monkeypatch.setattr(segment, "_in_fixed_order", lambda t: True)
+    rng = np.random.default_rng(9)
+    V, H = 80, 70
+    y = torch.as_tensor(rng.standard_normal(V).astype(np.float32))
+    recv = torch.as_tensor(rng.integers(0, V + 1, (1, H)))
+    send = torch.as_tensor(rng.permutation(V + 1)[None, :H])
+    contrib = torch.as_tensor(rng.standard_normal(H).astype(np.float32))
+    contrib = torch.where(recv[0] < V, contrib, 0.0)
+    order = segment.fixed_order(recv.reshape(-1), V)
+    assert (order is None) == (route == "cpu")
+    args = (y, _Done(contrib), send, recv, _OneRank())
+    assert torch.equal(halo_finish(*args, order), halo_finish(*args))
+
+
+def test_segment_sum_refuses_an_order_of_other_ids(fixed_order):
+    order = SegmentOrder(torch.arange(6) % 3, 3)
+    with pytest.raises(ValueError, match="order"):
+        segment_sum(torch.ones(6), torch.arange(6) % 4, 4, order)
+    with pytest.raises(ValueError, match="order"):
+        segment_sum(torch.ones(5), torch.arange(5) % 3, 3, order)
+
+
+def test_a_solve_builds_one_order_per_mesh(fixed_order):
+    """A whole session step on the fixed route: the mesh's elements build
+    their order once and the load vector, the operator (its matvec in
+    every PCG iteration), the diagonal and the estimator all use it."""
+    from repro_torch.core import BalanceSpec
+    mesh = TF.cylinder_mesh(8, 2, length=4.0, radius=0.5)
+    spec = TF.AdaptSpec.for_problem(
+        "helmholtz", max_steps=2, max_tets=4000, tol=1e-6,
+        balance=BalanceSpec(p=4, method="hsfc", oneD="ksection"))
+    builds, iters = [], []
+    seen = [SegmentOrder.builds]
+
+    def on_step(stats, state):
+        builds.append(SegmentOrder.builds - seen[0])
+        iters.append(stats.cg_iters)
+        seen[0] = SegmentOrder.builds
+    TF.AdaptiveSession(spec, device="cpu", on_step=on_step).run(mesh)
+    assert len(builds) == 2 and all(i > 1 for i in iters)
+    assert builds == [1, 1]
+
+
+class _Comm1:
+    """A one-part process group: every collective returns its input."""
+    rank = 0
+
+    def psum(self, x):
+        return x
+
+    def all_to_all(self, x):
+        return x
+
+    def all_to_all_async(self, x):
+        return _Done(x)
+
+
+def test_owned_pcg_builds_no_order_per_iteration(fixed_order):
+    """The owned-layout PCG on one part: the packing, its halo plan and
+    the matvec's element operators (at the matvec's first call) build
+    their orders once, and the solve's iterations build none."""
+    from repro_torch import interop
+    from repro_torch.fem.adapt import free_mask
+    from repro_torch.fem.halo import build_halo_plan
+    from repro_torch.fem.parallel import (make_owned_operators,
+                                          shard_elements,
+                                          sharded_solve_dirichlet)
+    jm, _, tel = _elements()
+    parts = np.zeros(jm.n_tets, np.int64)
+    plan = build_halo_plan(tel.tets.numpy(), parts, tel.n_verts, 1)
+    sel = shard_elements(tel, parts, 1, plan, rank=0)
+    comm = _Comm1()
+    operators = make_owned_operators(sel, comm, 1.0)
+    operators[0](torch.zeros(plan.V))
+    verts = torch.as_tensor(jm.verts.astype(np.float32))
+    prob = TF.HelmholtzProblem()
+    rhs = TF.load_vector(tel, verts, prob.f)
+    free = free_mask(interop.mesh_from_numpy(jm), "cpu")
+    before = SegmentOrder.builds
+    res = sharded_solve_dirichlet(sel, comm, rhs, prob.exact(verts), free,
+                                  1.0, tol=1e-6, operators=operators)
+    assert res.iters > 5
+    assert SegmentOrder.builds == before
