@@ -34,7 +34,9 @@ CUDA toolkit's nvcc.  It
    (random bf16 weights from a seed, 16 slots x 2048 tokens, 4 groups)
    over a seeded 32-request bursty trace with packed prefill, replicated
    decode and tag rebalancing, and prints throughput, TTFT, ITL,
-   admission rate, buffer fill, each rebalance and the peak memory;
+   admission rate, buffer fill, each rebalance and the peak memory; holds
+   the histogram kernel against its plain version on every input the
+   serving balancer handed it;
 7. runs the trace again recorded, packed and with per-request ('full')
    prefill, and holds the two against each other: first-token logits
    within a stated bf16 tolerance, tokens equal up to a near-tie;
@@ -58,8 +60,22 @@ CUDA toolkit's nvcc.  It
     shard lengths phase 11 scanned and more (integer weights equal,
     floats within 1e-6 of sum|x|, the same bits every call) and times
     it beside torch.cumsum, device and call times;
-13. prints the kernel table as one JSON line, the card's name and power
-    limit, and ``{"ok": true, ...}`` as the last line.
+13. drives the fourth main path: the serving session of phase 6 with
+    sharded decode and KV migration (``decode="sharded"``,
+    ``rebalance="kv"``) over 4 ranks, one per request group, with phase
+    6's bf16 weights handed to the ranks (by CUDA IPC where they share
+    its card); checks that every rank gives the same tokens, groups and
+    migration log, the tokens against phase 6's replicated run up to a
+    near-tie, the migrated bytes against the executor's, the histogram
+    kernel against its plain version on every input the balancer
+    handed it, and a forced migration against the same run without it,
+    bit for bit; prints throughput, TTFT, ITL, each migration's seconds,
+    all_to_all and host-staged bytes, each rank's peak memory, the
+    forced migration's device time and rank 0's idle share over one
+    admission and 8 decode steps with no rebalance;
+14. prints the kernel table as one JSON line (with each rank's launches
+    on main path 4 as ``launches_sharded_serving``), the card's name and
+    power limit, and ``{"ok": true, ...}`` as the last line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
@@ -70,6 +86,7 @@ A failed check is printed and the run goes on to the next phase; at the
 end, any failure makes the script exit 1 without the last two lines.
 Without CUDA it exits 2 before doing anything.
 """
+import contextlib
 import gc
 import json
 import math
@@ -497,6 +514,55 @@ def recorded_cuts(kf, w, p, warm=None):
         return ref.ksection_histogram_ref(keys, weights, cuts)
     partition1d.ksection(kf, w, p, k=8, iters=12, hist_fn=rec, warm=warm)
     return seq
+
+
+@contextlib.contextmanager
+def recorded_hist_inputs():
+    """While the block runs, record every (keys, weights, cuts) the
+    port's k-section histogram op is handed (the serving balancer's, at
+    the shapes its path gives them); the op runs as before, so the
+    launch counts stay the path's own."""
+    from repro_torch.kernels import ops
+    seq, op = [], ops.ksection_histogram_op
+
+    def rec(keys, weights, cuts, **kw):
+        seq.append(tuple(t.detach().clone() for t in (keys, weights, cuts)))
+        return op(keys, weights, cuts, **kw)
+    ops.ksection_histogram_op = rec
+    try:
+        yield seq
+    finally:
+        ops.ksection_histogram_op = op
+
+
+def hist_agreement(seq):
+    """The histogram kernel against its plain version on every recorded
+    input on the card, as the op calls each (equal bits: integer
+    weights): {inputs, equal, n, m} with the item and cut counts seen."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+    f32, equal = torch.float32, True
+    on_card = [x for x in seq if x[0].is_cuda]
+    for keys, w, cuts in on_card:
+        got = ksection_hist_cuda(keys.to(f32).contiguous(),
+                                 w.to(f32).contiguous(),
+                                 cuts.to(f32).contiguous())
+        equal &= torch.equal(got, ref.ksection_histogram_ref(keys, w, cuts))
+    return dict(inputs=len(on_card), equal=equal,
+                n=sorted({int(x[0].shape[0]) for x in on_card}),
+                m=sorted({int(x[2].shape[0]) for x in on_card}))
+
+
+def check_hist_agreement(agree, launched, label):
+    check(agree["inputs"] == launched,
+          f"{label}: {agree['inputs']} histogram inputs on the card "
+          f"against {launched} ksection_hist launches")
+    check(agree["equal"], f"{label}: ksection_hist != its plain version "
+          "at the balancer's shapes")
+    log(f"{label}: ksection_hist against its plain version on each of the "
+        f"path's {launched} inputs (items n in {agree['n']}, cuts m in "
+        f"{agree['m']}): equal bit for bit")
 
 
 def compare_sfc(coords_np, dev):
@@ -1391,11 +1457,15 @@ def serve_full_width(dev):
     for prefill in ("packed", "full"):
         serve_run(model, cfg, dev, dict(SERVE_SPEC, prefill=prefill), warm)
     out = {"cfg": cfg, "model": model, "trace": trace}
-    m, reqs, counts, peak, _ = serve_run(model, cfg, dev, SERVE_SPEC, trace)
+    with recorded_hist_inputs() as hist_in:
+        m, reqs, counts, peak, _ = serve_run(model, cfg, dev, SERVE_SPEC,
+                                             trace)
     from repro_torch.kernels.serve_prefill import packed_attention_cuda
     packed_variants = dict(packed_attention_cuda.variants)
     log_serve("packed, the main path", m, counts, peak)
     log(f"  serve_prefill launches by variant: {packed_variants}")
+    check_hist_agreement(hist_agreement(hist_in), counts["ksection_hist"],
+                         "  the serving balancer (packed, main path 2)")
     check(counts["serve_prefill"] > 0, "serve_prefill was not launched")
     check(packed_variants["bf16_tensor_core"] == counts["serve_prefill"],
           "the packed prefill's bf16 attention did not run on the tensor "
@@ -1417,6 +1487,7 @@ def serve_full_width(dev):
           "the full prefill's bf16 attention did not run on the tensor cores")
     out["full"] = (mf, cf)
     out["fullest_pack"] = max(recp.packs, key=lambda sg: int((sg >= 0).sum()))
+    out["recorded"] = (rp, recp)        # phase 13's tokens are held to it
     out["first_err"] = compare_recorded("packed vs full on the card", rp,
                                         recp, rf, recf, BF16_TOL)
     check(mp["migration_log"] == mf["migration_log"],
@@ -1713,6 +1784,304 @@ def profile_serving(serve, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: sharded serving with KV migration (main path 4)
+# ---------------------------------------------------------------------------
+
+SHARDED_SERVE_SPEC = dict(SERVE_SPEC, decode="sharded", rebalance="kv")
+# the forced migration: one request, full prefill (flash attention on the
+# rank that holds its slot), moved to group 2 after FORCED_AT decode steps
+FORCED_AT, FORCED_NEW, FORCED_GROUP = 3, 10, 2
+PROFILED_DECODE_STEPS = 8
+# the profiled window holds one admission and decode steps only: its
+# first rebalance would fall at step rebalance_every (8) and migrate
+PROFILED_SPEC = dict(SHARDED_SERVE_SPEC, rebalance_every=1000)
+
+
+class RankMargins:
+    """A sharded session's ``on_logits`` observer on one rank: the top-2
+    logit margin of each token this rank computed, by request and token
+    index, and the first-token logits as numpy arrays (every rank
+    computes each packed admission; a tensor would not outlive the rank's
+    process).  It launches none of the port's kernels."""
+
+    def __init__(self):
+        self.first, self.margin = {}, {}
+
+    def __call__(self, reqs, logits, seg):
+        top = logits.float().topk(2, dim=-1).values
+        marg = (top[:, 0] - top[:, 1]).tolist()
+        for i, r in enumerate(reqs):
+            t = len(r.out)          # the index of the token these logits give
+            if t == 0 and r.rid not in self.first:
+                self.first[r.rid] = logits[i].float().cpu().numpy()
+            self.margin.setdefault(r.rid, {})[t] = marg[i]
+
+
+def memory(dev):
+    """(bytes allocated by this process, peak since the last reset, the
+    card's free and total bytes); zeros on the CPU."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0, 0, 0, 0
+    free, total = torch.cuda.mem_get_info(dev)
+    return (torch.cuda.memory_allocated(dev),
+            torch.cuda.max_memory_allocated(dev), free, total)
+
+
+def sharded_serve_rank(comm, cfg, weights, trace):
+    """One rank of the sharded serving session (main path 4): group r's
+    slots on this rank, the weights wrapped from ``weights`` (on the
+    rank's card: shared with the parent, no copy; else copied there).
+    Runs a warm-up, then the trace with the launch counts from 0 (each
+    migration timed, the balancer's histogram inputs recorded and held
+    against the plain version afterwards), then a forced migration
+    (under torch.profiler) against the same run without it, then one
+    packed admission and 8 decode steps, no rebalance, under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_from_tensors
+    from repro_torch.serve import (Request, ServeSession, ServeSpec,
+                                   bursty_trace, run_trace)
+    dev = torch.device(comm.device)
+    shared = all(t.device == dev for t in weights.values())
+    model = model_from_tensors(cfg, weights if shared else
+                               {k: t.to(dev) for k, t in weights.items()})
+    out = {"layout": "shared" if shared else "copied",
+           "mem_weights": memory(dev)[0]}
+
+    def session(spec_kw, **kw):
+        gc.collect()
+        return ServeSession(model, cfg, ServeSpec(**spec_kw), comm=comm, **kw)
+
+    def drive(sess, tr):
+        reqs, submit = [], sess.submit
+        sess.submit = lambda r: (reqs.append(r), submit(r))[1]
+        m = run_trace(sess, tr)
+        del sess.submit     # the wrapper refers back to the session
+        return m, reqs
+
+    # warm-up: first calls load modules and create library handles
+    drive(session(SHARDED_SERVE_SPEC),
+          bursty_trace(3, **dict(SERVE_TRACE, seed=5, max_new_cap=4)))
+
+    rec = RankMargins()
+    sess = session(SHARDED_SERVE_SPEC, on_logits=rec)
+    migrator, moves_timed = sess._migrator, []
+
+    def timed_migrator(state, moves):
+        sync(dev)
+        wire0, staged0, t0 = (comm.all_to_all_bytes, comm.staged_bytes,
+                              time.perf_counter())
+        res = migrator(state, moves)
+        sync(dev)
+        moves_timed.append(dict(
+            s=time.perf_counter() - t0, n=len(moves),
+            wire=comm.all_to_all_bytes - wire0,
+            staged=comm.staged_bytes - staged0, stats=res[1]))
+        return res
+
+    sess._migrator = timed_migrator
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    staged0 = comm.staged_bytes
+    ops.reset_launch_counts()
+    with recorded_hist_inputs() as hist_in:
+        m, reqs = drive(sess, trace)
+    sync(dev)
+    out.update(launches=ops.launch_counts(), mem=memory(dev),
+               staged=comm.staged_bytes - staged0, metrics=m,
+               moves=moves_timed, kv_slot_bytes=sess.kv_slot_bytes,
+               rids=[r.rid for r in reqs], out=[r.out for r in reqs],
+               groups=[r.group for r in reqs],
+               migrations=[r.migrations for r in reqs], margin=rec.margin,
+               first=rec.first if comm.rank == 0 else None)
+    del sess, rec
+    out["hist"] = hist_agreement(hist_in)
+    del hist_in
+
+    forced_spec = dict(SHARDED_SERVE_SPEC, prefill="full",
+                       rebalance_every=1000)
+    ops.reset_launch_counts()
+    forced = {}
+    for migrate in (False, True):
+        sess = session(forced_spec)
+        r = Request(rid=0, prompt=trace[0].prompt, max_new=FORCED_NEW)
+        sess.submit(r)
+        stats = None
+        for i in range(FORCED_NEW + 4):
+            sess.step()
+            if migrate and i == FORCED_AT and not r.done:
+                sync(dev)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    stats = sess.migrate_request(0, dst_group=FORCED_GROUP)
+                    sync(dev)
+                    wall = time.perf_counter() - t0
+                out["forced_profile"] = dict(wall=wall, busy=sum(
+                    e.time_range.elapsed_us()
+                    for e in device_events(prof)) / 1e6)
+            if r.done:
+                break
+        forced[migrate] = dict(out=list(r.out), group=r.group, done=r.done,
+                               migrations=r.migrations, stats=stats)
+        del sess
+    out["forced"] = forced
+    out["forced_launches"] = ops.launch_counts()
+
+    sess = session(PROFILED_SPEC)
+    for t in trace[:8]:
+        sess.submit(Request(rid=t.rid, prompt=t.prompt, max_new=64))
+    sync(dev)
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_DECODE_STEPS):
+            sess.step()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    counts = count_diff(ops.launch_counts(), before)
+    check(sess.prefill_stats["calls"] == 1, "one packed admission")
+    check(not sess.migration_log and counts["ksection_hist"] == 0,
+          "the profiled window rebalanced")
+    busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
+    if comm.rank == 0:
+        trace_summary(f"rank 0, one packed admission (8 x 128 tokens) + "
+                      f"{PROFILED_DECODE_STEPS} decode steps of the sharded "
+                      "session, no rebalance", prof, wall, top_host=10,
+                      top_dev=8, launches=counts)
+    out["profile"] = dict(wall=wall, busy=busy)
+    del sess
+    return out
+
+
+def sharded_serving(serve):
+    """Phase 13: the sharded serving session with KV migration at
+    llama3-8b width over SHARDED_P ranks (main path 4), checked rank
+    against rank, against phase 6's replicated packed run up to the
+    first near-tie, and moved against unmoved."""
+    import types
+    import torch
+    cfg, trace = serve["cfg"], serve["trace"]
+    weights = {k: t.detach() for k, t in serve["model"].state_dict().items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_mem = memory("cuda")
+    outs, backend = start_world(sharded_serve_rank, cfg, weights, trace,
+                                join_s=900.0)
+    r0 = outs[0]
+    log(f"memory layout: weights {outs[0]['layout']} "
+        f"({'one bf16 copy in this process, handed to the ranks by CUDA '
+            'IPC' if r0['layout'] == 'shared' else 'a copy on each rank'})"
+        f"; this process holds {parent_mem[0] / 1e9:.3f} GB (phase 6's "
+        f"model and its float32 head); per rank after wrapping the weights "
+        f"{[round(o['mem_weights'] / 1e9, 3) for o in outs]} GB, peak in "
+        f"the trace (max_memory_allocated) "
+        f"{[round(o['mem'][1] / 1e9, 3) for o in outs]} GB; card free / "
+        f"total after the trace (mem_get_info, rank 0) "
+        f"{r0['mem'][2] / 1e9:.3f} / {r0['mem'][3] / 1e9:.3f} GB")
+    m = r0["metrics"]
+    for r, o in enumerate(outs):
+        om = o["metrics"]
+        check(om["completed"] == len(trace), f"rank {r}: not every request "
+              "finished")
+        check(o["out"] == r0["out"] and o["groups"] == r0["groups"]
+              and o["migrations"] == r0["migrations"],
+              f"rank {r}: tokens or groups differ from rank 0's")
+        check(om["migration_log"] == m["migration_log"],
+              f"rank {r}: migration log differs from rank 0's")
+        check(o["launches"]["serve_prefill"] > 0,
+              f"rank {r}: serve_prefill was not launched")
+        check_hist_agreement(o["hist"], o["launches"]["ksection_hist"],
+                             f"  rank {r}, the serving balancer")
+    check(all(len(t) == q.max_new for t, q in zip(r0["out"], trace)),
+          "output lengths")
+    log_serve("sharded + kv, the main path, rank 0", m, r0["launches"],
+              r0["mem"][1])
+    log(f"  launches per rank {[o['launches'] for o in outs]}")
+    kv = r0["kv_slot_bytes"]
+    n_moved = sum(e["n_moved"] for e in m["migration_log"])
+    moved = r0["moves"]
+    check(len(moved) == sum(1 for e in m["migration_log"] if e["n_moved"]),
+          "one executor call per rebalance that moved slots")
+    for e in m["migration_log"]:
+        # the log carries the executor's float32 sum of slot_nbytes (the
+        # reference's weights), the host count n_moved x kv_slot_bytes is
+        # exact: equal up to float32 rounding
+        exact = e["n_moved"] * kv
+        check(abs(e["moved_kv_bytes"] - exact) <= exact * 2.0 ** -22,
+              f"rebalance at step {e['step']}: moved_kv_bytes "
+              f"{e['moved_kv_bytes']} against {e['n_moved']} x {kv}")
+        log(f"  rebalance at step {e['step']}: n_moved={e['n_moved']} "
+            f"moved_kv_bytes={e['moved_kv_bytes']} (executor, float32; "
+            f"n_moved x kv_slot_bytes = {exact}) deferred={e['deferred']} "
+            f"deferred_retries={e['deferred_retries']}")
+    check(n_moved >= 1, "no KV slot migrated in the trace")
+    check(sum(r0["migrations"]) == n_moved, "migrations per request")
+    logged = [e["moved_kv_bytes"] for e in m["migration_log"] if e["n_moved"]]
+    for j, (mv, want) in enumerate(zip(moved, logged)):
+        check(mv["stats"]["moved_bytes"] == want
+              and mv["stats"]["received_bytes"] == want
+              and mv["stats"]["n_moved"] == mv["n"]
+              and mv["stats"]["overflow"] == 0,
+              f"migration {j}: executor stats {mv['stats']}")
+        log(f"  migration {j}: {mv['n']} slots, moved_kv_bytes "
+            f"{mv['n'] * kv}, seconds per rank "
+            f"{[round(o['moves'][j]['s'], 4) for o in outs]}, wire bytes "
+            f"per rank {[o['moves'][j]['wire'] for o in outs]}, host-staged "
+            f"bytes per rank {[o['moves'][j]['staged'] for o in outs]}")
+    log(f"sharded serving ({backend}): kv_slot_bytes={kv}, "
+        f"{len(r0['moves'])} migrations moved {n_moved} slots "
+        f"({n_moved * kv} bytes); host-staged bytes per rank in the trace "
+        f"{[o['staged'] for o in outs]}")
+    margins = {}
+    for o in outs:
+        for rid, by_t in o["margin"].items():
+            margins.setdefault(rid, {}).update(by_t)
+    rec = types.SimpleNamespace(first={
+        rid: torch.from_numpy(a) for rid, a in r0["first"].items()}, margin={
+        rid: [by_t[t] for t in sorted(by_t)] for rid, by_t in margins.items()})
+    reqs = [types.SimpleNamespace(rid=rid, out=o)
+            for rid, o in zip(r0["rids"], r0["out"])]
+    rp, recp = serve["recorded"]
+    compare_recorded("sharded + kv vs phase 6's replicated packed run", reqs,
+                     rec, rp, recp, BF16_TOL)
+    for r, o in enumerate(outs):
+        f = o["forced"]
+        check(f[True]["out"] == f[False]["out"] == r0["forced"][False]["out"]
+              and f[False]["done"] and f[True]["done"],
+              f"rank {r}: the forced migration changed the mover's tokens")
+        check(f[True]["migrations"] == 1
+              and f[True]["group"] == FORCED_GROUP
+              and f[True]["stats"]["moved_kv_bytes"] == kv
+              and f[True]["stats"]["n_moved"] == 1,
+              f"rank {r}: forced migration {f[True]}")
+        flash = o["forced_launches"]["flash_attention"]
+        check(flash == (2 * cfg.n_layers if r == 0 else 0),
+              f"rank {r}: {flash} flash_attention launches in the forced "
+              "pair (the request's slot is on rank 0 at admission)")
+    log(f"forced migration to group {FORCED_GROUP} after {FORCED_AT} decode "
+        f"steps: {FORCED_NEW} tokens equal to the unmoved run bit for bit "
+        f"on every rank; flash_attention launches per rank "
+        f"{[o['forced_launches']['flash_attention'] for o in outs]}; the "
+        f"one-slot migration ({kv} bytes) under torch.profiler: wall, "
+        f"device busy (s) per rank "
+        f"{[(o['forced_profile']['wall'], o['forced_profile']['busy']) for o in outs]}")
+    # the ranks' device events overlap on the one card (their host
+    # copies run at once), so only a rank's own idle share is read
+    log(f"trace of one packed admission + {PROFILED_DECODE_STEPS} decode "
+        f"steps, no rebalance: rank 0's idle share "
+        f"{1 - r0['profile']['busy'] / r0['profile']['wall']:.4f}; wall, "
+        f"device busy (s) per rank "
+        f"{[(o['profile']['wall'], o['profile']['busy']) for o in outs]}")
+    return dict(launches=[o["launches"] for o in outs])
+
+
+# ---------------------------------------------------------------------------
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
 SRC = "src/repro_torch/kernels/csrc/"
@@ -1843,12 +2212,18 @@ def main():
                          compare_scan, dev, sharded["scanned"])
         if scan_row is not None:
             rows["prefix_scan"] = scan_row
+    served = None
+    if serve is not None:
+        served = phase("phase 13: sharded serving with KV migration at "
+                       "llama3-8b width (main path 4)", sharded_serving,
+                       serve)
     log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
-            or len(rows) < len(REPLACES)):
+            or served is None or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
-    # each path's launches, counted from 0 over its own run
+    # each path's launches, counted from 0 over its own run; main path
+    # 4's per rank (phase 13's trace)
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
                 "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
@@ -1859,7 +2234,9 @@ def main():
                   plain_ms=rows[name]["plain_ms"],
                   bound_ms=rows[name]["bound_ms"],
                   bound_by=rows[name]["bound_by"],
-                  library_ms=rows[name]["library_ms"])
+                  library_ms=rows[name]["library_ms"],
+                  launches_sharded_serving=[
+                      r[name] for r in served["launches"]])
              for name in REPLACES]
     log(json.dumps({"kernels": table}))
     log(card)

@@ -19,8 +19,10 @@ The caller picks the group's backend.  ``"nccl"`` runs the collectives
 on the card (one card per rank).  ``"gloo"`` runs them in host memory:
 on CPU tensors directly, and for CUDA tensors (ranks sharing one card)
 each payload is copied to the host and back explicitly, and the bytes
-so copied are counted in ``staged_bytes``.  Compute stays on the rank's
-device either way.  Nothing switches backend when something fails.
+so copied are counted in ``staged_bytes``.  ``all_to_all_bytes`` counts
+the send buffers a rank hands to ``all_to_all`` (its own block
+included), on either backend.  Compute stays on the rank's device either
+way.  Nothing switches backend when something fails.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ class Comm:
         self.backend = dist.get_backend(group)
         self.device = resolve_device(device)
         self.staged_bytes = 0          # host round trips of the gloo route
+        self.all_to_all_bytes = 0      # send buffers handed to all_to_all
 
     # -- staging ---------------------------------------------------------------
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
@@ -115,6 +118,7 @@ class Comm:
             raise ValueError(f"all_to_all: {t.shape[0]} rows do not split "
                              f"into {self.size} ranks")
         t = t.contiguous()
+        self.all_to_all_bytes += t.numel() * t.element_size()
         x = self._stage(t)
         out = torch.empty_like(x)
         work = dist.all_to_all_single(out, x, group=self.group,

@@ -1,7 +1,7 @@
 """Model registry: family -> init.  Only the dense family is ported."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -24,3 +24,15 @@ def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
     gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return T.DecoderLM(cfg, dev, gen)
+
+
+def model_from_tensors(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+                       ) -> T.DecoderLM:
+    """A model of ``cfg`` whose parameters are ``tensors`` themselves
+    (``state_dict`` names), not copies: the ranks of a group that share
+    one card wrap one set of weights this way (CUDA tensors handed to a
+    process started by ``spawn`` arrive by CUDA IPC, without a copy).
+    Nothing may write the weights of such a model."""
+    model = init_model(cfg, seed=None, device="meta")
+    model.load_state_dict(tensors, strict=True, assign=True)
+    return model

@@ -17,9 +17,9 @@ registered ``(stage, variant)`` function:
     rebalance 'tags' (repartition updates group labels only) | 'kv' |
               'never'
 
-``ServeSession`` (``repro_torch.serve.engine``) registers the variants it
-runs; 'sharded' decode and 'kv' rebalance need the multi-device layer
-(ROADMAP.md, queue 1, item 9) and a session refuses them.
+``ServeSession`` (``repro_torch.serve.engine``) registers the variants;
+'sharded' decode and 'kv' rebalance run on a process group of one rank
+per group (``comm=``) and refuse to run without one.
 
 Stage signatures:
 
@@ -29,7 +29,7 @@ Stage signatures:
                                              admissions a list of
                                              (req, slot, group, offset)
     insert(session, req, slot, seed, row) -> None   (mutates session)
-    generate(session)                     -> logits (slots, 1, vocab)
+    generate(session)                     -> next tokens (total_slots,)
     rebalance(session)                    -> log-entry dict or None
 """
 from __future__ import annotations

@@ -102,7 +102,11 @@ def run_trace(session: ServeSession, trace: Sequence[TraceRequest], *,
 
     Requests are submitted at their trace ``arrival`` step (never held
     back by backlog -- that is the queue's job), then the engine steps
-    until every request finishes.  Returns a metrics dict:
+    until every request finishes.  A sharded session's ranks each call it
+    with the same trace and step in lockstep (the loop reads only the
+    step count, the queue and the slots, equal on every rank); the
+    wall-clock numbers are each rank's own, and a caller reports rank
+    0's.  Returns a metrics dict:
 
       throughput_tok_s   generated tokens / wall seconds
       ttft_p50/p99       submit -> first output token (seconds)

@@ -1,5 +1,6 @@
 """Rank bodies for the multi-rank tests of the port (``tests/test_torch_
-distributed.py``, ``tests/test_torch_halo.py``).
+distributed.py``, ``tests/test_torch_halo.py``,
+``tests/test_torch_serve_sharded.py``).
 
 Each function runs on every rank of a gloo world of CPU processes started
 by ``repro_torch.distributed.run_world``, takes the shared numpy inputs,
@@ -226,4 +227,199 @@ def sessions(comm, mesh_d, spec_dicts):
                       for s in res.stats],
             "n_repartitions": res.n_repartitions,
             "captured": captured, "u": res.u.numpy()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_serve_sharded.py
+# ---------------------------------------------------------------------------
+# The scenarios of the JAX package's sharded-serving tests
+# (tests/test_serve.py), written once against the session API the two
+# packages share: ``make(**spec_kw)`` builds a session, ``Request`` is the
+# package's request class.  The parent runs them on the JAX package; the
+# ranks run them on the port.
+
+SERVE_BASE = dict(slots=8, groups=4, max_seq=64, rebalance_every=1000,
+                  prefill="full", decode="sharded", rebalance="kv")
+
+
+def _outcome(sess, reqs):
+    return {"out": [list(r.out) for r in reqs],
+            "group": [r.group for r in reqs], "slot": [r.slot for r in reqs],
+            "done": [r.done for r in reqs],
+            "migrations": [r.migrations for r in reqs],
+            "log": [dict(e) for e in sess.migration_log],
+            "prefill_stats": dict(sess.prefill_stats),
+            "kv_slot_bytes": sess.kv_slot_bytes}
+
+
+def _run_all(sess, reqs, max_steps):
+    for r in reqs:
+        sess.submit(r)
+    sess.run(max_steps=max_steps)
+    return _outcome(sess, reqs)
+
+
+def _migration_parity(make, Request, prompt):
+    """A forced KV-slot migration mid-decode (test_serve.py's
+    test_migration_parity_bit_identical), and the same run without it."""
+    out = {}
+    for migrate in (False, True):
+        sess = make()
+        r = Request(rid=0, prompt=prompt, max_new=10)
+        sess.submit(r)
+        stats = None
+        for i in range(16):
+            sess.step()
+            if migrate and i == 3 and not r.done:
+                stats = dict(sess.migrate_request(0, dst_group=2))
+            if r.done:
+                break
+        out["mig" if migrate else "ref"] = dict(_outcome(sess, [r]),
+                                                stats=stats)
+    return out
+
+
+def _slot_reuse(make, Request, prompt_a, prompt_b):
+    """Both ends of a migration reused (test_slot_reuse_after_migration)."""
+    def fresh(prompt):
+        sess = make(slots=2, groups=2)
+        r = Request(rid=9, prompt=prompt, max_new=6)
+        return _run_all(sess, [r], 16)
+
+    sess = make(slots=2, groups=2)                      # spg = 1
+    a = Request(rid=0, prompt=prompt_a, max_new=12)
+    sess.submit(a)
+    sess.step()
+    seated = a.slot
+    stats = dict(sess.migrate_request(0, dst_group=1))
+    moved_to = (a.slot, a.group)
+    b = Request(rid=1, prompt=prompt_b, max_new=6)
+    sess.submit(b)
+    sess.run(max_steps=32)
+    c = Request(rid=2, prompt=prompt_b, max_new=6)
+    d = Request(rid=3, prompt=prompt_a, max_new=6)
+    out = _run_all(sess, [c, d], 32)
+    return {"seated": seated, "moved_to": moved_to, "stats": stats,
+            "ab": _outcome(sess, [a, b]), "cd": out,
+            "fresh_a": fresh(prompt_a), "fresh_b": fresh(prompt_b)}
+
+
+def _kv_rebalance(make, Request, prompts):
+    """The session's own rebalances migrate KV
+    (test_kv_rebalance_logs_moved_bytes)."""
+    reqs = [Request(rid=i, prompt=p, max_new=4 + 4 * (i % 3))
+            for i, p in enumerate(prompts)]
+    return _run_all(make(rebalance_every=4), reqs, 64)
+
+
+def _packed_parity(make, Request, prompts, p):
+    """Packed against per-request prefill at p groups
+    (test_packed_prefill_token_parity)."""
+    out = {}
+    for mode in ("full", "packed"):
+        reqs = [Request(rid=i, prompt=pr, max_new=4)
+                for i, pr in enumerate(prompts)]
+        out[mode] = _run_all(make(slots=2 * p, groups=p, max_seq=32,
+                                  prefill=mode, page_size=4,
+                                  rebalance_every=4), reqs, 128)
+    return out
+
+
+def _multi_pack(make, Request, prompts):
+    """A buffer smaller than the wave (test_packed_multi_pack_small_
+    capacity)."""
+    out = {}
+    for mode, extra in (("full", {}), ("packed", {"prefill_capacity": 16})):
+        reqs = [Request(rid=i, prompt=pr, max_new=3)
+                for i, pr in enumerate(prompts)]
+        out[mode] = _run_all(make(max_seq=32, prefill=mode, page_size=4,
+                                  rebalance="never", **extra), reqs, 64)
+    return out
+
+
+def _deferred(make, Request, prompt_a, prompt_b):
+    """A mover whose destination is full is deferred, then retried first
+    (test_deferred_move_retry)."""
+    import numpy as np
+    sess = make(slots=2, groups=2)                      # spg = 1
+    a = Request(rid=0, prompt=prompt_a, max_new=12)
+    b = Request(rid=1, prompt=prompt_b, max_new=12)
+    sess.submit(a)
+    sess.submit(b)
+    sess.step()
+    groups = (a.group, b.group)
+    lo, hi = (a, b) if a.group == 0 else (b, a)
+    first = sess._plan_moves(sess._live(), np.asarray([1, 1], np.int32))
+    kept = dict(sess._deferred_moves)
+    sess.active[hi.slot] = None
+    second = sess._plan_moves([(lo.slot, lo)], np.asarray([1], np.int32))
+    return {"groups": groups, "lo": (lo.rid, lo.slot), "hi_slot": hi.slot,
+            "first": first, "kept": kept, "second": second,
+            "kept_after": dict(sess._deferred_moves)}
+
+
+def serve_scenarios(make, Request, prompts, groups):
+    """Every sharded-serving scenario at ``groups`` groups; results as
+    plain Python values."""
+    if groups == 4:
+        return {
+            "migration_parity": _migration_parity(make, Request,
+                                                  prompts["parity"]),
+            "kv_rebalance": _kv_rebalance(make, Request, prompts["kv"]),
+            "packed_parity": _packed_parity(make, Request, prompts["packed"],
+                                            4),
+            "multi_pack": _multi_pack(make, Request, prompts["multi"])}
+    return {"slot_reuse": _slot_reuse(make, Request, *prompts["pair"]),
+            "packed_parity": _packed_parity(make, Request, prompts["packed"],
+                                            2),
+            "deferred": _deferred(make, Request, *prompts["pair"])}
+
+
+def _kv_state(arrays, rank, spg):
+    from repro_torch.serve import KVCache
+    k, v, sp, pos = arrays
+    rows = slice(rank * spg, (rank + 1) * spg)
+    return KVCache(k=torch.as_tensor(k[:, rows]).clone(),
+                   v=torch.as_tensor(v[:, rows]).clone(),
+                   stored_pos=torch.as_tensor(sp[rows]).clone(),
+                   pos=torch.as_tensor(pos[rows]).clone())
+
+
+def slot_migrations(comm, cfg, arrays, moves, chunk_bytes):
+    """``SlotMigrator`` on this rank's rows of a global state, in one
+    chunk (a budget above any send buffer) and in chunks of
+    ``chunk_bytes``, with the bytes each put on the all_to_all."""
+    from repro_torch.serve import SlotMigrator, slot_axes
+    spg = arrays[0].shape[1] // comm.size
+    out = {}
+    for name, chunk in (("whole", 1 << 62), ("chunked", chunk_bytes)):
+        state = _kv_state(arrays, comm.rank, spg)
+        mig = SlotMigrator(cfg, comm, slot_axes(cfg), state,
+                           chunk_bytes=chunk)
+        sent = comm.all_to_all_bytes
+        state, stats = mig(state, moves)
+        out[name] = {"state": [x.numpy() for x in (state.k, state.v,
+                                                    state.stored_pos,
+                                                    state.pos)],
+                     "stats": stats,
+                     "wire_bytes": comm.all_to_all_bytes - sent}
+    return out
+
+
+def serve_world(comm, cfg, weights, prompts, migration_case):
+    """Every scenario of this world's group count on the port's sharded
+    session, then (at 4 groups) the slot migrator alone."""
+    from repro_torch.models import model_from_tensors
+    from repro_torch.serve import Request, ServeSession, ServeSpec
+    model = model_from_tensors(cfg, {k: torch.as_tensor(v)
+                                     for k, v in weights.items()})
+
+    def make(**kw):
+        spec = ServeSpec(**{**SERVE_BASE, **kw})
+        return ServeSession(model, cfg, spec, comm=comm)
+
+    out = {"scenarios": serve_scenarios(make, Request, prompts, comm.size)}
+    if migration_case is not None:
+        out["migration"] = slot_migrations(comm, cfg, *migration_case)
     return out

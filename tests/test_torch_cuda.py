@@ -920,3 +920,74 @@ def test_fem_sums_on_the_mesh_order_equal_fresh_ones_on_card(cuda):
         kept = fn(el)
         assert SegmentOrder.builds == before, name
         assert torch.equal(kept, fn(fresh)), name
+
+
+# --- sharded serving: one rank per group on the card -------------------------
+# Four gloo ranks share cuda:0 (collectives staged through host memory);
+# the same ranks on the CPU give the reference tokens.
+
+SHARDED_SERVE = dict(slots=8, groups=4, max_seq=128, prefill="packed",
+                     prefill_capacity=128, page_size=16, decode="sharded",
+                     rebalance="kv", rebalance_every=4)
+
+
+def _sharded_serve_rank(comm, cfg, weights, spec_kw, n_requests):
+    """A smoke-size sharded session over a bursty trace, then a forced
+    migration against the same run without it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_from_tensors
+    from repro_torch.serve import (Request, ServeSession, ServeSpec,
+                                   bursty_trace, run_trace)
+    model = model_from_tensors(cfg, {k: torch.as_tensor(v).to(comm.device)
+                                     for k, v in weights.items()})
+    trace = bursty_trace(n_requests, seed=3, vocab=cfg.vocab,
+                         prompt_buckets=(8, 16, 32), max_new_cap=12)
+    sess = ServeSession(model, cfg, ServeSpec(**spec_kw), comm=comm)
+    reqs, submit = [], sess.submit
+    sess.submit = lambda r: (reqs.append(r), submit(r))[1]
+    ops.reset_launch_counts()
+    m = run_trace(sess, trace)
+    launches = ops.launch_counts()
+    forced = []
+    for migrate in (False, True):
+        s = ServeSession(model, cfg, ServeSpec(**dict(
+            spec_kw, prefill="full", rebalance_every=1000)), comm=comm)
+        r = Request(rid=0, prompt=trace[0].prompt, max_new=10)
+        s.submit(r)
+        for i in range(14):
+            s.step()
+            if migrate and i == 3:
+                s.migrate_request(0, dst_group=2)
+            if r.done:
+                break
+        forced.append((list(r.out), r.group, r.migrations))
+    return ([r.out for r in reqs], m["migration_log"], launches, forced,
+            comm.staged_bytes)
+
+
+def test_sharded_serving_on_card_matches_cpu_ranks(cuda, tmp_path):
+    """Smoke size in float32: the card's ranks give the CPU ranks' tokens
+    and migration log, every rank the same; the card ran serve_prefill
+    and migrated KV; a forced migration leaves the tokens bit for bit."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import run_world
+    from repro_torch.models import init_model
+    cfg = get_smoke("llama3_8b").replace(use_pallas=True)
+    weights = {k: v.numpy() for k, v in
+               init_model(cfg, seed=0, device="cpu").state_dict().items()}
+    runs = {}
+    for name, devices in (("card", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        runs[name] = run_world(_sharded_serve_rank, 4, cfg, weights,
+                               SHARDED_SERVE, 16,
+                               init_file=str(tmp_path / f"rdv-{name}"),
+                               devices=devices, timeout_s=120.0, join_s=300.0)
+    card, cpu = runs["card"], runs["cpu"]
+    for rank in range(4):
+        assert card[rank][0] == card[0][0] == cpu[rank][0]
+        assert card[rank][1] == card[0][1] == cpu[rank][1]
+        assert card[rank][2]["serve_prefill"] > 0
+        assert card[rank][4] > 0            # gloo staged through the host
+        (ref, _, _), (moved, group, migrations) = card[rank][3]
+        assert moved == ref == cpu[rank][3][0][0]
+        assert group == 2 and migrations == 1
+    assert sum(e["n_moved"] for e in card[0][1]) >= 1

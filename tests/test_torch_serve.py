@@ -249,13 +249,17 @@ def test_slot_reuse_matches_fresh_session(tiny, prefill):
 
 
 def test_multi_device_variants_name_the_roadmap(tiny):
+    """Sharded decode and KV rebalancing are ported (ROADMAP queue 1, item
+    9; tests/test_torch_serve_sharded.py runs them) and refuse to run, as
+    the reference's mesh does, without a process group of one rank per
+    group: nothing falls back to replicated decode or to tags."""
     _, cfg, _, model = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+    with pytest.raises(ValueError, match="process group"):
         ServeSession(model, cfg, ServeSpec(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+    with pytest.raises(ValueError, match="process group"):
         ServeSession(model, cfg, ServeSpec(decode="replicated"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+    with pytest.raises(ValueError, match="process group"):
         ServeSession(model, cfg, ServeSpec(rebalance="tags"), device="cpu")
     with pytest.raises(ValueError, match="interpret"):
         ServeSession(model, cfg, ServeSpec(decode="replicated",
