@@ -73,9 +73,31 @@ CUDA toolkit's nvcc.  It
     all_to_all and host-staged bytes, each rank's peak memory, the
     forced migration's device time and rank 0's idle share over one
     admission and 8 decode steps with no rebalance;
-14. prints the kernel table as one JSON line (with each rank's launches
-    on main path 4 as ``launches_sharded_serving``), the card's name and
-    power limit, and ``{"ok": true, ...}`` as the last line.
+14. frees phase 6's model and serves h2o-danube3-4b at full width and
+    depth with full prefill over a ring of 4,096 positions (prompts of
+    4,608-6,144 tokens: every prefill passes the window, every decode
+    reads a wrapped ring); checks that every flash launch ran on the
+    tensor cores with the window and that every ring row holds the
+    newest positions; holds the flash kernel with the window against its
+    plain version at s = 6,144, d = 120; then the SMOKE config with a
+    ring (window 32), card against CPU in float32;
+15. serves h2o-danube-1.8b (d = 80) and command-r-plus (96 / 8 heads,
+    vocab 256,000; depth cut to fit the card) packed and full over the
+    trace of phase 6, held against each other as phase 7 does, and both
+    attention kernels at each model's heads;
+16. serves phi3.5-moe (16 experts, top 2; depth cut) packed and full;
+    prints each layer's expert imbalance and drop rate for one recorded
+    packed admission; runs one MoE layer on a recorded hidden state in
+    bf16 against float32 (slots and keep equal); SMOKE card against CPU,
+    packed and full;
+17. serves grok-1 (8 experts, soft cap 30; depth cut) packed, with the
+    cap at every packed launch, and holds the capped packed kernel
+    against its plain version on the session's fullest buffer; SMOKE
+    card against CPU;
+18. prints the kernel table as one JSON line (with each rank's launches
+    on main path 4 as ``launches_sharded_serving`` and each path of
+    phases 14-17 in ``launches_by_path``), the card's name and power
+    limit, and ``{"ok": true, ...}`` as the last line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
@@ -516,23 +538,33 @@ def recorded_cuts(kf, w, p, warm=None):
     return seq
 
 
-@contextlib.contextmanager
 def recorded_hist_inputs():
     """While the block runs, record every (keys, weights, cuts) the
     port's k-section histogram op is handed (the serving balancer's, at
     the shapes its path gives them); the op runs as before, so the
     launch counts stay the path's own."""
     from repro_torch.kernels import ops
-    seq, op = [], ops.ksection_histogram_op
+    return recorded_calls(
+        ops, "ksection_histogram_op",
+        lambda keys, weights, cuts, **kw: tuple(
+            t.detach().clone() for t in (keys, weights, cuts)))
 
-    def rec(keys, weights, cuts, **kw):
-        seq.append(tuple(t.detach().clone() for t in (keys, weights, cuts)))
-        return op(keys, weights, cuts, **kw)
-    ops.ksection_histogram_op = rec
+
+@contextlib.contextmanager
+def recorded_calls(module, name, keep):
+    """While the block runs, ``module.name`` records ``keep(*args, **kw)``
+    of each call and then runs as before (the launch counts stay the
+    path's own)."""
+    seen, fn = [], getattr(module, name)
+
+    def rec(*args, **kw):
+        seen.append(keep(*args, **kw))
+        return fn(*args, **kw)
+    setattr(module, name, rec)
     try:
-        yield seq
+        yield seen
     finally:
-        ops.ksection_histogram_op = op
+        setattr(module, name, fn)
 
 
 def hist_agreement(seq):
@@ -1360,10 +1392,11 @@ class Recorder:
             self.margin[r.rid].append(marg[i])
 
 
-def serve_run(model, cfg, dev, spec_kw, trace, record=False):
+def serve_run(model, cfg, dev, spec_kw, trace, record=False, inspect=None):
     """One ``run_trace`` of a fresh session, the launch counts set to 0
-    just before it and read just after.  Returns (metrics, requests,
-    launch counts, peak bytes, recorder)."""
+    just before it and read just after; ``inspect(session)``, if given,
+    then sees the session.  Returns (metrics, requests, launch counts,
+    peak bytes, recorder)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeSession, ServeSpec, run_trace
@@ -1384,6 +1417,8 @@ def serve_run(model, cfg, dev, spec_kw, trace, record=False):
     peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
     check(metrics["completed"] == len(trace), "not every request finished")
     check(all(len(r.out) == r.max_new for r in reqs), "output lengths")
+    if inspect is not None:
+        inspect(session)
     del session.submit  # the wrapper refers back to the session
     return metrics, reqs, counts, peak, rec
 
@@ -1401,6 +1436,31 @@ def log_serve(label, m, counts, peak):
         log(f"  rebalance at step {e['step']}: imbalance={e['imbalance']:.6f}"
             f" TotalV={e['TotalV']:.1f} retained={e['retained']:.4f}")
     log(f"  launches {counts}")
+
+
+def serve_checked(model, cfg, dev, spec_kw, trace, label, **kw):
+    """``serve_run`` with the balancer's histogram inputs recorded; logs
+    the run and checks that the prefill's attention kernel ran on the
+    tensor cores at every launch and that the histogram kernel equals its
+    plain version on every input the balancer handed it.  Returns what
+    ``serve_run`` returns."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.serve_prefill import packed_attention_cuda
+    with recorded_hist_inputs() as hist_in:
+        out = serve_run(model, cfg, dev, spec_kw, trace, **kw)
+    m, _, counts, peak, _ = out
+    name, wrapper = (("serve_prefill", packed_attention_cuda)
+                     if spec_kw["prefill"] == "packed"
+                     else ("flash_attention", flash_attention_cuda))
+    variants = dict(wrapper.variants)
+    log_serve(label, m, counts, peak)
+    log(f"  {name} launches by variant: {variants}")
+    check(counts[name] > 0 and variants["bf16_tensor_core"] == counts[name],
+          f"{label}: {name} did not run on the tensor cores at every "
+          f"launch ({counts[name]} launches, {variants})")
+    check_hist_agreement(hist_agreement(hist_in), counts["ksection_hist"],
+                         f"  the serving balancer ({label})")
+    return out
 
 
 def compare_recorded(label, reqs_a, rec_a, reqs_b, rec_b, rel_tol):
@@ -1435,17 +1495,8 @@ def compare_recorded(label, reqs_a, rec_a, reqs_b, rec_b, rel_tol):
 def serve_full_width(dev):
     """Phases 6-7: the llama3-8b-width session, packed (the main path),
     then packed and full recorded and held against each other."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_model
     from repro_torch.serve import bursty_trace
-    cfg = get_config("llama3_8b").replace(use_pallas=True)
-    t0 = time.perf_counter()
-    model = init_model(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in model.parameters())
-    log(f"model {cfg.name}: {n} parameters ({n * 2 / 1e9:.2f} GB bf16), "
-        f"random from seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+    cfg, model = full_width_model("llama3_8b", dev)
     trace = bursty_trace(32, **SERVE_TRACE)
     log(f"trace: {len(trace)} requests, prompts "
         f"{sorted({len(r.prompt) for r in trace})}, "
@@ -1457,34 +1508,16 @@ def serve_full_width(dev):
     for prefill in ("packed", "full"):
         serve_run(model, cfg, dev, dict(SERVE_SPEC, prefill=prefill), warm)
     out = {"cfg": cfg, "model": model, "trace": trace}
-    with recorded_hist_inputs() as hist_in:
-        m, reqs, counts, peak, _ = serve_run(model, cfg, dev, SERVE_SPEC,
-                                             trace)
-    from repro_torch.kernels.serve_prefill import packed_attention_cuda
-    packed_variants = dict(packed_attention_cuda.variants)
-    log_serve("packed, the main path", m, counts, peak)
-    log(f"  serve_prefill launches by variant: {packed_variants}")
-    check_hist_agreement(hist_agreement(hist_in), counts["ksection_hist"],
-                         "  the serving balancer (packed, main path 2)")
-    check(counts["serve_prefill"] > 0, "serve_prefill was not launched")
-    check(packed_variants["bf16_tensor_core"] == counts["serve_prefill"],
-          "the packed prefill's bf16 attention did not run on the tensor "
-          "cores at every launch")
+    m, reqs, counts, _, _ = serve_checked(model, cfg, dev, SERVE_SPEC, trace,
+                                          "packed, the main path")
     out["packed"] = (m, counts)
     mp, rp, cp, pp, recp = serve_run(model, cfg, dev, SERVE_SPEC, trace,
                                      record=True)
     same = [a.out for a in reqs] == [b.out for b in rp]
     log(f"packed again, recorded: tokens equal to the first run: {same}")
-    mf, rf, cf, pf, recf = serve_run(model, cfg, dev,
-                                     dict(SERVE_SPEC, prefill="full"), trace,
-                                     record=True)
-    log_serve("full", mf, cf, pf)
-    check(cf["flash_attention"] > 0, "flash_attention was not launched")
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    variants = dict(flash_attention_cuda.variants)
-    log(f"  flash_attention launches by variant: {variants}")
-    check(variants["bf16_tensor_core"] == cf["flash_attention"],
-          "the full prefill's bf16 attention did not run on the tensor cores")
+    mf, rf, cf, pf, recf = serve_checked(model, cfg, dev,
+                                         dict(SERVE_SPEC, prefill="full"),
+                                         trace, "full", record=True)
     out["full"] = (mf, cf)
     out["fullest_pack"] = max(recp.packs, key=lambda sg: int((sg >= 0).sum()))
     out["recorded"] = (rp, recp)        # phase 13's tokens are held to it
@@ -1495,30 +1528,37 @@ def serve_full_width(dev):
     return out
 
 
-def serve_card_vs_cpu(dev):
-    """Phase 8: SMOKE in float32, the same port weights on both sides; the
-    packed session with the kernels on the card against the plain
-    versions on the CPU."""
+def serve_card_vs_cpu(dev, arch="llama3_8b", prefill="packed",
+                      buckets=SMOKE_TRACE["prompt_buckets"]):
+    """Phase 8 (and the SMOKE checks of phases 14-17): ``arch``'s SMOKE
+    config in float32, the same port weights on both sides; the session
+    (``prefill``, prompts snapped to ``buckets``) with the kernels on the
+    card against the plain versions on the CPU."""
     import copy
     from repro_torch.configs import get_smoke
     from repro_torch.models import init_model
     from repro_torch.serve import bursty_trace
-    cfg = get_smoke("llama3_8b").replace(use_pallas=True)
+    cfg = get_smoke(arch).replace(use_pallas=True)
     cpu_model = init_model(cfg, seed=0, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(dev)
-    trace = bursty_trace(24, **SMOKE_TRACE)
-    ma, ra, ca, _, reca = serve_run(card_model, cfg, dev, SMOKE_SPEC, trace,
+    trace = bursty_trace(24, **dict(SMOKE_TRACE, vocab=cfg.vocab,
+                                    prompt_buckets=buckets))
+    spec = dict(SMOKE_SPEC, prefill=prefill)
+    ma, ra, ca, _, reca = serve_run(card_model, cfg, dev, spec, trace,
                                     record=True)
-    mb, rb, _, _, recb = serve_run(cpu_model, cfg, "cpu", SMOKE_SPEC, trace,
+    mb, rb, _, _, recb = serve_run(cpu_model, cfg, "cpu", spec, trace,
                                    record=True)
-    check(ca["serve_prefill"] > 0, "smoke: serve_prefill was not launched")
-    compare_recorded("smoke card vs CPU (float32)", ra, reca, rb, recb,
-                     F32_TOL)
+    kernel = "serve_prefill" if prefill == "packed" else "flash_attention"
+    check(ca[kernel] > 0, f"smoke {arch}: {kernel} was not launched")
+    compare_recorded(f"smoke {arch} {prefill} card vs CPU (float32)", ra,
+                     reca, rb, recb, F32_TOL)
     check(ma["migration_log"] == mb["migration_log"],
-          "smoke: rebalances differ between card and CPU")
-    log(f"smoke: {ma['steps']} steps, {ma['tokens']} tokens, "
+          f"smoke {arch}: rebalances differ between card and CPU")
+    lens = sorted({len(r.prompt) for r in trace})
+    log(f"smoke {arch} {prefill}: prompts {lens} (window {cfg.window}), "
+        f"{ma['steps']} steps, {ma['tokens']} tokens, "
         f"{len(ma['migration_log'])} rebalances equal, prefill calls "
-        f"{ma['prefill_calls']} and {mb['prefill_calls']}")
+        f"{ma['prefill_calls']} and {mb['prefill_calls']}, launches {ca}")
 
 
 def bf16_step(x):
@@ -1629,29 +1669,31 @@ def _bf16(shape, gen, dev):
 ATTN_F32_RTOL = 2e-5
 
 
-def compare_flash(dev, s, dtype="bfloat16"):
-    """The flash kernel against mha_ref at b = 1, 32 / 8 heads, d = 128,
-    causal; SDPA (causal, GQA) as the yardstick.  bf16 runs the
-    tensor-core kernel, float32 the CUDA-core one (checked by the
-    per-variant counts)."""
+def compare_flash(dev, s, dtype="bfloat16", hq=32, hkv=8, d=128,
+                  window=None):
+    """The flash kernel against mha_ref at b = 1, causal (by default 32 /
+    8 heads, d = 128, no window); SDPA (causal, GQA; with a window, a
+    boolean band mask) as the yardstick.  bf16 runs the tensor-core
+    kernel, float32 the CUDA-core one (checked by the per-variant
+    counts)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (VARIANTS,
                                                      flash_attention_cuda)
     g = torch.Generator(device=dev).manual_seed(s)
-    hq, hkv, d = 32, 8, 128
     dt = getattr(torch, dtype)
     q = torch.randn((1, hq, s, d), generator=g, device=dev).to(dt)
     k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
     v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
     variant = VARIANTS[dt]
     before = flash_attention_cuda.variants[variant]
-    got = flash_attention_cuda(q, k, v, causal=True)
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
     check(flash_attention_cuda.variants[variant] == before + 1,
           f"flash_attention {dtype}: the {variant} kernel did not run")
-    want = ref.mha_ref(q, k, v, causal=True)
-    label = f"flash_attention {dtype} s={s}"
+    want = ref.mha_ref(q, k, v, causal=True, window=window)
+    label = f"flash_attention {dtype} s={s} hq={hq} hkv={hkv} d={d} " \
+        f"window={window}"
     if dt == torch.bfloat16:
         err, reading = attention_err(label, got, want)
     else:
@@ -1660,16 +1702,26 @@ def compare_flash(dev, s, dtype="bfloat16"):
         check(err <= ATTN_F32_RTOL * scale, f"{label}: max abs err {err} > "
               f"{ATTN_F32_RTOL} * {scale}")
         reading = f"max_abs_err={err:.3e} (limit {ATTN_F32_RTOL * scale:.3e})"
-    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+        pairs = s * (s + 1) // 2
+    else:
+        i = torch.arange(s, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, attn_mask=band, enable_gqa=True)
+        pairs = sum(min(r + 1, window) for r in range(s))
     lib_err = float((sdpa().float() - want.float()).abs().max())
-    ms, call_ms = timed_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-    plain_ms, plain_call = timed_ms(lambda: ref.mha_ref(q, k, v, causal=True),
-                                    reps=5)
+    ms, call_ms = timed_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                                        window=window))
+    plain_ms, plain_call = timed_ms(
+        lambda: ref.mha_ref(q, k, v, causal=True, window=window), reps=5)
     lib_ms, lib_call = timed_ms(sdpa)
-    bound, by = attention_bound(hq * s * (s + 1) // 2, hq, hkv, s, s, d)
-    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal {dtype} "
-        f"({variant}): kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms="
+    bound, by = attention_bound(hq * pairs, hq, hkv, s, s, d)
+    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal "
+        f"window={window} {dtype} ({variant}, {pairs} visible pairs a "
+        f"head): kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms="
         f"{plain_ms:.4f} (call {plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call "
         f"{lib_call:.4f}) bound_ms={bound:.4f} ({by}, bf16 rates) "
         f"share={bound / ms:.4f} {reading} (sdpa max abs err {lib_err:.3e})")
@@ -1677,31 +1729,35 @@ def compare_flash(dev, s, dtype="bfloat16"):
                 library_ms=lib_ms, max_abs_err=err)
 
 
-def compare_packed(dev, seg_np, label="the path's fullest buffer"):
+def compare_packed(dev, seg_np, label="the path's fullest buffer", hq=32,
+                   hkv=8, d=128, softcap=None):
     """The packed kernel against packed_attention_ref on one packed buffer
-    (32 / 8 heads, d = 128, bf16): every element within one bf16 step,
-    pad rows exactly 0, the same bits on a second call, on the tensor
-    cores; SDPA with a boolean segment-causal mask as the yardstick,
-    compared on real rows."""
+    (by default 32 / 8 heads, d = 128; bf16, optionally a soft cap):
+    every element within one bf16 step, pad rows exactly 0, the same bits
+    on a second call, on the tensor cores; SDPA with a boolean
+    segment-causal mask as the yardstick, compared on real rows (SDPA has
+    no soft cap: with one, it times the uncapped function and its error
+    is not read)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.serve_prefill import packed_attention_cuda
-    C, hq, hkv, d = seg_np.shape[0], 32, 8, 128
+    C = seg_np.shape[0]
     g = torch.Generator(device=dev).manual_seed(C)
     q = _bf16((hq, C, d), g, dev)
     k, v = _bf16((hkv, C, d), g, dev), _bf16((hkv, C, d), g, dev)
     seg = torch.as_tensor(seg_np, dtype=torch.int32, device=dev)
     before = packed_attention_cuda.variants["bf16_tensor_core"]
-    got = packed_attention_cuda(q, k, v, seg)
+    got = packed_attention_cuda(q, k, v, seg, softcap=softcap)
     check(packed_attention_cuda.variants["bf16_tensor_core"] == before + 1,
           "serve_prefill bf16: the tensor-core kernel did not run")
-    want = ref.packed_attention_ref(q, k, v, seg)
-    err, reading = attention_err("serve_prefill", got, want)
+    want = ref.packed_attention_ref(q, k, v, seg, softcap=softcap)
+    err, reading = attention_err(f"serve_prefill ({label})", got, want)
     real = seg >= 0
     check(bool((got[:, ~real] == 0).all()), "serve_prefill: pad rows not 0")
-    check(torch.equal(got, packed_attention_cuda(q, k, v, seg)),
+    check(torch.equal(got, packed_attention_cuda(q, k, v, seg,
+                                                 softcap=softcap)),
           "serve_prefill: two calls differ")
     i = torch.arange(C, device=dev)
     mask = (i[None, :] <= i[:, None]) & (seg[:, None] == seg[None, :]) \
@@ -1709,27 +1765,33 @@ def compare_packed(dev, seg_np, label="the path's fullest buffer"):
     qb, kb, vb = q[None], k[None], v[None]
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         qb, kb, vb, attn_mask=mask, enable_gqa=True)
-    lib_err = float((sdpa()[0][:, real].float()
-                     - want[:, real].float()).abs().max())
-    ms, call_ms = timed_ms(lambda: packed_attention_cuda(q, k, v, seg))
+    lib_err = (float((sdpa()[0][:, real].float()
+                      - want[:, real].float()).abs().max())
+               if softcap is None else float("nan"))
+    ms, call_ms = timed_ms(lambda: packed_attention_cuda(q, k, v, seg,
+                                                         softcap=softcap))
     plain_ms, plain_call = timed_ms(
-        lambda: ref.packed_attention_ref(q, k, v, seg), reps=5)
+        lambda: ref.packed_attention_ref(q, k, v, seg, softcap=softcap),
+        reps=5)
     lib_ms, lib_call = timed_ms(sdpa)
     _, lens = np.unique(seg_np[seg_np >= 0], return_counts=True)
     pairs = hq * int(sum(n * (n + 1) // 2 for n in lens.tolist()))
     n_real = int(real.sum())
     bound, by = attention_bound(pairs, hq, hkv, n_real, C, d,
                                 extra_bytes=4 * C)
-    log(f"serve_prefill ({label}) C={C} hq={hq} hkv={hkv} d={d} bf16, "
+    log(f"serve_prefill ({label}) C={C} hq={hq} hkv={hkv} d={d} softcap="
+        f"{softcap} bf16, "
         f"segments {lens.tolist()} ({n_real} real tokens, {pairs} visible "
         f"pairs over the heads): kernel_ms="
         f"{ms:.4f} (call {call_ms:.4f}) plain_ms={plain_ms:.4f} (call "
-        f"{plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f}) "
+        f"{plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call {lib_call:.4f}"
+        f"{', without the cap' if softcap is not None else ''}) "
         f"bound_ms={bound:.4f} ({by}) share={bound / ms:.4f} {reading} "
         f"(sdpa max abs err on real rows {lib_err:.3e}); bit-identical "
         f"over two calls, pad rows 0")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, max_abs_err=err)
+                library_ms=lib_ms if softcap is None else None,
+                max_abs_err=err)
 
 
 # a full buffer whose requests span the buckets the trace never reaches
@@ -1955,7 +2017,12 @@ def sharded_serve_rank(comm, cfg, weights, trace):
                       "session, no rebalance", prof, wall, top_host=10,
                       top_dev=8, launches=counts)
     out["profile"] = dict(wall=wall, busy=busy)
-    del sess
+    # weights that arrived by CUDA IPC go back to the parent's memory only
+    # once every rank has dropped them before it exits (a rank that exits
+    # holding them leaves them allocated in the parent for good)
+    del sess, model
+    weights.clear()
+    gc.collect()
     return out
 
 
@@ -2079,6 +2146,388 @@ def sharded_serving(serve):
         f"device busy (s) per rank "
         f"{[(o['profile']['wall'], o['profile']['busy']) for o in outs]}")
     return dict(launches=[o["launches"] for o in outs])
+
+
+# ---------------------------------------------------------------------------
+# phases 14-17: the other dense configs and the MoE family at full width
+# ---------------------------------------------------------------------------
+
+# depth kept on one 80 GB card (published widths; every other field as
+# published): the deepest that leaves >= 10 GB free with the float32 head,
+# the KV cache of SERVE_SPEC and the packed prefill's activations
+DEPTH = {"command_r_plus_104b": 14, "phi35_moe_42b": 24, "grok_1_314b": 6}
+# phase 14: sliding window 4096 over a ring of S = 4096 positions; every
+# prompt passes the window, so every decode reads a wrapped ring
+SWA_SPEC = dict(slots=8, groups=4, max_seq=8192, prefill="full",
+                decode="replicated", rebalance="tags", rebalance_every=8)
+SWA_REQUESTS, SWA_PROMPT, SWA_NEW = 8, (4608, 6144), (64, 128)
+SWA_FLASH_S = 6144
+# SMOKE's window is 32: prompts of 48-96 tokens wrap the ring (the
+# reference's chunked attention needs lengths that split into equal
+# attn_chunk chunks)
+RING_BUCKETS = (48, 64, 96)
+GROK_SOFTCAP = 30.0
+
+
+def free_memory():
+    """Drop the previous phase's tensors before the next model is built."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def full_width_model(arch, dev):
+    """``arch``'s published config (depth cut to DEPTH where the card
+    forces it) with random bf16 weights from seed 0 on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    free_memory()
+    full = get_config(arch)
+    cfg = full.replace(use_pallas=True,
+                       n_layers=DEPTH.get(arch, full.n_layers))
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"model {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab} experts="
+        f"{cfg.n_experts} top_k={cfg.top_k} window={cfg.window} softcap="
+        f"{cfg.attn_logit_softcap}: {n} parameters ({memory(dev)[0] / 1e9:.3f}"
+        f" GB on the card), random from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s; card free "
+        f"{memory(dev)[2] / 1e9:.3f} of {memory(dev)[3] / 1e9:.3f} GB")
+    return cfg, model
+
+
+def swa_trace(vocab, seed=14):
+    """SWA_REQUESTS requests two steps apart, prompts of SWA_PROMPT tokens
+    and SWA_NEW new tokens (uniform, seeded)."""
+    import numpy as np
+    from repro_torch.serve.trace import TraceRequest
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SWA_REQUESTS):
+        s = int(rng.integers(SWA_PROMPT[0], SWA_PROMPT[1] + 1))
+        out.append(TraceRequest(
+            rid=i, arrival=2 * i,
+            prompt=rng.integers(0, vocab, s).astype(np.int32),
+            max_new=int(rng.integers(SWA_NEW[0], SWA_NEW[1] + 1))))
+    return out
+
+
+def ring_holds_the_newest(session, S):
+    """Every row of the session's cache holds the newest min(pos, S)
+    positions, each once; returns the rows that hold exactly S."""
+    import torch
+    sp, pos = session.state.stored_pos.cpu(), session.state.pos.cpu()
+    full = 0
+    for r in range(sp.shape[0]):
+        p = int(pos[r])
+        valid = sorted(int(x) for x in sp[r][sp[r] >= 0])
+        check(valid == list(range(max(0, p - S), p)),
+              f"ring row {r}: stored positions are not the newest "
+              f"{min(p, S)} before {p}")
+        check(torch.equal(sp[r][sp[r] >= 0] % S,
+                          torch.nonzero(sp[r] >= 0)[:, 0].to(sp.dtype)),
+              f"ring row {r}: a position is not at its slot pos % S")
+        full += len(valid) == S
+    return full
+
+
+def serve_swa(dev):
+    """Phase 14: h2o-danube3-4b at full width and depth, full prefill with
+    the window binding (prompts of 4,608-6,144 tokens over a ring of
+    4,096), then the flash kernel with the window against its plain
+    version at the path's longest prompt."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve.decode import cache_len
+    cfg, model = full_width_model("h2o_danube3_4b", dev)
+    S = cache_len(cfg, SWA_SPEC["max_seq"])
+    check(S == cfg.window < SWA_PROMPT[0],
+          f"a ring of {S} positions that every prompt wraps")
+    trace = swa_trace(cfg.vocab)
+    log(f"trace: {len(trace)} requests, prompts "
+        f"{[len(r.prompt) for r in trace]}, new tokens "
+        f"{[r.max_new for r in trace]}, ring S={S}")
+    rows = {}
+
+    def inspect(session):
+        rows["full"] = ring_holds_the_newest(session, S)
+
+    keep = lambda q, k, v, **kw: (q.dtype, tuple(q.shape),    # noqa: E731
+                                  kw.get("window"))
+    with recorded_calls(layers, "flash_attention_op", keep) as flash_in:
+        _, _, counts, _, _ = serve_checked(
+            model, cfg, dev, SWA_SPEC, trace,
+            f"{cfg.name}, full prefill, window {cfg.window}", inspect=inspect)
+    log(f"  flash calls (dtype, q shape, window): {sorted(set(flash_in))}")
+    check(counts["flash_attention"] == len(trace) * cfg.n_layers,
+          "one flash launch a layer a prompt")
+    check(len(flash_in) == counts["flash_attention"]
+          and all(dt == torch.bfloat16 and w == cfg.window
+                  and shape[2] > cfg.window for dt, shape, w in flash_in),
+          "a flash launch without the window, or a prompt inside it")
+    check(rows["full"] == SWA_SPEC["slots"],
+          f"{rows['full']} of {SWA_SPEC['slots']} rows hold {S} positions")
+    log(f"  ring: every row holds the newest min(pos, {S}) positions at "
+        f"pos % {S}; {rows['full']} of {SWA_SPEC['slots']} rows hold "
+        f"exactly {S}")
+    del model
+    free_memory()
+    row = compare_flash(dev, SWA_FLASH_S, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                        d=cfg.hd, window=cfg.window)
+    return dict(launches=counts, row=row)
+
+
+def serve_dense_widths(dev):
+    """Phase 15: h2o-danube-1.8b (d = 80) and command-r-plus (hq 96 / hkv
+    8, vocab 256,000; depth cut) over SERVE_TRACE with the config's
+    vocab, packed and full, held against each other as phase 7 does;
+    both attention kernels against their plain versions at each model's
+    heads."""
+    from repro_torch.serve import bursty_trace
+    out = {}
+    for arch in ("h2o_danube_1_8b", "command_r_plus_104b"):
+        cfg, model = full_width_model(arch, dev)
+        trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+        mp, rp, cp, _, recp = serve_checked(model, cfg, dev, SERVE_SPEC,
+                                            trace, f"{cfg.name}, packed",
+                                            record=True)
+        mf, rf, cf, _, recf = serve_checked(
+            model, cfg, dev, dict(SERVE_SPEC, prefill="full"), trace,
+            f"{cfg.name}, full", record=True)
+        compare_recorded(f"{cfg.name}: packed vs full on the card", rp, recp,
+                         rf, recf, BF16_TOL)
+        check(mp["migration_log"] == mf["migration_log"],
+              f"{cfg.name}: packed and full rebalance differently")
+        fullest = max(recp.packs, key=lambda sg: int((sg >= 0).sum()))
+        del model, recp, recf
+        free_memory()
+        heads = dict(hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.hd)
+        rows = {"flash": compare_flash(dev, 1024, window=cfg.window,
+                                       **heads),
+                "packed": compare_packed(dev, fullest,
+                                         f"{cfg.name}'s fullest buffer",
+                                         **heads)}
+        out[arch] = dict(launches={"packed": cp, "full": cf}, rows=rows)
+    return out
+
+
+def moe_routing(model, cfg, dev, trace):
+    """One packed admission (the trace's first eight requests, one buffer)
+    with the input of every MoE layer recorded; per layer, the experts'
+    load imbalance (``dispatch_quality``: max / mean items an expert)
+    and the drop rate (1 - mean keep) over every item of the buffer and
+    over the real tokens' items (pad tokens are routed and take capacity,
+    as in the reference).  Returns layer 0's recorded inputs: the packed
+    buffer's (1, C, d) and the decode step's (slots, 1, d) after it."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeSession, ServeSpec
+    free_memory()
+    rec = Recorder()
+    session = ServeSession(model, cfg, ServeSpec(**SERVE_SPEC), device=dev,
+                           on_logits=rec)
+    for r in trace[:8]:
+        session.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    C = SERVE_SPEC["prefill_capacity"]
+    first = model.layers[0].moe
+    keep = lambda moe, x, cfg: (x.detach().clone()           # noqa: E731
+                                if x.shape[:2] == (1, C) or moe is first
+                                else None)
+    with recorded_calls(transformer, "moe_apply", keep) as seen:
+        session.step()
+    torch.cuda.synchronize()
+    hidden = [h for h in seen if h is not None and h.shape[:2] == (1, C)]
+    decode0 = [h for h in seen if h is not None and h.shape[1] == 1]
+    check(session.prefill_stats["calls"] == 1 and len(rec.packs) == 1
+          and len(hidden) == cfg.n_layers and len(decode0) == 1,
+          "one packed admission and one decode step, one MoE input a layer")
+    real = torch.as_tensor(rec.packs[0] >= 0, device=dev)
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(int(cfg.capacity_factor * C * k / e), 1)
+    lines = []
+    for li, (layer, h) in enumerate(zip(model.layers, hidden)):
+        _, idx, aux = M._route(layer.moe, h, cfg)
+        _, kept = M._dispatch_indices(idx.reshape(1, -1), e, cap)
+        kept = kept.reshape(C, k)
+        q_all = M.dispatch_quality(idx, e)
+        q_real = M.dispatch_quality(idx[0][real], e)
+        lines.append(
+            f"  layer {li:2d}: imbalance {float(q_all.imbalance):.4f} "
+            f"(real tokens {float(q_real.imbalance):.4f}), drop rate "
+            f"{1 - float(kept.float().mean()):.4f} (real tokens "
+            f"{1 - float(kept[real].float().mean()):.4f}), aux "
+            f"{float(aux):.4f}, items per expert "
+            f"{q_all.part_weights.int().tolist()}")
+    log(f"{cfg.name} routing of one packed admission: {int(real.sum())} real "
+        f"tokens of {C} ({C * k} items; capacity {cap} an expert)")
+    for line in lines:
+        log(line)
+    del session
+    return hidden[0], decode0[0]
+
+
+def moe_time_split(moe, h, cfg, label):
+    """Device and call ms of one MoE layer on a recorded input, whole
+    (``moe_apply``) and by piece: the router (``_route``), Algorithm 1's
+    dispatch indices, the scatter into the (E, groups, capacity, d)
+    buffer, the expert products (three float32-accumulated batched
+    products and the activation) and the gather back with the gates.
+    Device ms leaves host dispatch out; call ms keeps it where dispatch
+    outlasts the device work."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import bmm_f32
+    b, s, d = h.shape
+    e, k, act = cfg.n_experts, cfg.top_k, cfg.act_dtype
+    cap = max(int(cfg.capacity_factor * s * k / e), 1)
+    gate, idx, _ = M._route(moe, h, cfg)
+    flat_e = idx.reshape(b, s * k)
+    slot, keep = M._dispatch_indices(flat_e, e, cap)
+    slot = torch.clamp(slot, max=cap - 1).long()
+    group = torch.arange(b, device=h.device)[:, None].expand(b, s * k)
+    tok = torch.arange(s * k, device=h.device) // k
+
+    def scatter():
+        x_disp = torch.zeros((e, b, cap, d), dtype=act, device=h.device)
+        x_disp.index_put_((flat_e, group, slot),
+                          torch.where(keep[..., None], h[:, tok], 0.0),
+                          accumulate=True)
+        return x_disp
+
+    xe = scatter().reshape(e, b * cap, d)
+
+    def experts():
+        hh = torch.nn.functional.silu(bmm_f32(xe, moe.wg)) * bmm_f32(xe,
+                                                                    moe.wi)
+        return bmm_f32(hh.to(act), moe.wo).to(act).reshape(e, b, cap, d)
+
+    y_e = experts()
+
+    def gather():
+        g = torch.where(keep[..., None], y_e[flat_e, group, slot], 0.0)
+        g = g * gate.reshape(b, s * k)[..., None]
+        return g.reshape(b, s, k, d).sum(dim=2).to(act)
+
+    pieces = {"moe_apply": lambda: M.moe_apply(moe, h, cfg),
+              "route": lambda: M._route(moe, h, cfg),
+              "dispatch": lambda: M._dispatch_indices(flat_e, e, cap),
+              "scatter": scatter, "experts": experts, "gather": gather}
+    check(torch.equal(gather(), M.moe_apply(moe, h, cfg)[0]),
+          f"{label}: the pieces do not compose to moe_apply")
+    times = {name: timed_ms(fn, reps=10) for name, fn in pieces.items()}
+    parts = sum(t[0] for n, t in times.items() if n != "moe_apply")
+    flops = 2 * 3 * e * b * cap * d * cfg.d_ff
+    wbytes = 3 * moe.wi.numel() * moe.wi.element_size()
+    log(f"MoE layer time split ({label}: x {tuple(h.shape)}, capacity "
+        f"{cap}, {e} x {b * cap} expert rows): " + ", ".join(
+            f"{n} {t[0]:.4f} ms (call {t[1]:.4f})" for n, t in times.items())
+        + f"; pieces sum to {parts:.4f} ms of device time; the expert "
+        f"products' {flops:.3e} FLOPs take "
+        f"{flops / PEAK_BF16_PER_S * 1e3:.4f} ms at the bf16 peak, their "
+        f"weights' {wbytes / 1e9:.3f} GB {wbytes / PEAK_BYTES_PER_S * 1e3:.4f}"
+        f" ms at the memory rate")
+    return times
+
+
+def moe_layer_check(moe, h, cfg, dev):
+    """Layer 0's MoE on a recorded packed hidden state (bf16, as served)
+    against the same layer in float32 on the card from the same weights
+    upcast: the router is float32 on both sides, so the experts, gates,
+    slots and keep flags are equal; the output is within BF16_TOL of its
+    largest |value| (the bf16 layer rounds h, g's activation and each
+    expert's output once; a rounding that flips moves an output near 0 by
+    more than its own step)."""
+    import torch
+    from repro_torch.models import moe as M
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    m32 = M.MoE(cfg32, dev)
+    with torch.no_grad():
+        for name in ("router", "wi", "wg", "wo"):
+            getattr(m32, name).copy_(getattr(moe, name).float())
+    h32 = h.float()
+    g16, i16, _ = M._route(moe, h, cfg)
+    g32, i32, _ = M._route(m32, h32, cfg32)
+    check(torch.equal(i16, i32) and torch.equal(g16, g32),
+          "one MoE layer: routing differs between bf16 and float32")
+    s = h.shape[1]
+    cap = max(int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts), 1)
+    s16, k16 = M._dispatch_indices(i16.reshape(1, -1), cfg.n_experts, cap)
+    s32, k32 = M._dispatch_indices(i32.reshape(1, -1), cfg.n_experts, cap)
+    check(torch.equal(s16, s32) and torch.equal(k16, k32),
+          "one MoE layer: slot or keep differs")
+    out16, _ = M.moe_apply(moe, h, cfg)
+    out32, _ = M.moe_apply(m32, h32, cfg32)
+    torch.cuda.synchronize()
+    err = float((out16.float() - out32).abs().max())
+    scale = float(out32.abs().max())
+    step = bf16_step(out32)
+    beyond = int(((out16.double() - out32.double()).abs() > step).sum())
+    check(out16.dtype == torch.bfloat16 and err <= BF16_TOL * scale,
+          f"one MoE layer: bf16 off float32 by {err} > {BF16_TOL} * {scale}")
+    log(f"one MoE layer (d={cfg.d_model}, {cfg.n_experts} experts of "
+        f"d_ff={cfg.d_ff}, top {cfg.top_k}, {s} tokens, capacity {cap}): "
+        f"slots and keep equal ({int(k16.sum())} of {k16.numel()} items "
+        f"kept); bf16 against float32 max abs err {err:.4e} = "
+        f"{err / scale:.3e} of max |out| {scale:.4e} (limit {BF16_TOL}); "
+        f"{beyond} of {out16.numel()} elements beyond one bf16 step")
+    del m32
+
+
+def serve_phi(dev):
+    """Phase 16: phi3.5-moe (16 experts, top 2) at full width, depth cut:
+    SERVE_SPEC over SERVE_TRACE (vocab 32,064) packed (the slice's
+    headline path), then full prefill (printed, not compared: expert
+    capacity couples the requests of a packed buffer); the routing of one
+    packed admission per layer; one MoE layer in bf16 against float32."""
+    from repro_torch.serve import bursty_trace
+    cfg, model = full_width_model("phi35_moe_42b", dev)
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    _, _, counts, _, _ = serve_checked(model, cfg, dev, SERVE_SPEC, trace,
+                                       f"{cfg.name}, packed (the MoE path)")
+    _, _, cf, _, _ = serve_checked(model, cfg, dev,
+                                   dict(SERVE_SPEC, prefill="full"), trace,
+                                   f"{cfg.name}, full")
+    h0, d0 = moe_routing(model, cfg, dev, trace)
+    moe_layer_check(model.layers[0].moe, h0, cfg, dev)
+    moe_time_split(model.layers[0].moe, h0, cfg, "packed buffer")
+    moe_time_split(model.layers[0].moe, d0, cfg, "decode step")
+    profile_serving({"model": model, "cfg": cfg, "trace": trace}, dev)
+    del model, h0, d0
+    free_memory()
+    return dict(launches={"packed": counts, "full": cf})
+
+
+def serve_grok(dev):
+    """Phase 17: grok-1 (8 experts of d_ff 32,768, soft cap 30) at full
+    width, depth cut: SERVE_SPEC packed over SERVE_TRACE (vocab 131,072),
+    every packed launch with the cap; the packed kernel with the cap
+    against its plain version on the session's fullest buffer."""
+    from repro_torch.serve import bursty_trace
+    from repro_torch.serve import decode
+    cfg, model = full_width_model("grok_1_314b", dev)
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    keep = lambda q, k, v, seg, **kw: kw.get("softcap")      # noqa: E731
+    with recorded_calls(decode, "packed_attention_op", keep) as caps:
+        _, _, counts, _, rec = serve_checked(model, cfg, dev, SERVE_SPEC,
+                                             trace, f"{cfg.name}, packed",
+                                             record=True)
+    log(f"  serve_prefill soft caps: {sorted(set(caps))} over {len(caps)} "
+        "calls")
+    check(len(caps) == counts["serve_prefill"] and set(caps) == {GROK_SOFTCAP},
+          f"{cfg.name}: a packed launch without the soft cap")
+    fullest = max(rec.packs, key=lambda sg: int((sg >= 0).sum()))
+    del model, rec
+    free_memory()
+    row = compare_packed(dev, fullest, f"{cfg.name}'s fullest buffer",
+                         hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.hd,
+                         softcap=GROK_SOFTCAP)
+    return dict(launches={"packed": counts}, row=row)
 
 
 # ---------------------------------------------------------------------------
@@ -2217,17 +2666,44 @@ def main():
         served = phase("phase 13: sharded serving with KV migration at "
                        "llama3-8b width (main path 4)", sharded_serving,
                        serve)
+        serve.pop("model")          # the card's memory for phases 14-17
+        free_memory()
+        log(f"after freeing phase 6's model: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
+    swa = phase("phase 14: sliding window at h2o-danube3-4b width and depth "
+                "(full prefill over a ring of 4096)", serve_swa, dev)
+    phase("phase 14b: h2o-danube3 SMOKE with a ring, card against CPU",
+          serve_card_vs_cpu, dev, "h2o_danube3_4b", "full", RING_BUCKETS)
+    dense = phase("phase 15: h2o-danube-1.8b and command-r-plus at full "
+                  "width, packed against full", serve_dense_widths, dev)
+    phi = phase("phase 16: phi3.5-moe at full width (the MoE path)",
+                serve_phi, dev)
+    for prefill in ("packed", "full"):
+        phase(f"phase 16b: phi3.5-moe SMOKE {prefill}, card against CPU",
+              serve_card_vs_cpu, dev, "phi35_moe_42b", prefill)
+    grok = phase("phase 17: grok-1 at full width (soft cap 30, packed)",
+                 serve_grok, dev)
+    phase("phase 17b: grok-1 SMOKE packed, card against CPU",
+          serve_card_vs_cpu, dev, "grok_1_314b", "packed")
     log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
-            or served is None or len(rows) < len(REPLACES)):
+            or served is None or None in (swa, dense, phi, grok)
+            or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
     # each path's launches, counted from 0 over its own run; main path
-    # 4's per rank (phase 13's trace)
+    # 4's per rank (phase 13's trace); phases 14-17's per path
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
                 "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
                 "flash_attention": serve["full"][1]["flash_attention"]}
+    paths = {"h2o_danube3_4b full (window 4096)": swa["launches"],
+             **{f"{arch} {mode}": c for arch, d in dense.items()
+                for mode, c in d["launches"].items()},
+             **{f"phi35_moe_42b {mode}": c
+                for mode, c in phi["launches"].items()},
+             "grok_1_314b packed": grok["launches"]["packed"]}
     table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
@@ -2236,7 +2712,8 @@ def main():
                   bound_by=rows[name]["bound_by"],
                   library_ms=rows[name]["library_ms"],
                   launches_sharded_serving=[
-                      r[name] for r in served["launches"]])
+                      r[name] for r in served["launches"]],
+                  launches_by_path={p: c[name] for p, c in paths.items()})
              for name in REPLACES]
     log(json.dumps({"kernels": table}))
     log(card)

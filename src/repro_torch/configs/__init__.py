@@ -2,8 +2,10 @@
 
 Each module exports ``CONFIG`` (the full-scale config) and ``SMOKE`` (a
 reduced config of the same family for CPU tests), verbatim from the JAX
-package.  Only ``llama3_8b`` (the dense family) is ported so far; the
-other nine architectures wait in ROADMAP.md.
+package.  The dense family (``llama3_8b``, the two sliding-window
+``h2o_danube`` configs, ``command_r_plus_104b``) and the MoE family
+(``phi35_moe_42b``, ``grok_1_314b``) are ported; the SSM, hybrid,
+encoder-decoder and VLM architectures wait in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -11,7 +13,15 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCH_IDS = ["llama3_8b"]
+# the JAX package's order, less the architectures not ported yet
+ARCH_IDS = [
+    "grok_1_314b",
+    "phi35_moe_42b",
+    "h2o_danube3_4b",
+    "llama3_8b",
+    "h2o_danube_1_8b",
+    "command_r_plus_104b",
+]
 
 
 def _module(arch: str):

@@ -118,11 +118,14 @@ def _tensor(leaf, device) -> torch.Tensor:
 
 def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
                     ) -> DecoderLM:
-    """A port model holding copies of the JAX package's dense-decoder
-    parameters (``repro.models.init_model``'s tree: ``embed`` {tok,
-    head}, ``layers`` with every leaf stacked over the layers on axis 0,
-    ``ln_f``).  Leaves may be ``Boxed`` or bare arrays; the layouts are
-    the same in both packages, so nothing is transposed."""
+    """A port model holding copies of the JAX package's dense- or
+    MoE-decoder parameters (``repro.models.init_model``'s tree: ``embed``
+    {tok, head}, ``layers`` with every leaf stacked over the layers on
+    axis 0 -- ``mlp`` {wi, wg, wo}, or ``moe`` {router, wi, wg, wo} --
+    and ``ln_f``).  Leaves may be ``Boxed`` or bare arrays; the layouts
+    are the same in both packages, so nothing is transposed.  Every
+    block must have exactly the JAX tree's parameter names, and the
+    tree exactly the block's."""
     model = init_model(cfg, seed=None, device=device)
     dev = model.ln_f.device
     layers = params["layers"]
@@ -133,9 +136,9 @@ def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
         stacked = {
             "ln_attn": _tensor(layers["ln_attn"], dev),
             "ln_mlp": _tensor(layers["ln_mlp"], dev),
-            **{f"attn.{k}": _tensor(v, dev)
-               for k, v in layers["attn"].items()},
-            **{f"mlp.{k}": _tensor(v, dev) for k, v in layers["mlp"].items()},
+            **{f"{part}.{k}": _tensor(v, dev)
+               for part in ("attn", "mlp", "moe") if part in layers
+               for k, v in layers[part].items()},
         }
         for li, block in enumerate(model.layers):
             own = dict(block.named_parameters())

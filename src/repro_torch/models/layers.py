@@ -1,5 +1,6 @@
-"""Shared model layers of the dense decoder: RMSNorm, RoPE, attention,
-SwiGLU MLP, embeddings.  Counterpart of ``repro/models/layers.py``.
+"""Shared model layers of the dense and MoE decoders: RMSNorm, RoPE,
+attention, SwiGLU MLP, embeddings.  Counterpart of
+``repro/models/layers.py``.
 
 Parameters live in ``nn.Module``s with the JAX package's layouts (``wq``
 is (d_model, heads, head_dim), ``wo`` is (heads, head_dim, d_model)), so
@@ -8,15 +9,16 @@ the ``*_apply`` functions take the module and compute.  Matrix products
 accumulate in float32 and round to ``cfg.act_dtype`` -- a bf16
 ``torch.matmul`` does exactly that -- except the LM head, whose logits
 come out of a float32 product as float32 (a bf16 head over 128,256
-entries would tie the argmax).  One difference from the reference: its
-MLP keeps the two up-projections in float32 until after the activation,
-while here they are rounded to ``act_dtype`` first (equal in float32).
+entries would tie the argmax).  The MLP (and the MoE layer's expert
+products, ``models.moe``) keep the up-projections in float32 through
+the activation and round once, as the reference does (``matmul_f32``,
+``bmm_f32``).
 
 Full-sequence attention has the reference's three strategies: chunked
 (online softmax over KV chunks), blocked causal, and the hand-written
 flash kernel (``cfg.use_pallas``; plain ``mha_ref`` on CPU tensors).  The
 reference's tensor-parallel ``shard_map`` branch and M-RoPE are not
-ported (ROADMAP.md, queue 1, items 9 and 10).
+ported (ROADMAP.md, queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def dense_param(shape, dtype: torch.dtype, device, gen=None,
     else:
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        w = (torch.randn(shape, generator=gen, dtype=F32, device=device)
-             * scale).to(dtype)
+        w = torch.randn(shape, generator=gen, dtype=F32,
+                        device=device).mul_(scale).to(dtype)
     return nn.Parameter(w, requires_grad=False)
 
 
@@ -274,7 +276,7 @@ def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU: ``wo(silu(x wg) * (x wi))``.  The dense family's configs all
+    """SwiGLU: ``wo(silu(x wg) * (x wi))``.  The dense and MoE configs all
     use it; GeGLU and the plain GELU MLP belong to the hybrid and
     encoder-decoder families, which are not ported."""
 
@@ -283,7 +285,7 @@ class MLP(nn.Module):
         if cfg.mlp_act != "silu":
             raise NotImplementedError(
                 f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP.md, "
-                "queue 1, item 10); the dense family uses 'silu'")
+                "queue 1, item 10); the ported families use 'silu'")
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.p_dtype
         self.wi = dense_param((d, f), dt, device, gen)
         self.wg = dense_param((d, f), dt, device, gen)
@@ -302,6 +304,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         y = torch.mm(x2.to(F32), w.to(F32))
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (n, i, k) @ b (n, k, j)`` with a float32 result, as
+    ``matmul_f32``: on the card bf16 operands go to ``torch.bmm(...,
+    out_dtype=float32)``; the CPU upcasts them first."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.bmm(a.to(F32), b.to(F32))
 
 
 def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

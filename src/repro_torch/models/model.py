@@ -1,4 +1,5 @@
-"""Model registry: family -> init.  Only the dense family is ported."""
+"""Model registry: family -> init.  The dense and MoE families are
+ported."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -9,6 +10,10 @@ from ..device import resolve_device
 from . import transformer as T
 from .config import ModelConfig
 
+#: the families ``init_model`` builds (the reference's decoder families,
+#: less the VLM front end)
+FAMILIES = ("dense", "moe")
+
 
 def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
                ) -> T.DecoderLM:
@@ -17,10 +22,10 @@ def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
     same seed gives other numbers on another device); ``seed=None`` leaves
     the weights uninitialised, to be loaded."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 10); the port runs the dense family")
+            f"item 10); the port runs the families {FAMILIES}")
     gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return T.DecoderLM(cfg, dev, gen)

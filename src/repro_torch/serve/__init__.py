@@ -1,6 +1,6 @@
 """Serving: prefill / decode, KV-cache slots, continuous batching with
-load-balanced request groups (the dense family), on one device or over a
-process group of one rank per group with KV-slot migration.
+load-balanced request groups (the dense and MoE families), on one device
+or over a process group of one rank per group with KV-slot migration.
 
 Build a ``ServeSpec`` and hand it with a model to ``ServeSession``;
 ``repro_torch.serve.trace`` gives seeded bursty arrival traces and the

@@ -1,10 +1,16 @@
-"""Prefill and single-token decode for the dense decoder.
+"""Prefill and single-token decode for the KV-cache families (dense and
+MoE decoders).
 
-Counterpart of the dense part of ``repro/serve/decode.py``.  The KV cache
-layout is the reference's: k / v (L, b, hkv, S, hd) with ``stored_pos``
-(b, S) the absolute position each cache slot holds (-1 empty) and ``pos``
-(b,) the next position; S = min(window, max_seq) makes a ring buffer for
-sliding-window models.
+Counterpart of the dense / MoE part of ``repro/serve/decode.py``.  The
+blocks' second half is ``models.transformer.block_ffn`` (MLP or MoE);
+an MoE block routes each batch row as its own group, so a decode row, a
+full prefill's prompt and the whole packed buffer (pad tokens included)
+are each one group.
+
+The KV cache layout is the reference's: k / v (L, b, hkv, S, hd) with
+``stored_pos`` (b, S) the absolute position each cache slot holds (-1
+empty) and ``pos`` (b,) the next position; S = min(window, max_seq)
+makes a ring buffer for sliding-window models.
 
 The reference's caches are immutable pytrees; here ``KVCache`` is updated
 in place (``decode_step``, ``reset_slot``, ``write_slot``), since a copy
@@ -12,8 +18,8 @@ of a full-width cache is gigabytes.  So nothing may keep a second
 reference to a cache and expect it unchanged: ``reset_slot`` writes the
 empty values directly instead of copying them from a pristine cache.
 
-The SSM, hybrid and encoder-decoder families wait (ROADMAP.md, queue 1,
-items 10 and 11).
+The SSM, hybrid, encoder-decoder and VLM families wait (ROADMAP.md,
+queue 1, items 10 and 11).
 """
 from __future__ import annotations
 
@@ -26,11 +32,14 @@ from ..kernels.ops import packed_attention_op
 from ..models.config import ModelConfig
 from ..models.layers import (apply_rope, attention_apply, attention_decode,
                              embed_tokens, lm_logits, merge_heads,
-                             mlp_apply, project_heads, rmsnorm)
-from ..models.transformer import DecoderLM
+                             project_heads, rmsnorm)
+from ..models.transformer import DecoderLM, block_ffn
 
-FAMILY_TODO = ("family {!r} cannot be served yet: the port serves the dense "
-               "family (ROADMAP.md, queue 1, items 10 and 11)")
+#: the families whose serving state is a ``KVCache``
+KV_FAMILIES = ("dense", "moe")
+FAMILY_TODO = ("family {!r} cannot be served yet: the port serves the "
+               "KV-cache families " + str(KV_FAMILIES) + " (ROADMAP.md, "
+               "queue 1, items 10 and 11)")
 
 
 @dataclasses.dataclass
@@ -41,8 +50,8 @@ class KVCache:
     pos: torch.Tensor          # (b,) int32 next position
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _kv_family(cfg: ModelConfig) -> None:
+    if cfg.family not in KV_FAMILIES:
         raise NotImplementedError(FAMILY_TODO.format(cfg.family))
 
 
@@ -79,12 +88,8 @@ def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
     return cache
 
 
-def _block_mlp(layer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-
-
 # ---------------------------------------------------------------------------
-# dense decoder
+# dense / MoE decoder
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
@@ -104,7 +109,7 @@ def decoder_prefill(model: DecoderLM, tokens: torch.Tensor,
                                     return_kv=True)
         ks.append(k)
         vs.append(v)
-        x = _block_mlp(layer, x + y, cfg)
+        x = block_ffn(layer, x + y, cfg)
     x = rmsnorm(x, model.ln_f)
     logits = lm_logits(model.embed, x[:, -1])
 
@@ -143,7 +148,7 @@ def decoder_decode_step(model: DecoderLM, cache: KVCache,
             stored_pos=cache.stored_pos, pos=cache.pos)
         ks.append(k_new)
         vs.append(v_new)
-        x = _block_mlp(layer, x + y, cfg)
+        x = block_ffn(layer, x + y, cfg)
     x = rmsnorm(x, model.ln_f)
     logits = lm_logits(model.embed, x)
     _write_slot(cache, torch.stack(ks), torch.stack(vs))
@@ -180,7 +185,7 @@ def packed_prefill(model: DecoderLM, tokens: torch.Tensor, seg: torch.Tensor,
     float32, ks, vs) with ks / vs the rope'd unexpanded K/V of every
     layer, (L, hkv, C, hd), for the paged slot scatter
     (``slots.make_paged_insert``)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     x = embed_tokens(model.embed, tokens[None], cfg)        # (1, C, d)
     C = tokens.shape[0]
     shape = (cfg.n_layers, cfg.n_kv_heads, C, cfg.hd)
@@ -193,19 +198,19 @@ def packed_prefill(model: DecoderLM, tokens: torch.Tensor, seg: torch.Tensor,
                                       use_pallas=use_pallas)
         ks[li] = k
         vs[li] = v
-        x = _block_mlp(layer, x + y, cfg)
+        x = block_ffn(layer, x + y, cfg)
     x = rmsnorm(x, model.ln_f)
     logits = lm_logits(model.embed, x[0, last_idx.long()])
     return logits, ks, vs
 
 
 # ---------------------------------------------------------------------------
-# dispatch by family (the dense family only)
+# dispatch by family (the KV-cache families only)
 # ---------------------------------------------------------------------------
 
 def prefill(model: DecoderLM, batch: Dict, cfg: ModelConfig, *,
             max_seq: int) -> Tuple[torch.Tensor, KVCache]:
-    _dense_only(cfg)
+    _kv_family(cfg)
     if batch.get("patch_embeds") is not None:
         raise NotImplementedError(FAMILY_TODO.format("vlm"))
     return decoder_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
@@ -213,7 +218,7 @@ def prefill(model: DecoderLM, batch: Dict, cfg: ModelConfig, *,
 
 def decode_step(model: DecoderLM, state: KVCache, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
-    _dense_only(cfg)
+    _kv_family(cfg)
     return decoder_decode_step(model, state, tokens, cfg)
 
 
@@ -222,7 +227,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
     """The reference's dry-run state: every row's positions pre-wound
     (``pos = max_seq - 1``, ``stored_pos = arange(S)``) over zero K/V.
     The 'cheap' prefill oracle starts from it."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     c = init_kv_cache(cfg, batch, max_seq, device=device)
     c.pos.fill_(max_seq - 1)
     c.stored_pos.copy_(torch.arange(c.k.shape[3], dtype=torch.int32,
@@ -234,7 +239,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                      device) -> KVCache:
     """Empty decode state: pos = 0, no stored positions (the 'full' and
     'packed' prefills seed each row)."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     return init_kv_cache(cfg, batch, max_seq, device=device)
 
 
@@ -248,7 +253,7 @@ def reset_slot(state: KVCache, i: int, cfg: ModelConfig, *,
     admitting a new request without clearing them leaks the old context
     into its attention.  The reference copies the row from a pristine
     state; here the values are written directly."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     state.k[:, i].zero_()
     state.v[:, i].zero_()
     if wound_to is None:

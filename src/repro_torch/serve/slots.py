@@ -32,7 +32,7 @@ import torch
 
 from ..distributed.migrate import migrate_items
 from ..models.config import ModelConfig
-from .decode import KVCache, _dense_only, decode_step
+from .decode import KVCache, _kv_family, decode_step
 
 # the slot axis of each field: k / v are (L, b, hkv, S, hd)
 _KV_AXES = KVCache(k=1, v=1, stored_pos=0, pos=0)
@@ -43,7 +43,7 @@ MIGRATE_CHUNK_BYTES = 1 << 28
 
 def slot_axes(cfg: ModelConfig) -> KVCache:
     """Slot-axis index of each field of the serving state."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     return _KV_AXES
 
 
@@ -96,7 +96,7 @@ def make_sharded_decode(cfg: ModelConfig, comm):
     Returns ``decode(model, state, tokens) -> (logits, next_tokens)``
     with the logits of this rank's rows and ``next_tokens`` of every
     slot."""
-    _dense_only(cfg)
+    _kv_family(cfg)
 
     def decode(model, state: KVCache, tokens: torch.Tensor):
         logits, _ = decode_step(model, state, tokens, cfg)
@@ -126,7 +126,7 @@ def make_paged_insert(cfg: ModelConfig, comm=None, *, total_slots: int,
     instead, so the other pages are masked explicitly.  Returns
     ``insert(state, pk, pv, page_slot, page_dst, written, slen)``, which
     updates ``state`` in place."""
-    _dense_only(cfg)
+    _kv_family(cfg)
     n_pages = capacity // page_size
     base = 0
     if comm is not None:
@@ -185,7 +185,7 @@ class SlotMigrator:
     def __init__(self, cfg: ModelConfig, comm, axes: KVCache,
                  state_template: KVCache, *,
                  chunk_bytes: int = MIGRATE_CHUNK_BYTES):
-        _dense_only(cfg)
+        _kv_family(cfg)
         self.comm, self.axes = comm, axes
         self.groups = comm.size
         self.spg = n_slots_of(state_template, axes)

@@ -407,9 +407,20 @@ def slot_migrations(comm, cfg, arrays, moves, chunk_bytes):
     return out
 
 
-def serve_world(comm, cfg, weights, prompts, migration_case):
+# the MoE case: sharded decode (a rank's rows, each its own routing
+# group) with KV rebalancing, against the replicated session
+MOE_SPEC = dict(SERVE_BASE, max_seq=64, rebalance_every=4)
+
+
+def moe_requests(Request, prompts):
+    return [Request(rid=i, prompt=p, max_new=3 + 3 * (i % 4))
+            for i, p in enumerate(prompts)]
+
+
+def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None):
     """Every scenario of this world's group count on the port's sharded
-    session, then (at 4 groups) the slot migrator alone."""
+    session, then (at 4 groups) the slot migrator alone and, with
+    ``moe_case`` = (cfg, weights, prompts), an MoE model's session."""
     from repro_torch.models import model_from_tensors
     from repro_torch.serve import Request, ServeSession, ServeSpec
     model = model_from_tensors(cfg, {k: torch.as_tensor(v)
@@ -422,4 +433,10 @@ def serve_world(comm, cfg, weights, prompts, migration_case):
     out = {"scenarios": serve_scenarios(make, Request, prompts, comm.size)}
     if migration_case is not None:
         out["migration"] = slot_migrations(comm, cfg, *migration_case)
+    if moe_case is not None:
+        mcfg, mweights, mprompts = moe_case
+        moe = model_from_tensors(mcfg, {k: torch.as_tensor(v)
+                                        for k, v in mweights.items()})
+        sess = ServeSession(moe, mcfg, ServeSpec(**MOE_SPEC), comm=comm)
+        out["moe"] = _run_all(sess, moe_requests(Request, mprompts), 128)
     return out

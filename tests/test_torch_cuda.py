@@ -514,6 +514,9 @@ def _qkv(rng, qshape, kshape, dtype, device):
     (1, 6, 2, 130, 100, True, 40),         # window, d not a multiple of 32
     (1, 2, 1, 1, 8, True, None),           # one token
     (1, 4, 1, 96, 32, False, 17),          # window without causal
+    (1, 8, 2, 300, 120, True, 64),         # danube3's head dim, a window
+    (1, 8, 2, 300, 80, True, 64),          # danube-1.8b's head dim
+    (1, 24, 2, 200, 128, True, None),      # command-r's GQA group of 12
 ])
 def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
                                       window):
@@ -567,6 +570,9 @@ def _pack(rng, C, lengths, gap):
     (1000, 8, 2, 128, (1000,), 0, None),          # one request, ragged C
     (200, 8, 2, 72, (63, 65, 1, 40), 0, None),    # requests straddle tiles
     (513, 4, 4, 128, (64, 64, 64), 130, 10.0),    # pad-only tiles between
+    (512, 8, 2, 80, (200, 100, 150), 4, None),    # d 80 (danube-1.8b)
+    (512, 8, 2, 80, (300, 190), 0, 30.0),         # d 80 with a soft cap
+    (2048, 48, 8, 128, (128,) * 7, 0, 30.0),      # grok's heads and cap
 ])
 def test_packed_attention_kernel_close(cuda, dtype, C, hq, hkv, d, lengths,
                                        gap, softcap):
@@ -742,6 +748,109 @@ def test_serve_session_on_card_matches_cpu(cuda, prefill):
         m = run_trace(sess, bursty_trace(16, seed=3, vocab=cfg.vocab,
                                          prompt_buckets=(8, 16, 32),
                                          max_new_cap=12))
+        if dev != "cpu":
+            name = "serve_prefill" if prefill == "packed" else "flash_attention"
+            assert ops.launch_counts()[name] > 0
+        outs.append([r.out for r in reqs])
+        logs.append(m["migration_log"])
+    assert outs[0] == outs[1]
+    assert logs[0] == logs[1]
+
+
+# --- the MoE layer and the other architectures on the card --------------------
+
+def _moe_pair(cuda, dtype):
+    """An MoE layer of phi3.5-moe SMOKE's shape (16 experts, top 2) with
+    seeded weights on the CPU and a copy on the card; capacity 0.5 drops
+    items."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.moe import MoE
+    cfg = get_smoke("phi35_moe_42b").replace(dtype=dtype, param_dtype=dtype,
+                                             capacity_factor=0.5)
+    cpu = MoE(cfg, "cpu", torch.Generator().manual_seed(31))
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def test_moe_apply_float32_on_card_matches_cpu(cuda):
+    """Routing, dispatch and the expert products on the card equal the CPU's
+    within float32 rounding (1e-5 of the largest output), with the same
+    expert choices."""
+    from repro_torch.models import moe
+    cfg, cpu, card = _moe_pair(cuda, "float32")
+    x = torch.randn((3, 40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(32))
+    gc, ic, _ = moe._route(card, x.to(cuda), cfg)
+    gp, ip, _ = moe._route(cpu, x, cfg)
+    assert torch.equal(ic.cpu(), ip)
+    got, aux = moe.moe_apply(card, x.to(cuda), cfg)
+    want, aux_cpu = moe.moe_apply(cpu, x, cfg)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5
+
+
+def test_moe_apply_bf16_on_card_matches_cpu(cuda):
+    """bf16 expert weights go straight into float32 products on the card
+    (``torch.bmm(..., out_dtype=float32)``); the CPU upcasts them.  The
+    router is float32 on both sides, so the experts, slots and keep flags
+    are equal; each expert product within 1e-5 of its largest value; the
+    layer's output within 0.02 of its largest |value| (an activation
+    rounded to the neighbouring bf16 value on one side moves an output
+    near 0 by more than its own step)."""
+    from repro_torch.models import layers, moe
+    cfg, cpu, card = _moe_pair(cuda, "bfloat16")
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(33)).to(torch.bfloat16)
+    _, ic, _ = moe._route(card, x.to(cuda), cfg)
+    _, ip, _ = moe._route(cpu, x, cfg)
+    assert torch.equal(ic.cpu(), ip)
+    cap = max(int(cfg.capacity_factor * 64 * cfg.top_k / cfg.n_experts), 1)
+    sc, kc = moe._dispatch_indices(ic.reshape(2, -1), cfg.n_experts, cap)
+    sp, kp = moe._dispatch_indices(ip.reshape(2, -1), cfg.n_experts, cap)
+    assert torch.equal(sc.cpu(), sp) and torch.equal(kc.cpu(), kp)
+    assert not bool(kp.all())
+    xe = x[0, :32].expand(cfg.n_experts, 32, cfg.d_model).contiguous()
+    got = layers.bmm_f32(xe.to(cuda), card.wi)
+    want = layers.bmm_f32(xe, cpu.wi)
+    assert got.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    out, _ = moe.moe_apply(card, x.to(cuda), cfg)
+    ref, _ = moe.moe_apply(cpu, x, cfg)
+    assert out.dtype == torch.bfloat16
+    err = float((out.cpu().float() - ref.float()).abs().max())
+    assert err <= 0.02 * float(ref.float().abs().max()), err
+
+
+@pytest.mark.parametrize("arch,prefill,buckets", [
+    ("phi35_moe_42b", "packed", (8, 16, 32)),
+    ("grok_1_314b", "packed", (8, 16, 32)),
+    ("h2o_danube3_4b", "full", (48, 64, 96)),      # prompts wrap the ring
+])
+def test_serve_session_on_card_matches_cpu_at_smoke(cuda, arch, prefill,
+                                                     buckets):
+    """The other families' SMOKE sessions in float32, the kernels on the
+    card against the plain versions on the CPU: the same tokens and
+    rebalances."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.serve import (ServeSession, ServeSpec, bursty_trace,
+                                   run_trace)
+    cfg = get_smoke(arch).replace(use_pallas=True)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    kw = dict(slots=8, groups=4, max_seq=128, prefill=prefill,
+              prefill_capacity=128, page_size=16, decode="replicated",
+              rebalance="tags", rebalance_every=4)
+    outs, logs = [], []
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        sess = ServeSession(model, cfg, ServeSpec(**kw), device=dev)
+        reqs, submit = [], sess.submit
+        sess.submit = lambda r: (reqs.append(r), submit(r))[1]
+        ops.reset_launch_counts()
+        m = run_trace(sess, bursty_trace(12, seed=1, vocab=cfg.vocab,
+                                         prompt_buckets=buckets,
+                                         max_new_cap=16))
         if dev != "cpu":
             name = "serve_prefill" if prefill == "packed" else "flash_attention"
             assert ops.launch_counts()[name] > 0

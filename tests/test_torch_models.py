@@ -66,11 +66,16 @@ def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
-@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
-def test_config_verbatim_with_the_same_size(which):
+CONFIG_CASES = [pytest.param(which, arch, id=which if arch == "llama3_8b"
+                             else f"{which}-{arch}")
+                for arch in configs.ARCH_IDS for which in ("CONFIG", "SMOKE")]
+
+
+@pytest.mark.parametrize("which,arch", CONFIG_CASES)
+def test_config_verbatim_with_the_same_size(which, arch):
     get = "get_config" if which == "CONFIG" else "get_smoke"
-    j = getattr(jconfigs, get)("llama3_8b")
-    t = getattr(configs, get)("llama3_8b")
+    j = getattr(jconfigs, get)(arch)
+    t = getattr(configs, get)(arch)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == [
         f.name for f in dataclasses.fields(type(j))]
     assert _fields(t) == _fields(j)
@@ -78,12 +83,15 @@ def test_config_verbatim_with_the_same_size(which):
     assert t.n_active_params() == j.n_active_params()
     assert t.act_dtype == getattr(torch, j.dtype)
     assert t.replace(n_layers=3).n_params() == j.replace(n_layers=3).n_params()
-    if which == "CONFIG":
+    if which == "CONFIG" and arch == "llama3_8b":
         assert abs(t.n_params() - 8.03e9) < 0.01e9
 
 
 def test_unported_architectures_name_the_roadmap():
-    assert configs.ARCH_IDS == ["llama3_8b"]
+    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS if a in (
+        "grok_1_314b", "phi35_moe_42b", "h2o_danube3_4b", "llama3_8b",
+        "h2o_danube_1_8b", "command_r_plus_104b")]
+    assert len(configs.ARCH_IDS) == 6
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_config("mamba2_1_3b")
 

@@ -181,6 +181,52 @@ def test_session_matches_reference(tiny, prefill):
     assert tr["compiles"] == 0 and sess.compile_count() == 0
 
 
+# --- the other ported architectures at SMOKE ---------------------------------
+# (arch, prefill, trace keywords): the MoE family packed against packed and
+# full against full (expert capacity couples the requests of one packed
+# buffer, so the two prefills give different tokens in the reference
+# itself), danube3 with a binding ring (window 32 < prompts of 48-96;
+# packed prefill refuses a ring), command-r packed.
+ARCH_SPEC = dict(slots=8, groups=4, max_seq=128, rebalance_every=4,
+                 decode="replicated", rebalance="tags")
+ARCH_TRACE = dict(seed=1, prompt_buckets=(8, 16, 32), max_new_cap=16)
+RING_TRACE = dict(seed=1, prompt_buckets=(48, 64, 96), max_new_cap=16)
+ARCH_CASES = [("phi35_moe_42b", "packed", ARCH_TRACE),
+              ("phi35_moe_42b", "full", ARCH_TRACE),
+              ("grok_1_314b", "packed", ARCH_TRACE),
+              ("grok_1_314b", "full", ARCH_TRACE),
+              ("h2o_danube3_4b", "full", RING_TRACE),
+              ("command_r_plus_104b", "packed", ARCH_TRACE)]
+
+
+@pytest.mark.parametrize("arch,prefill,trace_kw", ARCH_CASES,
+                         ids=[f"{a}-{p}" for a, p, _ in ARCH_CASES])
+def test_session_matches_reference_at_smoke(arch, prefill, trace_kw):
+    jcfg, cfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    params = j_init_model(jcfg, jax.random.PRNGKey(0))
+    model = params_from_jax(params, cfg, device="cpu")
+    kw = dict(ARCH_SPEC, prefill=prefill)
+    if prefill == "packed":
+        kw.update(prefill_capacity=128, page_size=16)
+    jsess = JSession(params, jcfg, JSpec(**kw))
+    jr, jreqs = _drive(jsess, j_bursty_trace(12, vocab=cfg.vocab,
+                                             **trace_kw), j_run_trace)
+    sess = ServeSession(model, cfg, ServeSpec(**kw), device="cpu")
+    tr, treqs = _drive(sess, bursty_trace(12, vocab=cfg.vocab, **trace_kw),
+                       run_trace)
+    assert [r.rid for r in treqs] == [r.rid for r in jreqs]
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+    assert [r.group for r in treqs] == [r.group for r in jreqs]
+    assert tr["migration_log"] == jr["migration_log"]
+    assert len(tr["migration_log"]) >= 2
+    assert sess.prefill_stats == jsess.prefill_stats
+    if cfg.window is not None:      # every prompt wrapped the ring
+        assert sess.state.k.shape[3] == cfg.window
+        assert min(len(r.prompt) for r in treqs) > cfg.window
+        assert np.array_equal(sess.state.stored_pos.numpy(),
+                              np.asarray(jsess.state.stored_pos))
+
+
 def test_packed_and_full_give_the_same_tokens(tiny):
     _, cfg, _, model = tiny
     outs = {}

@@ -31,6 +31,8 @@ from repro.serve.slots import SlotMigrator as JSlotMigrator
 from repro.serve.slots import build_serve_mesh, slot_axes as j_slot_axes
 from repro_torch import configs
 from repro_torch.interop import params_from_jax
+from repro_torch.models import init_model
+from repro_torch.serve import Request, ServeSession, ServeSpec
 
 import _torch_world as W
 
@@ -71,17 +73,29 @@ def tiny():
     return jcfg, cfg, params, model, weights
 
 
-def _port_worlds(cfg, weights, tmp_path_factory):
+@pytest.fixture(scope="module")
+def moe_case():
+    """phi3.5-moe SMOKE, seeded port weights, ten prompts of 5-12 tokens."""
+    cfg = configs.get_smoke("phi35_moe_42b")
+    model = init_model(cfg, seed=0, device="cpu")
+    weights = {k: v.numpy() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab, 5 + i % 8) for i in range(10)]
+    return cfg, weights, prompts, model
+
+
+def _port_worlds(cfg, weights, moe_case, tmp_path_factory):
     """{groups: [rank 0's results, rank 1's, ...]} from one world each."""
     prompts = _prompts(cfg.vocab)
     return {p: W.world(W.serve_world, cfg, weights, prompts,
                        _migration_case(cfg) if p == 4 else None,
+                       moe_case[:3] if p == 4 else None,
                        tmp_path=tmp_path_factory.mktemp(f"serve{p}"), p=p)
             for p in (4, 2)}
 
 
 @pytest.fixture(scope="module")
-def runs(tiny, tmp_path_factory):
+def runs(tiny, moe_case, tmp_path_factory):
     """The port's worlds (in a thread: the ranks are processes) while the
     JAX package runs the same scenarios here."""
     jcfg, cfg, params, _, weights = tiny
@@ -91,7 +105,8 @@ def runs(tiny, tmp_path_factory):
         return JSession(params, jcfg, JSpec(**{**W.SERVE_BASE, **kw}))
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        worlds = pool.submit(_port_worlds, cfg, weights, tmp_path_factory)
+        worlds = pool.submit(_port_worlds, cfg, weights, moe_case,
+                             tmp_path_factory)
         reference = {p: W.serve_scenarios(make, JRequest, prompts, p)
                      for p in (4, 2)}
         return worlds.result(), reference
@@ -201,6 +216,24 @@ def test_deferred_move_is_retried_first(port):
     assert res["kept"] == {lo_rid: 1}
     assert res["second"] == ([(lo_slot, res["hi_slot"])], {}, 1)
     assert res["kept_after"] == {}
+
+
+def test_moe_sharded_decode_equals_replicated(port, moe_case):
+    """An MoE model served with sharded decode (each rank decodes its own
+    rows; a decode row is its own routing group, s = 1) and KV
+    rebalancing gives the replicated session's tokens, on every rank,
+    while its rebalances migrate KV slots.  (Groups may differ from the
+    replicated session's tags: a KV move into a full group is deferred.)"""
+    cfg, _, prompts, model = moe_case
+    spec = dict(W.MOE_SPEC, decode="replicated", rebalance="tags")
+    sess = ServeSession(model, cfg, ServeSpec(**spec), device="cpu")
+    want = W._run_all(sess, W.moe_requests(Request, prompts), 128)
+    assert all(want["done"])
+    first = port[4][0]["moe"]
+    assert all(first["done"]) and first["out"] == want["out"]
+    for res in port[4][1:]:
+        assert res["moe"] == first
+    assert sum(first["migrations"]) >= 1
 
 
 def _j_migrate(tiny, arrays, moves):
