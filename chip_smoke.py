@@ -94,10 +94,28 @@ CUDA toolkit's nvcc.  It
     cap at every packed launch, and holds the capped packed kernel
     against its plain version on the session's fullest buffer; SMOKE
     card against CPU;
-18. prints the kernel table as one JSON line (with each rank's launches
-    on main path 4 as ``launches_sharded_serving`` and each path of
-    phases 14-17 in ``launches_by_path``), the card's name and power
-    limit, and ``{"ok": true, ...}`` as the last line.
+18. serves mamba2-1.3b at full width and depth (48 layers) with full
+    prefill over the trace of phase 6 (vocab 50,280) and over phase
+    14's long prompts (max_seq 8,192): no attention kernel runs, the
+    balancer's histogram is held against its plain version on every
+    input; prints the slot bytes as built (the reference's count) and
+    after decode (float32 conv windows); the SMOKE config card against
+    CPU; then (18b) phase 13's machinery at mamba2 width with full
+    prefill: 4 ranks, weights by CUDA IPC, tokens against phase 18's
+    replicated run up to a near-tie, a forced migration against the
+    unmoved run bit for bit, moved bytes against the reference's count;
+19. serves recurrentgemma-2b at full width and depth (26 layers, 8 of
+    them local attention at d = 256 over 10 / 1 heads) with full prefill
+    over phase 14's long prompts and a ring of 2,048 (every ring row
+    checked in every attention layer, every flash launch on the tensor
+    cores with the window) and over phase 6's trace; holds the flash
+    kernel at d = 256 against its plain version at s = 6,144 with SDPA's
+    time beside it; the SMOKE config with a ring, card against CPU;
+20. prints the kernel table as one JSON line (with each rank's launches
+    on main path 4 as ``launches_sharded_serving``, each path of phases
+    14-19 in ``launches_by_path`` and the flash kernel's d = 256 reading
+    as ``at_head_dim_256``), the card's name and power limit, and
+    ``{"ok": true, ...}`` as the last line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
@@ -313,6 +331,42 @@ def trace_summary(label, prof, wall_s, top_host=8, top_dev=5,
         for name, (t, c) in sorted(table.items(), key=lambda kv: -kv[1][0]
                                    )[:top]:
             log(f"  {kind} {t / 1e3:10.3f} ms  x{c:<6d} {name[:90]}")
+
+
+def kernel_name(mangled):
+    """A kernel's identifier and template arguments from its mangled name
+    (an identifier ending in ``kernel``, after its length in digits)."""
+    import re
+    for m in re.finditer(r"kernel", mangled):
+        end = m.end()
+        for start in range(end - 6, 0, -1):
+            for k in (1, 2, 3):
+                digits = mangled[max(start - k, 0):start]
+                if digits.isdigit() and int(digits) == end - start:
+                    args = re.match(r"I\w*?E(?=E*v)", mangled[end:])
+                    return mangled[start:end] + (args.group() if args
+                                                 else "")
+    return mangled[:60]
+
+
+def kernel_resources(build_log):
+    """One line a compiled kernel from nvcc's ``-Xptxas=-v`` output: the
+    source, the kernel (``kernel_name``), registers, spill bytes and
+    shared memory."""
+    out, source, name, spill = [], "?", None, ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if line.startswith("== "):
+            source = line[3:].split(" ")[0]
+        elif "Function properties for" in line:
+            name = kernel_name(line.split("Function properties for ")[-1])
+        elif "spill" in line:
+            spill = line
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{source} {name}: {line.split(': ', 1)[-1]}; "
+                       f"{spill}")
+            name = None
+    return out
 
 
 def nvidia_smi_line():
@@ -1441,23 +1495,31 @@ def log_serve(label, m, counts, peak):
 def serve_checked(model, cfg, dev, spec_kw, trace, label, **kw):
     """``serve_run`` with the balancer's histogram inputs recorded; logs
     the run and checks that the prefill's attention kernel ran on the
-    tensor cores at every launch and that the histogram kernel equals its
-    plain version on every input the balancer handed it.  Returns what
-    ``serve_run`` returns."""
+    tensor cores at every launch (the SSM family has no attention: none
+    may run) and that the histogram kernel equals its plain version on
+    every input the balancer handed it.  Returns what ``serve_run``
+    returns."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.serve_prefill import packed_attention_cuda
     with recorded_hist_inputs() as hist_in:
         out = serve_run(model, cfg, dev, spec_kw, trace, **kw)
     m, _, counts, peak, _ = out
-    name, wrapper = (("serve_prefill", packed_attention_cuda)
-                     if spec_kw["prefill"] == "packed"
-                     else ("flash_attention", flash_attention_cuda))
-    variants = dict(wrapper.variants)
     log_serve(label, m, counts, peak)
-    log(f"  {name} launches by variant: {variants}")
-    check(counts[name] > 0 and variants["bf16_tensor_core"] == counts[name],
-          f"{label}: {name} did not run on the tensor cores at every "
-          f"launch ({counts[name]} launches, {variants})")
+    if cfg.family == "ssm":
+        # the path's kernel is the balancer's histogram
+        check(counts["flash_attention"] == counts["serve_prefill"] == 0
+              and counts["ksection_hist"] > 0,
+              f"{label}: the SSM path launched {counts}")
+    else:
+        name, wrapper = (("serve_prefill", packed_attention_cuda)
+                         if spec_kw["prefill"] == "packed"
+                         else ("flash_attention", flash_attention_cuda))
+        variants = dict(wrapper.variants)
+        log(f"  {name} launches by variant: {variants}")
+        check(counts[name] > 0
+              and variants["bf16_tensor_core"] == counts[name],
+              f"{label}: {name} did not run on the tensor cores at every "
+              f"launch ({counts[name]} launches, {variants})")
     check_hist_agreement(hist_agreement(hist_in), counts["ksection_hist"],
                          f"  the serving balancer ({label})")
     return out
@@ -1530,7 +1592,7 @@ def serve_full_width(dev):
 
 def serve_card_vs_cpu(dev, arch="llama3_8b", prefill="packed",
                       buckets=SMOKE_TRACE["prompt_buckets"]):
-    """Phase 8 (and the SMOKE checks of phases 14-17): ``arch``'s SMOKE
+    """Phase 8 (and the SMOKE checks of phases 14-19): ``arch``'s SMOKE
     config in float32, the same port weights on both sides; the session
     (``prefill``, prompts snapped to ``buckets``) with the kernels on the
     card against the plain versions on the CPU."""
@@ -1548,7 +1610,8 @@ def serve_card_vs_cpu(dev, arch="llama3_8b", prefill="packed",
                                     record=True)
     mb, rb, _, _, recb = serve_run(cpu_model, cfg, "cpu", spec, trace,
                                    record=True)
-    kernel = "serve_prefill" if prefill == "packed" else "flash_attention"
+    kernel = ("serve_prefill" if prefill == "packed" else
+              "ksection_hist" if cfg.family == "ssm" else "flash_attention")
     check(ca[kernel] > 0, f"smoke {arch}: {kernel} was not launched")
     compare_recorded(f"smoke {arch} {prefill} card vs CPU (float32)", ra,
                      reca, rb, recb, F32_TOL)
@@ -1853,10 +1916,10 @@ SHARDED_SERVE_SPEC = dict(SERVE_SPEC, decode="sharded", rebalance="kv")
 # the forced migration: one request, full prefill (flash attention on the
 # rank that holds its slot), moved to group 2 after FORCED_AT decode steps
 FORCED_AT, FORCED_NEW, FORCED_GROUP = 3, 10, 2
+# the profiled window holds one admission and decode steps only (its
+# spec's rebalance_every is lifted: the first rebalance would fall at
+# step 8 and migrate)
 PROFILED_DECODE_STEPS = 8
-# the profiled window holds one admission and decode steps only: its
-# first rebalance would fall at step rebalance_every (8) and migrate
-PROFILED_SPEC = dict(SHARDED_SERVE_SPEC, rebalance_every=1000)
 
 
 class RankMargins:
@@ -1890,22 +1953,22 @@ def memory(dev):
             torch.cuda.max_memory_allocated(dev), free, total)
 
 
-def sharded_serve_rank(comm, cfg, weights, trace):
-    """One rank of the sharded serving session (main path 4): group r's
-    slots on this rank, the weights wrapped from ``weights`` (on the
-    rank's card: shared with the parent, no copy; else copied there).
-    Runs a warm-up, then the trace with the launch counts from 0 (each
-    migration timed, the balancer's histogram inputs recorded and held
-    against the plain version afterwards), then a forced migration
-    (under torch.profiler) against the same run without it, then one
-    packed admission and 8 decode steps, no rebalance, under
-    torch.profiler."""
+def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
+    """One rank of a sharded serving session (``spec_kw``; main path 4,
+    and phase 18b's mamba2): group r's slots on this rank, the weights
+    wrapped from ``weights`` (on the rank's card: shared with the parent,
+    no copy; else copied there).  Runs a warm-up, then the trace with the
+    launch counts from 0 (each migration timed, the balancer's histogram
+    inputs recorded and held against the plain version afterwards), then
+    a forced migration (under torch.profiler) against the same run
+    without it, then the admission of 8 requests and 8 decode steps, no
+    rebalance, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.models import model_from_tensors
     from repro_torch.serve import (Request, ServeSession, ServeSpec,
-                                   bursty_trace, run_trace)
+                                   bursty_trace, run_trace, slot_nbytes)
     dev = torch.device(comm.device)
     shared = all(t.device == dev for t in weights.values())
     model = model_from_tensors(cfg, weights if shared else
@@ -1925,11 +1988,12 @@ def sharded_serve_rank(comm, cfg, weights, trace):
         return m, reqs
 
     # warm-up: first calls load modules and create library handles
-    drive(session(SHARDED_SERVE_SPEC),
-          bursty_trace(3, **dict(SERVE_TRACE, seed=5, max_new_cap=4)))
+    drive(session(spec_kw), bursty_trace(3, **dict(
+        SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))
 
+    packed = spec_kw["prefill"] == "packed"
     rec = RankMargins()
-    sess = session(SHARDED_SERVE_SPEC, on_logits=rec)
+    sess = session(spec_kw, on_logits=rec)
     migrator, moves_timed = sess._migrator, []
 
     def timed_migrator(state, moves):
@@ -1956,16 +2020,18 @@ def sharded_serve_rank(comm, cfg, weights, trace):
     out.update(launches=ops.launch_counts(), mem=memory(dev),
                staged=comm.staged_bytes - staged0, metrics=m,
                moves=moves_timed, kv_slot_bytes=sess.kv_slot_bytes,
+               slot_bytes_now=slot_nbytes(sess.state, sess.axes),
                rids=[r.rid for r in reqs], out=[r.out for r in reqs],
                groups=[r.group for r in reqs],
                migrations=[r.migrations for r in reqs], margin=rec.margin,
-               first=rec.first if comm.rank == 0 else None)
+               # a packed admission's first tokens are on every rank; a
+               # full prefill's on the rank that holds the slot
+               first=rec.first if comm.rank == 0 or not packed else None)
     del sess, rec
     out["hist"] = hist_agreement(hist_in)
     del hist_in
 
-    forced_spec = dict(SHARDED_SERVE_SPEC, prefill="full",
-                       rebalance_every=1000)
+    forced_spec = dict(spec_kw, prefill="full", rebalance_every=1000)
     ops.reset_launch_counts()
     forced = {}
     for migrate in (False, True):
@@ -1994,7 +2060,7 @@ def sharded_serve_rank(comm, cfg, weights, trace):
     out["forced"] = forced
     out["forced_launches"] = ops.launch_counts()
 
-    sess = session(PROFILED_SPEC)
+    sess = session(dict(spec_kw, rebalance_every=1000))
     for t in trace[:8]:
         sess.submit(Request(rid=t.rid, prompt=t.prompt, max_new=64))
     sync(dev)
@@ -2007,15 +2073,18 @@ def sharded_serve_rank(comm, cfg, weights, trace):
         sync(dev)
         wall = time.perf_counter() - t0
     counts = count_diff(ops.launch_counts(), before)
-    check(sess.prefill_stats["calls"] == 1, "one packed admission")
+    check(sess.prefill_stats["calls"] == (1 if packed else 8),
+          "one packed admission, or eight full prefills")
     check(not sess.migration_log and counts["ksection_hist"] == 0,
           "the profiled window rebalanced")
     busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
     if comm.rank == 0:
-        trace_summary(f"rank 0, one packed admission (8 x 128 tokens) + "
-                      f"{PROFILED_DECODE_STEPS} decode steps of the sharded "
-                      "session, no rebalance", prof, wall, top_host=10,
-                      top_dev=8, launches=counts)
+        admitted = ("one packed admission (8 x 128 tokens)" if packed
+                    else "8 full prefills of 128 tokens")
+        trace_summary(f"rank 0, {admitted} + {PROFILED_DECODE_STEPS} decode "
+                      f"steps of the sharded session ({cfg.name}), no "
+                      "rebalance", prof, wall, top_host=10, top_dev=8,
+                      launches=counts)
     out["profile"] = dict(wall=wall, busy=busy)
     # weights that arrived by CUDA IPC go back to the parent's memory only
     # once every rank has dropped them before it exits (a rank that exits
@@ -2026,11 +2095,13 @@ def sharded_serve_rank(comm, cfg, weights, trace):
     return out
 
 
-def sharded_serving(serve):
+def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
+                    against="phase 6's replicated packed run"):
     """Phase 13: the sharded serving session with KV migration at
     llama3-8b width over SHARDED_P ranks (main path 4), checked rank
-    against rank, against phase 6's replicated packed run up to the
-    first near-tie, and moved against unmoved."""
+    against rank, against ``serve``'s recorded replicated run up to the
+    first near-tie, and moved against unmoved (phase 18b: the same at
+    mamba2 width, ``spec_kw`` with full prefill)."""
     import types
     import torch
     cfg, trace = serve["cfg"], serve["trace"]
@@ -2039,12 +2110,12 @@ def sharded_serving(serve):
     torch.cuda.empty_cache()
     parent_mem = memory("cuda")
     outs, backend = start_world(sharded_serve_rank, cfg, weights, trace,
-                                join_s=900.0)
+                                spec_kw, join_s=900.0)
     r0 = outs[0]
     log(f"memory layout: weights {outs[0]['layout']} "
         f"({'one bf16 copy in this process, handed to the ranks by CUDA '
             'IPC' if r0['layout'] == 'shared' else 'a copy on each rank'})"
-        f"; this process holds {parent_mem[0] / 1e9:.3f} GB (phase 6's "
+        f"; this process holds {parent_mem[0] / 1e9:.3f} GB ({cfg.name}'s "
         f"model and its float32 head); per rank after wrapping the weights "
         f"{[round(o['mem_weights'] / 1e9, 3) for o in outs]} GB, peak in "
         f"the trace (max_memory_allocated) "
@@ -2061,8 +2132,11 @@ def sharded_serving(serve):
               f"rank {r}: tokens or groups differ from rank 0's")
         check(om["migration_log"] == m["migration_log"],
               f"rank {r}: migration log differs from rank 0's")
-        check(o["launches"]["serve_prefill"] > 0,
-              f"rank {r}: serve_prefill was not launched")
+        path_kernel = ("serve_prefill" if spec_kw["prefill"] == "packed"
+                       else "ksection_hist" if cfg.family == "ssm"
+                       else "flash_attention")
+        check(o["launches"][path_kernel] > 0,
+              f"rank {r}: {path_kernel} was not launched")
         check_hist_agreement(o["hist"], o["launches"]["ksection_hist"],
                              f"  rank {r}, the serving balancer")
     check(all(len(t) == q.max_new for t, q in zip(r0["out"], trace)),
@@ -2101,7 +2175,12 @@ def sharded_serving(serve):
             f"{[round(o['moves'][j]['s'], 4) for o in outs]}, wire bytes "
             f"per rank {[o['moves'][j]['wire'] for o in outs]}, host-staged "
             f"bytes per rank {[o['moves'][j]['staged'] for o in outs]}")
-    log(f"sharded serving ({backend}): kv_slot_bytes={kv}, "
+    log(f"sharded serving ({backend}): kv_slot_bytes={kv} (a slot as the "
+        f"session built it, the reference's count); a slot row holds "
+        f"{r0['slot_bytes_now']} bytes after the trace (a recurrent family's "
+        f"conv windows turn float32 at the first decode step), so the "
+        f"exchange shipped "
+        f"{n_moved * r0['slot_bytes_now']} bytes of slot rows; "
         f"{len(r0['moves'])} migrations moved {n_moved} slots "
         f"({n_moved * kv} bytes); host-staged bytes per rank in the trace "
         f"{[o['staged'] for o in outs]}")
@@ -2109,14 +2188,17 @@ def sharded_serving(serve):
     for o in outs:
         for rid, by_t in o["margin"].items():
             margins.setdefault(rid, {}).update(by_t)
+    first = {}
+    for o in outs:
+        first.update(o["first"] or {})
     rec = types.SimpleNamespace(first={
-        rid: torch.from_numpy(a) for rid, a in r0["first"].items()}, margin={
+        rid: torch.from_numpy(a) for rid, a in first.items()}, margin={
         rid: [by_t[t] for t in sorted(by_t)] for rid, by_t in margins.items()})
     reqs = [types.SimpleNamespace(rid=rid, out=o)
             for rid, o in zip(r0["rids"], r0["out"])]
     rp, recp = serve["recorded"]
-    compare_recorded("sharded + kv vs phase 6's replicated packed run", reqs,
-                     rec, rp, recp, BF16_TOL)
+    compare_recorded(f"sharded + kv vs {against}", reqs, rec, rp, recp,
+                     BF16_TOL)
     for r, o in enumerate(outs):
         f = o["forced"]
         check(f[True]["out"] == f[False]["out"] == r0["forced"][False]["out"]
@@ -2128,7 +2210,8 @@ def sharded_serving(serve):
               and f[True]["stats"]["n_moved"] == 1,
               f"rank {r}: forced migration {f[True]}")
         flash = o["forced_launches"]["flash_attention"]
-        check(flash == (2 * cfg.n_layers if r == 0 else 0),
+        attn_layers = 0 if cfg.family == "ssm" else cfg.n_layers
+        check(flash == (2 * attn_layers if r == 0 else 0),
               f"rank {r}: {flash} flash_attention launches in the forced "
               "pair (the request's slot is on rank 0 at admission)")
     log(f"forced migration to group {FORCED_GROUP} after {FORCED_AT} decode "
@@ -2140,12 +2223,15 @@ def sharded_serving(serve):
         f"{[(o['forced_profile']['wall'], o['forced_profile']['busy']) for o in outs]}")
     # the ranks' device events overlap on the one card (their host
     # copies run at once), so only a rank's own idle share is read
-    log(f"trace of one packed admission + {PROFILED_DECODE_STEPS} decode "
-        f"steps, no rebalance: rank 0's idle share "
+    log(f"trace of the admission of 8 requests + {PROFILED_DECODE_STEPS} "
+        f"decode steps, no rebalance: rank 0's idle share "
         f"{1 - r0['profile']['busy'] / r0['profile']['wall']:.4f}; wall, "
         f"device busy (s) per rank "
         f"{[(o['profile']['wall'], o['profile']['busy']) for o in outs]}")
-    return dict(launches=[o["launches"] for o in outs])
+    return dict(launches=[o["launches"] for o in outs],
+                kv_slot_bytes=kv, slot_bytes_now=r0["slot_bytes_now"],
+                moves=[(mv["n"], [o["moves"][j]["s"] for o in outs])
+                       for j, mv in enumerate(moved)])
 
 
 # ---------------------------------------------------------------------------
@@ -2217,11 +2303,11 @@ def swa_trace(vocab, seed=14):
     return out
 
 
-def ring_holds_the_newest(session, S):
-    """Every row of the session's cache holds the newest min(pos, S)
-    positions, each once; returns the rows that hold exactly S."""
+def ring_holds_the_newest(cache, S):
+    """Every row of the KV cache holds the newest min(pos, S) positions,
+    each once; returns the rows that hold exactly S."""
     import torch
-    sp, pos = session.state.stored_pos.cpu(), session.state.pos.cpu()
+    sp, pos = cache.stored_pos.cpu(), cache.pos.cpu()
     full = 0
     for r in range(sp.shape[0]):
         p = int(pos[r])
@@ -2255,7 +2341,7 @@ def serve_swa(dev):
     rows = {}
 
     def inspect(session):
-        rows["full"] = ring_holds_the_newest(session, S)
+        rows["full"] = ring_holds_the_newest(session.state, S)
 
     keep = lambda q, k, v, **kw: (q.dtype, tuple(q.shape),    # noqa: E731
                                   kw.get("window"))
@@ -2531,6 +2617,123 @@ def serve_grok(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 18-19: the SSM (mamba2) and hybrid (recurrentgemma) families
+# ---------------------------------------------------------------------------
+
+# phase 18b: mamba2 with sharded decode and KV-slot migration, full prefill
+MAMBA_SHARDED_SPEC = dict(SERVE_SPEC, prefill="full", decode="sharded",
+                          rebalance="kv")
+# phase 19's flash reading: recurrentgemma's local attention at the longest
+# prompt of swa_trace (10 query heads over 1 kv head, d = 256, window 2048)
+HYBRID_FLASH_S = 6144
+
+
+def slot_bytes_of(session):
+    """(the session's kv_slot_bytes: a slot as it was built, the
+    reference's count; the bytes a slot row holds now)."""
+    from repro_torch.serve import slot_nbytes
+    return session.kv_slot_bytes, slot_nbytes(session.state, session.axes)
+
+
+def serve_mamba2(dev):
+    """Phase 18: mamba2-1.3b at full width and depth (48 layers): phase 6's
+    trace with full prefill (recorded: phase 18b's tokens are held to it),
+    then swa_trace's long prompts with max_seq 8192.  The path launches
+    no attention kernel: its kernel is the balancer's histogram, held
+    against its plain version on every input.  Returns phase 18b's
+    inputs and the path's launches."""
+    from repro_torch.serve import bursty_trace
+    cfg, model = full_width_model("mamba2_1_3b", dev)
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    spec = dict(SERVE_SPEC, prefill="full")
+    serve_run(model, cfg, dev, spec, bursty_trace(3, **dict(
+        SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))   # warm-up
+    slots = {}
+
+    def inspect(session):
+        slots["bytes"] = slot_bytes_of(session)
+
+    m, reqs, counts, peak, rec = serve_checked(
+        model, cfg, dev, spec, trace, f"{cfg.name}, full prefill (the SSM "
+        "path)", record=True, inspect=inspect)
+    log(f"  slot bytes: {slots['bytes'][0]} as built (the reference's "
+        f"kv_slot_bytes: float32 state, {cfg.act_dtype} conv windows, "
+        f"position), {slots['bytes'][1]} after decode (float32 windows)")
+    long_trace = swa_trace(cfg.vocab)
+    log(f"long trace: prompts {[len(r.prompt) for r in long_trace]}, new "
+        f"tokens {[r.max_new for r in long_trace]}, max_seq "
+        f"{SWA_SPEC['max_seq']}")
+    _, _, long_counts, _, _ = serve_checked(
+        model, cfg, dev, SWA_SPEC, long_trace, f"{cfg.name}, full prefill "
+        f"of {SWA_PROMPT[0]}-{SWA_PROMPT[1]} tokens", inspect=inspect)
+    return dict(cfg=cfg, model=model, trace=trace, recorded=(reqs, rec),
+                launches=counts, long_launches=long_counts,
+                slot_bytes=slots["bytes"])
+
+
+def serve_hybrid(dev):
+    """Phase 19: recurrentgemma-2b at full width and depth (26 layers: 18
+    RG-LRU, 8 local attention): swa_trace over a ring of 2,048 positions
+    (every prefill passes the window, every decode reads a wrapped ring;
+    each attention layer's ring checked), then phase 6's trace with full
+    prefill; every flash launch on the tensor cores with the window; then
+    the flash kernel at d = 256 against its plain version at the longest
+    prompt."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve import KVCache, bursty_trace
+    from repro_torch.serve.decode import cache_len
+    cfg, model = full_width_model("recurrentgemma_2b", dev)
+    S = cache_len(cfg, SWA_SPEC["max_seq"])
+    check(S == cfg.window < SWA_PROMPT[0],
+          f"a ring of {S} positions that every prompt wraps")
+    n_attn = sum(1 for block in model.layers if hasattr(block, "attn"))
+    trace = swa_trace(cfg.vocab)
+    log(f"trace: {len(trace)} requests, prompts "
+        f"{[len(r.prompt) for r in trace]}, new tokens "
+        f"{[r.max_new for r in trace]}, ring S={S} in each of {n_attn} "
+        "attention layers")
+    rows, slots = {}, {}
+
+    def inspect(session):
+        rings = [c for c in session.state.layers if isinstance(c, KVCache)]
+        check(len(rings) == n_attn, "one ring an attention layer")
+        rows["full"] = [ring_holds_the_newest(c, S) for c in rings]
+        slots["bytes"] = slot_bytes_of(session)
+
+    keep = lambda q, k, v, **kw: (q.dtype, tuple(q.shape),    # noqa: E731
+                                  kw.get("window"))
+    with recorded_calls(layers, "flash_attention_op", keep) as flash_in:
+        _, _, counts, _, _ = serve_checked(
+            model, cfg, dev, SWA_SPEC, trace,
+            f"{cfg.name}, full prefill, window {cfg.window}", inspect=inspect)
+    log(f"  flash calls (dtype, q shape, window): {sorted(set(flash_in))}")
+    check(counts["flash_attention"] == len(trace) * n_attn,
+          "one flash launch an attention layer a prompt")
+    check(len(flash_in) == counts["flash_attention"]
+          and all(dt == torch.bfloat16 and w == cfg.window
+                  and shape[1] == cfg.n_heads and shape[3] == cfg.hd == 256
+                  and shape[2] > cfg.window for dt, shape, w in flash_in),
+          "a flash launch without the window, at another head dim, or a "
+          "prompt inside the window")
+    check(rows["full"] == [SWA_SPEC["slots"]] * n_attn,
+          f"rows holding {S} positions per ring: {rows['full']}")
+    log(f"  rings: every row of each of the {n_attn} rings holds the "
+        f"newest min(pos, {S}) positions at pos % {S}; rows holding "
+        f"exactly {S}: {rows['full']}; slot bytes {slots['bytes'][0]} as "
+        f"built, {slots['bytes'][1]} after decode")
+    short = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    _, _, short_counts, _, _ = serve_checked(
+        model, cfg, dev, dict(SERVE_SPEC, prefill="full"), short,
+        f"{cfg.name}, phase 6's trace, full prefill")
+    del model
+    free_memory()
+    row = compare_flash(dev, HYBRID_FLASH_S, hq=cfg.n_heads,
+                        hkv=cfg.n_kv_heads, d=cfg.hd, window=cfg.window)
+    return dict(launches=counts, short_launches=short_counts, row=row)
+
+
+# ---------------------------------------------------------------------------
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
 SRC = "src/repro_torch/kernels/csrc/"
@@ -2627,9 +2830,8 @@ def main():
         f"({build.library_path().name})")
     log_path = build.BUILD_DIR / "build.log"
     if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "==" in line or "spill" in line:
-                log("  " + line.strip())
+        for line in kernel_resources(log_path.read_text()):
+            log("  " + line)
 
     fem = phase("phase 2: the adaptive FEM session (main path 1)",
                 run_session, dev)
@@ -2686,14 +2888,35 @@ def main():
                  serve_grok, dev)
     phase("phase 17b: grok-1 SMOKE packed, card against CPU",
           serve_card_vs_cpu, dev, "grok_1_314b", "packed")
-    log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    log(f"command time so far: {t_new - t_start:.1f} s")
+    mamba = phase("phase 18: mamba2-1.3b at full width and depth (the SSM "
+                  "path, full prefill)", serve_mamba2, dev)
+    phase("phase 18 SMOKE: mamba2 full, card against CPU",
+          serve_card_vs_cpu, dev, "mamba2_1_3b", "full")
+    mamba_sharded = None
+    if mamba is not None:
+        mamba_sharded = phase(
+            "phase 18b: mamba2-1.3b sharded with KV-slot migration over 4 "
+            "ranks", sharded_serving, mamba, MAMBA_SHARDED_SPEC,
+            "phase 18's replicated full run")
+        mamba.pop("model")
+        free_memory()
+    hybrid = phase("phase 19: recurrentgemma-2b at full width and depth "
+                   "(full prefill over a ring of 2048, flash at d = 256)",
+                   serve_hybrid, dev)
+    phase("phase 19 SMOKE: recurrentgemma with a ring, card against CPU",
+          serve_card_vs_cpu, dev, "recurrentgemma_2b", "full", RING_BUCKETS)
+    log(f"phases 18-19: {time.perf_counter() - t_new:.1f} s; command time "
+        f"so far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
-            or served is None or None in (swa, dense, phi, grok)
+            or served is None
+            or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid)
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
     # each path's launches, counted from 0 over its own run; main path
-    # 4's per rank (phase 13's trace); phases 14-17's per path
+    # 4's per rank (phase 13's trace); phases 14-19's per path
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
                 "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
@@ -2703,7 +2926,16 @@ def main():
                 for mode, c in d["launches"].items()},
              **{f"phi35_moe_42b {mode}": c
                 for mode, c in phi["launches"].items()},
-             "grok_1_314b packed": grok["launches"]["packed"]}
+             "grok_1_314b packed": grok["launches"]["packed"],
+             "mamba2_1_3b full": mamba["launches"],
+             "mamba2_1_3b full, prompts of 4608-6144": mamba["long_launches"],
+             "mamba2_1_3b sharded (per rank)": mamba_sharded["launches"],
+             "recurrentgemma_2b full (window 2048)": hybrid["launches"],
+             "recurrentgemma_2b full (phase 6's trace)":
+                 hybrid["short_launches"]}
+    # the flash kernel at the hybrid's head dim, beside its main-path row
+    d256 = dict(hybrid["row"], shape="b=1 hq=10 hkv=1 s=6144 d=256 causal "
+                "window=2048 bf16")
     table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
@@ -2713,7 +2945,11 @@ def main():
                   library_ms=rows[name]["library_ms"],
                   launches_sharded_serving=[
                       r[name] for r in served["launches"]],
-                  launches_by_path={p: c[name] for p, c in paths.items()})
+                  launches_by_path={
+                      p: [r[name] for r in c] if isinstance(c, list)
+                      else c[name] for p, c in paths.items()},
+                  **({"at_head_dim_256": d256}
+                     if name == "flash_attention" else {}))
              for name in REPLACES]
     log(json.dumps({"kernels": table}))
     log(card)

@@ -3,8 +3,9 @@
 Each module exports ``CONFIG`` (the full-scale config) and ``SMOKE`` (a
 reduced config of the same family for CPU tests), verbatim from the JAX
 package.  The dense family (``llama3_8b``, the two sliding-window
-``h2o_danube`` configs, ``command_r_plus_104b``) and the MoE family
-(``phi35_moe_42b``, ``grok_1_314b``) are ported; the SSM, hybrid,
+``h2o_danube`` configs, ``command_r_plus_104b``), the MoE family
+(``phi35_moe_42b``, ``grok_1_314b``), the SSM family (``mamba2_1_3b``)
+and the hybrid family (``recurrentgemma_2b``) are ported; the
 encoder-decoder and VLM architectures wait in ROADMAP.md.
 """
 from __future__ import annotations
@@ -17,10 +18,12 @@ from ..models.config import ModelConfig
 ARCH_IDS = [
     "grok_1_314b",
     "phi35_moe_42b",
+    "recurrentgemma_2b",
     "h2o_danube3_4b",
     "llama3_8b",
     "h2o_danube_1_8b",
     "command_r_plus_104b",
+    "mamba2_1_3b",
 ]
 
 
@@ -28,7 +31,8 @@ def _module(arch: str):
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: {ARCH_IDS}; "
-            "ROADMAP.md, queue 1, item 10 lists the rest)")
+            "the encoder-decoder whisper_medium and the VLM qwen2_vl_72b "
+            "wait in ROADMAP.md, queue 1, item 10)")
     return importlib.import_module(f".{arch}", __name__)
 
 

@@ -26,7 +26,6 @@ from .fem.mesh import Mesh
 from .fem.parallel import ShardedElements
 from .models.config import ModelConfig
 from .models.model import init_model
-from .models.transformer import DecoderLM
 
 MESH_ARRAYS = ("verts", "node_tets", "node_tag", "node_mid", "leaf_nodes")
 FOREST_ARRAYS = ("parent", "child0", "child1")
@@ -116,35 +115,61 @@ def _tensor(leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Leaves of a nested dict by dotted name (``state_dict`` style)."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
 def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
-                    ) -> DecoderLM:
-    """A port model holding copies of the JAX package's dense- or
-    MoE-decoder parameters (``repro.models.init_model``'s tree: ``embed``
-    {tok, head}, ``layers`` with every leaf stacked over the layers on
-    axis 0 -- ``mlp`` {wi, wg, wo}, or ``moe`` {router, wi, wg, wo} --
-    and ``ln_f``).  Leaves may be ``Boxed`` or bare arrays; the layouts
-    are the same in both packages, so nothing is transposed.  Every
-    block must have exactly the JAX tree's parameter names, and the
-    tree exactly the block's."""
+                    ) -> torch.nn.Module:
+    """A port model holding copies of the JAX package's parameters
+    (``repro.models.init_model``'s tree: ``embed`` {tok, head},
+    ``layers`` and ``ln_f``).  ``layers`` is, by family:
+
+    * dense / MoE: one dict with every leaf stacked over the layers on
+      axis 0 -- ``ln_attn``, ``attn``, ``ln_mlp`` and ``mlp`` {wi, wg, wo}
+      or ``moe`` {router, wi, wg, wo};
+    * SSM: stacked the same way -- ``ln`` and ``mixer`` {in_proj, conv_w,
+      conv_b, A_log, D, dt_bias, norm_w, out_proj};
+    * hybrid: a Python list with one dict a layer, whose keys differ by
+      the layer's kind -- ``ln_mix``, ``ln_mlp``, ``mlp`` and ``attn`` or
+      ``rglru`` {in_x, in_gate, conv_w, conv_b, w_r, b_r, w_i, b_i, lam,
+      out}.
+
+    Leaves may be ``Boxed`` or bare arrays; the layouts are the same in
+    both packages, so nothing is transposed.  Every block must have
+    exactly its JAX layer's parameter names, and the layer exactly the
+    block's."""
     model = init_model(cfg, seed=None, device=device)
     dev = model.ln_f.device
-    layers = params["layers"]
+    layers, n = params["layers"], len(model.layers)
     with torch.no_grad():
         model.embed.tok.copy_(_tensor(params["embed"]["tok"], dev))
         model.embed.head.copy_(_tensor(params["embed"]["head"], dev))
         model.ln_f.copy_(_tensor(params["ln_f"], dev))
-        stacked = {
-            "ln_attn": _tensor(layers["ln_attn"], dev),
-            "ln_mlp": _tensor(layers["ln_mlp"], dev),
-            **{f"{part}.{k}": _tensor(v, dev)
-               for part in ("attn", "mlp", "moe") if part in layers
-               for k, v in layers[part].items()},
-        }
-        for li, block in enumerate(model.layers):
+        if isinstance(layers, (list, tuple)):
+            if len(layers) != n:
+                raise ValueError(f"{len(layers)} JAX layers for {n} blocks")
+            per_layer = [{k: _tensor(v, dev) for k, v in _flatten(lp).items()}
+                         for lp in layers]
+        else:
+            stacked = {k: _tensor(v, dev) for k, v in _flatten(layers).items()}
+            for k, w in stacked.items():
+                if w.shape[0] != n:
+                    raise ValueError(f"JAX leaf {k} stacks {w.shape[0]} "
+                                     f"layers for {n} blocks")
+            per_layer = [{k: w[li] for k, w in stacked.items()}
+                         for li in range(n)]
+        for block, tensors in zip(model.layers, per_layer):
             own = dict(block.named_parameters())
-            if set(own) != set(stacked):
+            if set(own) != set(tensors):
                 raise ValueError(f"parameter names differ: port {sorted(own)}"
-                                 f", JAX {sorted(stacked)}")
-            for name, w in stacked.items():
-                own[name].copy_(w[li])
+                                 f", JAX {sorted(tensors)}")
+            for name, w in tensors.items():
+                own[name].copy_(w)
     return model

@@ -25,9 +25,21 @@
 //     true (no per-element mask: the interior of a band), and the mask
 //     and score transform per element on the rest.
 //
-// The head dim is padded to 16, 32, 64 or 128; d % 8 != 0 (or a
+// The head dim is padded to 16, 32, 64, 128 or 256; d % 8 != 0 (or a
 // misaligned base) loads through plain zero-filling loads instead of
 // cp.async.  A row that sees no key is written as exactly 0.
+//
+// Head dim 256 (recurrentgemma's local attention): a warp's output
+// accumulator alone is 16 x 256 float32, 128 registers a thread.  To stay
+// near the 255-register limit, the Q fragments are read from shared
+// memory at each k-step of Q K^T instead of being kept in registers (64
+// registers saved; the Q tile stays in shared memory anyway), and P V
+// holds the V fragments of 8 output tiles at a time instead of all 16
+// (32 saved).  ptxas may still spill a little: the registers and spill
+// bytes it reports are in the build log, which chip_smoke.py prints.
+// Each accumulator still takes its P_hi product before its P_lo one, so
+// the sums are those of the smaller head dims.  Shared memory is
+// (64 + 4 x 64) x 264 x 2 = 168,960 bytes: one CTA an SM.
 //
 // A Policy provides (all warp-uniform except visible and score):
 //   int ntiles() const;              key tiles the CTA visits
@@ -193,7 +205,13 @@ __device__ __forceinline__ void attend(const Policy& pol, unsigned char* smem,
   cp_async_commit();
 
   const int i_lo = q0 + warp * 16, i_hi = i_lo + 15;   // the warp's rows
-  uint32_t qf[KD][4];
+  // Q fragments: all KD in registers for the whole key loop, or (head dim
+  // 256) one at a time from shared memory
+  constexpr bool Q_IN_REGS = DP <= 128;
+  constexpr int QF = Q_IN_REGS ? KD : 1;
+  // V fragments held at once in P V: all NO / 2, or 8 at head dim 256
+  constexpr int VG = DP <= 128 ? NO / 2 : 8;
+  uint32_t qf[QF][4];
   float oacc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -215,9 +233,9 @@ __device__ __forceinline__ void attend(const Policy& pol, unsigned char* smem,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (Q_IN_REGS && t == 0) {
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
+      for (int kd = 0; kd < QF; ++kd)
         ldsm_x4(qf[kd], smem_addr(sq + (warp * 16 + lr + (lm & 1) * 8) * LD +
                                   kd * 16 + (lm >> 1) * 8));
     }
@@ -231,13 +249,17 @@ __device__ __forceinline__ void attend(const Policy& pol, unsigned char* smem,
         for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        if (!Q_IN_REGS)
+          ldsm_x4(qf[0], smem_addr(sq + (warp * 16 + lr + (lm & 1) * 8) * LD +
+                                   kd * 16 + (lm >> 1) * 8));
+        const uint32_t(&qk)[4] = qf[Q_IN_REGS ? kd : 0];
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t kf[4];
           ldsm_x4(kf, smem_addr(skt + (np * 16 + lr + (lm >> 1) * 8) * LD +
                                 kd * 16 + (lm & 1) * 8));
-          mma16816(sacc[2 * np], qf[kd], kf[0], kf[1]);
-          mma16816(sacc[2 * np + 1], qf[kd], kf[2], kf[3]);
+          mma16816(sacc[2 * np], qk, kf[0], kf[1]);
+          mma16816(sacc[2 * np + 1], qk, kf[2], kf[3]);
         }
       }
 
@@ -291,20 +313,26 @@ __device__ __forceinline__ void attend(const Policy& pol, unsigned char* smem,
         split2(sacc[2 * kk][2], sacc[2 * kk][3], ph[1], pl[1]);
         split2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ph[2], pl[2]);
         split2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ph[3], pl[3]);
-        // all P_hi products first, then all P_lo ones: the two products
-        // into one accumulator are NO apart, not back to back
-        uint32_t vf[NO / 2][4];
+        // per group of VG V fragments, all P_hi products first, then all
+        // P_lo ones: the two products into one accumulator are 2 VG
+        // apart, not back to back
 #pragma unroll
-        for (int dp = 0; dp < NO / 2; ++dp) {
-          ldsm_x4_trans(vf[dp], smem_addr(svt + (kk * 16 + lr + (lm & 1) * 8) *
-                                          LD + dp * 16 + (lm >> 1) * 8));
-          mma16816(oacc[2 * dp], ph, vf[dp][0], vf[dp][1]);
-          mma16816(oacc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
-        }
+        for (int d0 = 0; d0 < NO / 2; d0 += VG) {
+          uint32_t vf[VG][4];
 #pragma unroll
-        for (int dp = 0; dp < NO / 2; ++dp) {
-          mma16816(oacc[2 * dp], pl, vf[dp][0], vf[dp][1]);
-          mma16816(oacc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+          for (int j = 0; j < VG; ++j) {
+            const int dp = d0 + j;
+            ldsm_x4_trans(vf[j], smem_addr(svt + (kk * 16 + lr + (lm & 1) * 8) *
+                                           LD + dp * 16 + (lm >> 1) * 8));
+            mma16816(oacc[2 * dp], ph, vf[j][0], vf[j][1]);
+            mma16816(oacc[2 * dp + 1], ph, vf[j][2], vf[j][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < VG; ++j) {
+            const int dp = d0 + j;
+            mma16816(oacc[2 * dp], pl, vf[j][0], vf[j][1]);
+            mma16816(oacc[2 * dp + 1], pl, vf[j][2], vf[j][3]);
+          }
         }
       }
     }

@@ -19,7 +19,8 @@
 // inputs may be float32, and the plain versions they are held against
 // accumulate in float32.  Rows and dims beyond the tensor are zero-filled
 // in shared memory, so any sequence length and any head dim up to 128
-// (NC = ceil(d / 32) chunks of 32) run.
+// (NC = ceil(d / 32) chunks of 32) run, and NC = 8 (head dims up to 256)
+// for the flash kernel.
 
 #pragma once
 

@@ -95,20 +95,24 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
     case 3: return launch<T, 3>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
     case 4: return launch<T, 4>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
   }
+  // 128 < d <= 256: one instantiation of 8 chunks (a thread keeps 16 rows
+  // x 8 dims of the output; what ptxas spills is in the build log)
+  if (d <= 256) return launch<T, 8>(q, k, v, o, b, hq, hkv, s, d, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (b, hq, s, d); k, v: (b, hkv, s, d); o: (b, hq, s, d); all contiguous
-// float32.  hq % hkv == 0, 1 <= d <= 128, window <= 0 for none.  Returns
-// cudaGetLastError() after the launch.
+// float32.  hq % hkv == 0, 1 <= d <= 256, window <= 0 for none.  Returns
+// the error of cudaFuncSetAttribute or cudaGetLastError() after the
+// launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int b, int hq,
                                      int hkv, int s, int d, float scale,
                                      int causal, int window, void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (d < 1 || d > 128 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
   return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
                            window, (cudaStream_t)stream);
 }

@@ -15,7 +15,8 @@
 // causal / sliding-window instantiation (FlashPolicy): tiles wholly above
 // the causal diagonal or wholly outside the window are never loaded, and
 // masks are applied only on tiles that straddle an edge (and on the
-// ragged last tile).
+// ragged last tile).  Head dims up to 256 run (attention_tc.cuh says how
+// d = 256 keeps its registers).
 //
 // Grid fill: the query tile is 64 rows (4 warps).  At the serving path's
 // s = 128 that is 2 x 32 heads = 64 CTAs on 132 SMs.  A 16-row tile
@@ -105,21 +106,23 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
   if (d <= 16) return launch<16>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
   if (d <= 32) return launch<32>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
   if (d <= 64) return launch<64>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
-  return launch<128>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
+  if (d <= 128) return launch<128>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
+  return launch<256>(q, k, v, o, b, hq, hkv, s, d, sl, causal, window, vec, st);
 }
 
 }  // namespace
 
 // q: (b, hq, s, d); k, v: (b, hkv, s, d); o: (b, hq, s, d); all contiguous
-// bfloat16.  hq % hkv == 0, 1 <= d <= 128, window <= 0 for none.  Returns
-// cudaGetLastError() after the launch.
+// bfloat16.  hq % hkv == 0, 1 <= d <= 256, window <= 0 for none.  Returns
+// the error of cudaFuncSetAttribute (the shared memory a head dim needs)
+// or cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
                                         int hkv, int s, int d, float scale,
                                         int causal, int window,
                                         void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (d < 1 || d > 128 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && (uintptr_t)q % 16 == 0 &&
                   (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
   const float sl = scale * LOG2E;

@@ -23,10 +23,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {torch.bfloat16: "bf16_tensor_core", torch.float32: "f32_cuda_core"}
 
 
-def check_attention_inputs(fn: str, q, k, v, heads_axis: int) -> None:
+#: the largest head dim the flash kernels take (both types)
+MAX_HEAD_DIM = 256
+
+
+def check_attention_inputs(fn: str, q, k, v, heads_axis: int,
+                           max_d: int) -> None:
     """Raise unless q / k / v are contiguous CUDA tensors of one supported
-    type on one device, with head dim <= 128 and query heads a multiple
-    of the kv heads (``heads_axis`` is the heads dimension)."""
+    type on one device, with head dim <= ``max_d`` and query heads a
+    multiple of the kv heads (``heads_axis`` is the heads dimension)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors; {name} is on "
@@ -45,23 +50,24 @@ def check_attention_inputs(fn: str, q, k, v, heads_axis: int) -> None:
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{fn}: {hq} query heads are not a multiple of "
                          f"{hkv} kv heads")
-    if not 1 <= d <= 128 or k.shape[-1] != d:
-        raise ValueError(f"{fn}: head dim must be 1..128 and equal in q and "
-                         f"k, got {d} and {k.shape[-1]}")
+    if not 1 <= d <= max_d or k.shape[-1] != d:
+        raise ValueError(f"{fn}: head dim must be 1..{max_d} and equal in q "
+                         f"and k, got {d} and {k.shape[-1]}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Attention on a CUDA device: q (b, hq, s, d), k / v (b, hkv, s, d),
-    float32 or bfloat16, contiguous.  Query head h reads kv head
+    float32 or bfloat16, contiguous, d <= 256.  Query head h reads kv head
     ``h // (hq // hkv)``; key j is visible from query i iff ``j <= i``
     (causal) and ``j > i - window`` (window).  Returns (b, hq, s, d) in
     q's dtype.  bf16 runs the tensor-core kernel, float32 the CUDA-core
     one (``VARIANTS``).  Adds one to ``flash_attention_cuda.launches`` and
     to its variant's entry of ``flash_attention_cuda.variants`` per
     launch."""
-    check_attention_inputs("flash_attention_cuda", q, k, v, heads_axis=1)
+    check_attention_inputs("flash_attention_cuda", q, k, v, heads_axis=1,
+                           max_d=MAX_HEAD_DIM)
     b, hq, s, d = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[2] != s:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "

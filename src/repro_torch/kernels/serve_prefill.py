@@ -6,7 +6,10 @@ with flash attention, ``csrc/attention_tc.cuh``), float32 on CUDA cores
 Replaces the TPU kernel
 ``repro/kernels/serve_prefill.py::packed_attention_pallas``.  Its plain
 version is ``kernels.ref.packed_attention_ref``;
-``kernels.ops.packed_attention_op`` chooses.
+``kernels.ops.packed_attention_op`` chooses.  Head dims up to 128
+(``MAX_HEAD_DIM``): the packed prefill takes the KV-cache families only,
+whose head dims stop at 128; the hybrid family's 256 runs the flash
+kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ import torch
 
 from . import build
 from .flash_attention import DTYPES, VARIANTS, check_attention_inputs
+
+#: the largest head dim the packed kernels take
+MAX_HEAD_DIM = 128
 
 
 def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +37,8 @@ def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runs the tensor-core kernel, float32 the CUDA-core one (``VARIANTS``).
     Adds one to ``packed_attention_cuda.launches`` and to its variant's
     entry of ``packed_attention_cuda.variants`` per launch."""
-    check_attention_inputs("packed_attention_cuda", q, k, v, heads_axis=0)
+    check_attention_inputs("packed_attention_cuda", q, k, v, heads_axis=0,
+                           max_d=MAX_HEAD_DIM)
     hq, C, d = q.shape
     if k.dim() != 3 or k.shape[1] != C:
         raise ValueError(f"packed_attention_cuda: q {tuple(q.shape)} and k "

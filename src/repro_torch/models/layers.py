@@ -1,5 +1,5 @@
-"""Shared model layers of the dense and MoE decoders: RMSNorm, RoPE,
-attention, SwiGLU MLP, embeddings.  Counterpart of
+"""Shared model layers: RMSNorm, RoPE, attention, the gated MLPs
+(SwiGLU, GeGLU), embeddings.  Counterpart of
 ``repro/models/layers.py``.
 
 Parameters live in ``nn.Module``s with the JAX package's layouts (``wq``
@@ -32,6 +32,8 @@ from ..kernels.ops import flash_attention_op
 from .config import ModelConfig
 
 F32 = torch.float32
+#: the gated MLP activations the port runs: SwiGLU and GeGLU
+GATED_ACTS = ("silu", "gelu")
 MROPE_TODO = ("M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md, queue 1, "
               "item 10)")
 
@@ -276,16 +278,19 @@ def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU: ``wo(silu(x wg) * (x wi))``.  The dense and MoE configs all
-    use it; GeGLU and the plain GELU MLP belong to the hybrid and
-    encoder-decoder families, which are not ported."""
+    """A gated MLP, ``wo(act(x wg) * (x wi))``: SwiGLU (``mlp_act='silu'``,
+    the dense and MoE configs) or GeGLU (``'gelu'``, recurrentgemma).  The
+    plain GELU MLP (``'gelu_mlp'``) belongs to the encoder-decoder family,
+    which is not ported."""
 
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.mlp_act != "silu":
+        if cfg.mlp_act not in GATED_ACTS:
             raise NotImplementedError(
-                f"mlp_act={cfg.mlp_act!r} is not ported yet (ROADMAP.md, "
-                "queue 1, item 10); the ported families use 'silu'")
+                f"mlp_act={cfg.mlp_act!r}: the plain GELU MLP of the "
+                "encoder-decoder family (whisper) is not ported yet "
+                "(ROADMAP.md, queue 1, item 10); the port runs the gated "
+                f"MLPs {GATED_ACTS}")
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.p_dtype
         self.wi = dense_param((d, f), dt, device, gen)
         self.wg = dense_param((d, f), dt, device, gen)
@@ -315,11 +320,18 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(F32), b.to(F32))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Both input products stay in float32 through the activation and
     are rounded once to ``act_dtype`` before ``wo``, as the reference
     does; ``wo`` too sums in float32 and rounds once."""
-    h = torch.nn.functional.silu(matmul_f32(x, mlp.wg)) * matmul_f32(x, mlp.wi)
+    act = torch.nn.functional.silu if cfg.mlp_act == "silu" else gelu
+    h = act(matmul_f32(x, mlp.wg)) * matmul_f32(x, mlp.wi)
     return matmul_f32(h.to(cfg.act_dtype), mlp.wo).to(cfg.act_dtype)
 
 

@@ -1,5 +1,5 @@
-"""Model registry: family -> init.  The dense and MoE families are
-ported."""
+"""Model registry: family -> init.  The dense, MoE, SSM and hybrid
+families are ported."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,13 +10,15 @@ from ..device import resolve_device
 from . import transformer as T
 from .config import ModelConfig
 
-#: the families ``init_model`` builds (the reference's decoder families,
-#: less the VLM front end)
-FAMILIES = ("dense", "moe")
+#: the LM of each family ``init_model`` builds (the reference's families,
+#: less the encoder-decoder and the VLM front end)
+LMS = {"dense": T.DecoderLM, "moe": T.DecoderLM, "ssm": T.SSMLM,
+       "hybrid": T.HybridLM}
+FAMILIES = tuple(LMS)
 
 
 def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
-               ) -> T.DecoderLM:
+               ) -> torch.nn.Module:
     """A model of ``cfg`` on ``device`` (default CUDA) with random weights
     from a ``torch.Generator`` seeded with ``seed`` on that device (the
     same seed gives other numbers on another device); ``seed=None`` leaves
@@ -24,15 +26,16 @@ def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
     dev = resolve_device(device)
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1, "
-            f"item 10); the port runs the families {FAMILIES}")
+            f"family {cfg.family!r} is not ported yet: the encoder-decoder "
+            "(whisper) and VLM (qwen2-vl) families wait in ROADMAP.md, "
+            f"queue 1, item 10; the port runs the families {FAMILIES}")
     gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        return T.DecoderLM(cfg, dev, gen)
+        return LMS[cfg.family](cfg, dev, gen)
 
 
 def model_from_tensors(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
-                       ) -> T.DecoderLM:
+                       ) -> torch.nn.Module:
     """A model of ``cfg`` whose parameters are ``tensors`` themselves
     (``state_dict`` names), not copies: the ranks of a group that share
     one card wrap one set of weights this way (CUDA tensors handed to a

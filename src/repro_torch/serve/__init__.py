@@ -1,13 +1,15 @@
-"""Serving: prefill / decode, KV-cache slots, continuous batching with
-load-balanced request groups (the dense and MoE families), on one device
-or over a process group of one rank per group with KV-slot migration.
+"""Serving: prefill / decode, state slots, continuous batching with
+load-balanced request groups (the dense, MoE, SSM and hybrid families),
+on one device or over a process group of one rank per group with
+slot migration.
 
 Build a ``ServeSpec`` and hand it with a model to ``ServeSession``;
 ``repro_torch.serve.trace`` gives seeded bursty arrival traces and the
 open-loop latency run (``run_trace``).
 """
-from .decode import (KVCache, decode_step, init_decode_state, init_kv_cache,
-                     init_serve_state, packed_prefill, prefill, reset_slot)
+from .decode import (HybridState, KVCache, SSMState, decode_step,
+                     init_decode_state, init_kv_cache, init_serve_state,
+                     packed_prefill, prefill, reset_slot)
 from .engine import Request, ServeSession
 from .slots import (SlotMigrator, check_serve_world, make_paged_insert,
                     make_sharded_decode, n_slots_of, slot_axes, slot_nbytes,
@@ -17,7 +19,8 @@ from .spec import (ServeSpec, get_serve_stage, register_serve_stage,
 from .trace import TraceRequest, bursty_trace, run_trace
 
 __all__ = [
-    "KVCache", "Request", "ServeSession", "ServeSpec", "SlotMigrator",
+    "HybridState", "KVCache", "Request", "SSMState", "ServeSession",
+    "ServeSpec", "SlotMigrator",
     "TraceRequest", "bursty_trace", "check_serve_world", "decode_step",
     "get_serve_stage", "init_decode_state", "init_kv_cache",
     "init_serve_state", "make_paged_insert", "make_sharded_decode",

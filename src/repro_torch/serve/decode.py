@@ -1,45 +1,66 @@
-"""Prefill and single-token decode for the KV-cache families (dense and
-MoE decoders).
+"""Prefill and single-token decode for the served families: the KV-cache
+decoders (dense and MoE), the SSM (mamba2) and the hybrid
+(recurrentgemma).  Counterpart of ``repro/serve/decode.py``.
 
-Counterpart of the dense / MoE part of ``repro/serve/decode.py``.  The
-blocks' second half is ``models.transformer.block_ffn`` (MLP or MoE);
-an MoE block routes each batch row as its own group, so a decode row, a
-full prefill's prompt and the whole packed buffer (pad tokens included)
-are each one group.
+Serving state by family (the batch dimension is the slot axis):
 
-The KV cache layout is the reference's: k / v (L, b, hkv, S, hd) with
-``stored_pos`` (b, S) the absolute position each cache slot holds (-1
-empty) and ``pos`` (b,) the next position; S = min(window, max_seq)
-makes a ring buffer for sliding-window models.
+* dense / MoE: ``KVCache`` -- k / v (L, b, hkv, S, hd) with
+  ``stored_pos`` (b, S) the absolute position each cache slot holds (-1
+  empty) and ``pos`` (b,) the next position; S = min(window, max_seq)
+  makes a ring buffer for sliding-window models.  The blocks' second
+  half is ``models.transformer.block_ffn`` (MLP or MoE); an MoE block
+  routes each batch row as its own group, so a decode row, a full
+  prefill's prompt and the whole packed buffer (pad tokens included) are
+  each one group.
+* SSM: ``SSMState`` -- an ``SSMCache`` stacked over the layers (float32
+  state (L, b, h, dstate, p), conv window (L, b, conv_dim, kconv - 1))
+  and ``pos``: O(1) in the sequence length.
+* hybrid: ``HybridState`` -- one cache a layer, a ``KVCache`` of one
+  layer (a ring of S = min(window, max_seq)) for local attention or an
+  ``RGLRUCache``, and ``pos``.
 
-The reference's caches are immutable pytrees; here ``KVCache`` is updated
-in place (``decode_step``, ``reset_slot``, ``write_slot``), since a copy
-of a full-width cache is gigabytes.  So nothing may keep a second
-reference to a cache and expect it unchanged: ``reset_slot`` writes the
-empty values directly instead of copying them from a pristine cache.
+The conv windows follow the reference's types: a prefill seeds them in
+``act_dtype``, and the first decode step turns them float32 (the
+reference's concatenate of the window and the float32 input promotes),
+for good.
 
-The SSM, hybrid, encoder-decoder and VLM families wait (ROADMAP.md,
-queue 1, items 10 and 11).
+The reference's states are immutable pytrees; here they are updated in
+place (``decode_step``, ``reset_slot``, ``slots.write_slot``), since a
+copy of a full-width cache is gigabytes.  So nothing may keep a second
+reference to a state and expect it unchanged: ``reset_slot`` writes the
+empty values directly instead of copying them from a pristine state.
+
+The encoder-decoder and VLM families wait (ROADMAP.md, queue 1, items 10
+and 11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from ..kernels.ops import packed_attention_op
 from ..models.config import ModelConfig
 from ..models.layers import (apply_rope, attention_apply, attention_decode,
-                             embed_tokens, lm_logits, merge_heads,
+                             embed_tokens, lm_logits, merge_heads, mlp_apply,
                              project_heads, rmsnorm)
-from ..models.transformer import DecoderLM, block_ffn
+from ..models.rglru import (RGLRUCache, init_rglru_cache, rglru_block_apply,
+                            rglru_block_decode)
+from ..models.ssm import (SSMCache, init_ssm_cache, mamba2_apply,
+                          mamba2_decode)
+from ..models.transformer import (DecoderLM, HybridLM, SSMLM, block_ffn,
+                                  hybrid_layer_kinds)
 
+F32 = torch.float32
 #: the families whose serving state is a ``KVCache``
 KV_FAMILIES = ("dense", "moe")
-FAMILY_TODO = ("family {!r} cannot be served yet: the port serves the "
-               "KV-cache families " + str(KV_FAMILIES) + " (ROADMAP.md, "
-               "queue 1, items 10 and 11)")
+#: the families the port serves
+SERVED_FAMILIES = KV_FAMILIES + ("ssm", "hybrid")
+FAMILY_TODO = ("family {!r} cannot be served yet: the port serves "
+               + str(SERVED_FAMILIES) + "; the encoder-decoder (whisper) and "
+               "VLM (qwen2-vl) families wait (ROADMAP.md, queue 1, items 10 "
+               "and 11)")
 
 
 @dataclasses.dataclass
@@ -50,9 +71,36 @@ class KVCache:
     pos: torch.Tensor          # (b,) int32 next position
 
 
-def _kv_family(cfg: ModelConfig) -> None:
-    if cfg.family not in KV_FAMILIES:
+@dataclasses.dataclass
+class SSMState:
+    layers: SSMCache           # stacked over the layers: (L, b, ...)
+    pos: torch.Tensor          # (b,) int32 next position
+
+
+@dataclasses.dataclass
+class HybridState:
+    layers: Tuple              # a KVCache (L = 1) or an RGLRUCache a layer
+    pos: torch.Tensor          # (b,) int32 next position
+
+
+State = Union[KVCache, SSMState, HybridState]
+
+
+def _served(cfg: ModelConfig) -> None:
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+
+
+def _kv_family(cfg: ModelConfig) -> None:
+    """The packed prefill and its paged insert take KV caches only, as in
+    the reference: recurrent state cannot be segment-masked inside one
+    packed forward."""
+    _served(cfg)
+    if cfg.family not in KV_FAMILIES:
+        raise ValueError(f"family {cfg.family!r} carries recurrent state, "
+                         "which one packed forward cannot segment-mask: the "
+                         f"packed prefill takes the KV-cache families "
+                         f"{KV_FAMILIES}")
 
 
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
@@ -61,9 +109,10 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-                  device) -> KVCache:
+                  device, n_layers: Optional[int] = None) -> KVCache:
     S = cache_len(cfg, max_seq)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.hd)
+    L = cfg.n_layers if n_layers is None else n_layers
+    shape = (L, batch, cfg.n_kv_heads, S, cfg.hd)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
@@ -205,29 +254,185 @@ def packed_prefill(model: DecoderLM, tokens: torch.Tensor, seg: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# dispatch by family (the KV-cache families only)
+# ssm (mamba2)
 # ---------------------------------------------------------------------------
 
-def prefill(model: DecoderLM, batch: Dict, cfg: ModelConfig, *,
-            max_seq: int) -> Tuple[torch.Tensor, KVCache]:
-    _kv_family(cfg)
+def _promote_conv(cache) -> None:
+    """The reference's decode concatenates the ``act_dtype`` conv window
+    with a float32 input, so the window is float32 from the first decode
+    step on: swap it for a float32 copy once (the same values)."""
+    if cache.conv.dtype != F32:
+        cache.conv = cache.conv.to(F32)
+
+
+@torch.no_grad()
+def ssm_prefill(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, SSMState]:
+    """Forward over the prompt (b, s): last-position logits (b, vocab)
+    float32 and the state after it (conv windows in ``act_dtype``)."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    b, s = tokens.shape
+    caches = init_ssm_cache(cfg, b, device=x.device, n_layers=cfg.n_layers)
+    for li, layer in enumerate(model.layers):
+        y, c = mamba2_apply(layer.mixer, rmsnorm(x, layer.ln), cfg,
+                            return_cache=True)
+        caches.state[li] = c.state
+        caches.conv[li] = c.conv
+        x = x + y
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x[:, -1])
+    return logits, SSMState(caches, torch.full((b,), s, dtype=torch.int32,
+                                               device=x.device))
+
+
+@torch.no_grad()
+def ssm_decode_step(model: SSMLM, state: SSMState, tokens: torch.Tensor,
+                    cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
+    """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
+    float32; ``state`` advances in place."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    caches = state.layers
+    _promote_conv(caches)
+    for li, layer in enumerate(model.layers):
+        y, c = mamba2_decode(layer.mixer, rmsnorm(x, layer.ln), cfg,
+                             SSMCache(caches.state[li], caches.conv[li]))
+        caches.state[li] = c.state
+        caches.conv[li] = c.conv
+        x = x + y
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x)
+    state.pos += 1
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# hybrid (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def hybrid_prefill(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
+                   *, max_seq: int) -> Tuple[torch.Tensor, HybridState]:
+    """Forward over the prompt (b, s): last-position logits (b, vocab)
+    float32 and the state after it.  An attention layer's ring keeps the
+    last S = min(window, max_seq) positions, written through the inverse
+    of the permutation ``pos % S`` as the reference does."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    b, s = tokens.shape
+    dev = x.device
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    caches: List = []
+    for layer, kind in zip(model.layers, hybrid_layer_kinds(cfg)):
+        h = rmsnorm(x, layer.ln_mix)
+        if kind == "attn":
+            y, (k, v) = attention_apply(layer.attn, h, cfg, pos=pos,
+                                        causal=True, return_kv=True)
+            c = init_kv_cache(cfg, b, max_seq, device=dev, n_layers=1)
+            S = c.k.shape[3]
+            if S >= s:
+                c.k[0, :, :, :s] = k
+                c.v[0, :, :, :s] = v
+                c.stored_pos[:, :s] = torch.arange(s, dtype=torch.int32,
+                                                   device=dev)
+            else:
+                # slot = pos % S is a permutation of 0 .. S-1 over the last
+                # S positions: write them through its inverse
+                ring_pos = torch.arange(s - S, s, device=dev)
+                inv = torch.argsort(ring_pos % S)
+                c.k[0] = k[:, :, s - S:][:, :, inv]
+                c.v[0] = v[:, :, s - S:][:, :, inv]
+                c.stored_pos.copy_(ring_pos[inv].to(torch.int32).expand(b, S))
+            c.pos.fill_(s)
+        else:
+            y, c = rglru_block_apply(layer.rglru, h, cfg, return_cache=True)
+        caches.append(c)
+        x = x + y
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x[:, -1])
+    return logits, HybridState(tuple(caches), torch.full(
+        (b,), s, dtype=torch.int32, device=dev))
+
+
+@torch.no_grad()
+def hybrid_decode_step(model: HybridLM, state: HybridState,
+                       tokens: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, HybridState]:
+    """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
+    float32; ``state`` advances in place.  An attention layer's cache
+    takes the state's positions before its entry is written (the
+    reference sets the layer's ``pos`` from the state's)."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    for layer, kind, c in zip(model.layers, hybrid_layer_kinds(cfg),
+                              state.layers):
+        h = rmsnorm(x, layer.ln_mix)
+        if kind == "attn":
+            y, k_new, v_new = attention_decode(
+                layer.attn, h, cfg, cache_k=c.k[0], cache_v=c.v[0],
+                stored_pos=c.stored_pos, pos=state.pos)
+            c.pos.copy_(state.pos)
+            _write_slot(c, k_new[None], v_new[None])
+        else:
+            _promote_conv(c)
+            y, c2 = rglru_block_decode(layer.rglru, h, cfg, c)
+            c.h.copy_(c2.h)
+            c.conv.copy_(c2.conv)
+        x = x + y
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x)
+    state.pos += 1
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
+# dispatch by family
+# ---------------------------------------------------------------------------
+
+def prefill(model, batch: Dict, cfg: ModelConfig, *, max_seq: int
+            ) -> Tuple[torch.Tensor, State]:
+    """Last-position logits (b, vocab) float32 and the batch's state after
+    its prompts ``batch['tokens']`` (b, s)."""
+    _served(cfg)
     if batch.get("patch_embeds") is not None:
         raise NotImplementedError(FAMILY_TODO.format("vlm"))
+    if cfg.family == "ssm":
+        return ssm_prefill(model, batch["tokens"], cfg)
+    if cfg.family == "hybrid":
+        return hybrid_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
     return decoder_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
 
 
-def decode_step(model: DecoderLM, state: KVCache, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
-    _kv_family(cfg)
+def decode_step(model, state: State, tokens: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, State]:
+    _served(cfg)
+    if cfg.family == "ssm":
+        return ssm_decode_step(model, state, tokens, cfg)
+    if cfg.family == "hybrid":
+        return hybrid_decode_step(model, state, tokens, cfg)
     return decoder_decode_step(model, state, tokens, cfg)
 
 
+def _pos(batch: int, value: int, device) -> torch.Tensor:
+    return torch.full((batch,), value, dtype=torch.int32, device=device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device) -> KVCache:
+                      device) -> State:
     """The reference's dry-run state: every row's positions pre-wound
-    (``pos = max_seq - 1``, ``stored_pos = arange(S)``) over zero K/V.
-    The 'cheap' prefill oracle starts from it."""
-    _kv_family(cfg)
+    (``pos = max_seq - 1``; a KV cache's ``stored_pos = arange(S)``, a
+    hybrid attention layer's ring the last S positions) over zero K/V
+    and zero recurrent state.  The 'cheap' prefill oracle starts from
+    it."""
+    _served(cfg)
+    if cfg.family == "ssm":
+        return SSMState(init_ssm_cache(cfg, batch, device=device,
+                                       n_layers=cfg.n_layers),
+                        _pos(batch, max_seq - 1, device))
+    if cfg.family == "hybrid":
+        state = init_serve_state(cfg, batch, max_seq, device=device)
+        for i in range(batch):
+            reset_slot(state, i, cfg, wound_to=max_seq)
+        return state
     c = init_kv_cache(cfg, batch, max_seq, device=device)
     c.pos.fill_(max_seq - 1)
     c.stored_pos.copy_(torch.arange(c.k.shape[3], dtype=torch.int32,
@@ -236,31 +441,65 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                     device) -> KVCache:
-    """Empty decode state: pos = 0, no stored positions (the 'full' and
-    'packed' prefills seed each row)."""
-    _kv_family(cfg)
+                     device) -> State:
+    """Empty decode state: pos = 0, no stored positions, zero recurrent
+    state (the 'full' and 'packed' prefills seed each row)."""
+    _served(cfg)
+    if cfg.family == "ssm":
+        return SSMState(init_ssm_cache(cfg, batch, device=device,
+                                       n_layers=cfg.n_layers),
+                        _pos(batch, 0, device))
+    if cfg.family == "hybrid":
+        return HybridState(tuple(
+            init_kv_cache(cfg, batch, max_seq, device=device, n_layers=1)
+            if kind == "attn" else init_rglru_cache(cfg, batch, device=device)
+            for kind in hybrid_layer_kinds(cfg)), _pos(batch, 0, device))
     return init_kv_cache(cfg, batch, max_seq, device=device)
 
 
-def reset_slot(state: KVCache, i: int, cfg: ModelConfig, *,
-               wound_to: Optional[int] = None) -> KVCache:
-    """Reset batch row ``i`` in place: zero K/V, and the positions of an
-    empty row (``stored_pos = -1``, ``pos = 0``) -- or, with ``wound_to
-    = max_seq``, those of ``init_decode_state(max_seq)``'s rows.
-
-    A freed slot still holds its last request's K/V and positions;
-    admitting a new request without clearing them leaks the old context
-    into its attention.  The reference copies the row from a pristine
-    state; here the values are written directly."""
-    _kv_family(cfg)
-    state.k[:, i].zero_()
-    state.v[:, i].zero_()
-    if wound_to is None:
-        state.stored_pos[i].fill_(-1)
-        state.pos[i] = 0
+def _reset_kv_row(c: KVCache, i: int, first: Optional[int],
+                  pos: Optional[int]) -> None:
+    """Zero row i's K/V; ``first=None``: the positions of an empty row,
+    else ``stored_pos = first, first + 1, ...`` and ``pos``."""
+    c.k[:, i].zero_()
+    c.v[:, i].zero_()
+    if first is None:
+        c.stored_pos[i].fill_(-1)
+        c.pos[i] = 0
     else:
-        state.stored_pos[i].copy_(torch.arange(
-            state.k.shape[3], dtype=torch.int32, device=state.k.device))
-        state.pos[i] = wound_to - 1
+        c.stored_pos[i].copy_(torch.arange(
+            first, first + c.k.shape[3], dtype=torch.int32,
+            device=c.k.device))
+        c.pos[i] = pos
+
+
+def reset_slot(state: State, i: int, cfg: ModelConfig, *,
+               wound_to: Optional[int] = None) -> State:
+    """Reset batch row ``i`` in place: zero K/V and recurrent state, and
+    the positions of an empty row (``stored_pos = -1``, ``pos = 0``) --
+    or, with ``wound_to = max_seq``, those of ``init_decode_state
+    (max_seq)``'s rows.
+
+    A freed slot still holds its last request's K/V, state and
+    positions; admitting a new request without clearing them leaks the
+    old context into it.  The reference copies the row from a pristine
+    state; here the values are written directly."""
+    _served(cfg)
+    pos = 0 if wound_to is None else wound_to - 1
+    if cfg.family == "ssm":
+        state.layers.state[:, i].zero_()
+        state.layers.conv[:, i].zero_()
+    elif cfg.family == "hybrid":
+        for c in state.layers:
+            if isinstance(c, KVCache):
+                S = c.k.shape[3]
+                _reset_kv_row(c, i, None if wound_to is None
+                              else wound_to - S, pos)
+            else:
+                c.h[i].zero_()
+                c.conv[i].zero_()
+    else:
+        _reset_kv_row(state, i, None if wound_to is None else 0, pos)
+        return state
+    state.pos[i] = pos
     return state

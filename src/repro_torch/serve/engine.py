@@ -36,7 +36,6 @@ from ..core import Balancer
 from ..data.packing import first_fit_pack
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import DecoderLM
 from .decode import (decode_step, init_decode_state, init_serve_state,
                      packed_prefill, prefill, reset_slot)
 from .slots import (SlotMigrator, check_serve_world, make_paged_insert,
@@ -215,14 +214,19 @@ def _rebalance_kv(session: "ServeSession") -> Optional[Dict]:
 class ServeSession:
     """Resolve a ``ServeSpec`` into a running slot-based engine.
 
-    ``model``: a ``DecoderLM`` on the session's device.  Global slot s
+    ``model``: an LM of ``cfg``'s family (``models.init_model``) on the
+    session's device.  Global slot s
     belongs to group ``s // spg``; a request's ``group`` is its slot's
     group.  Admission fills the least-loaded group's lowest free slot;
     the rebalance stage re-labels the groups of the live requests
     ('tags') or migrates their KV slots ('kv').
 
     On one device (``device``, default CUDA; ``decode='replicated'``) the
-    decode state is one ``KVCache`` over all ``spec.total_slots`` slots.
+    decode state is the family's state (``serve.decode``: a ``KVCache``,
+    an ``SSMState`` or a ``HybridState``) over all ``spec.total_slots``
+    slots.  ``kv_slot_bytes`` is one slot's bytes in the state as it is
+    built, as the reference counts them: a conv window counts in
+    ``act_dtype``, though decode turns it float32.
     With ``decode='sharded'``, ``comm`` is a ``distributed.Comm`` of
     ``spec.groups`` ranks and the session runs on ``comm.device``: rank r
     holds group r's slots ``[r*spg, (r+1)*spg)`` as its state's rows.
@@ -242,7 +246,8 @@ class ServeSession:
     prefill rows, and every packed admission.
     """
 
-    def __init__(self, model: DecoderLM, cfg: ModelConfig, spec: ServeSpec,
+    def __init__(self, model: torch.nn.Module, cfg: ModelConfig,
+                 spec: ServeSpec,
                  *, device=None, tracer=None, on_logits=None, comm=None):
         self.model, self.cfg, self.spec = model, cfg, spec
         self.on_logits = on_logits

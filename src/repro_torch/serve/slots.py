@@ -1,24 +1,31 @@
-"""KV-cache slots: layout, slot writes, the paged insert of the packed
-prefill, and the migration of slots between the ranks of a group.
+"""Serving-state slots: layout, slot writes, the paged insert of the
+packed prefill, and the migration of slots between the ranks of a group.
 Counterpart of ``repro/serve/slots.py``.
 
-The serving state is a ``decode.KVCache`` whose batch dimension is a slot
-axis.  On one device it holds every global slot (``spec.total_slots``
-rows).  Over a process group of ``spec.groups`` ranks (one process per
-request group, ``distributed.comm.Comm``), rank r holds only its group's
-global slots ``[r*spg, (r+1)*spg)`` as rows ``[0, spg)``: the reference's
-``(g, slots/g, ...)`` layout over its group mesh, with the shards in rank
-order forming the reference's global state.
+The serving state is the family's state of ``serve.decode`` (a
+``KVCache``, an ``SSMState`` or a ``HybridState``) whose batch dimension
+is a slot axis.  On one device it holds every global slot
+(``spec.total_slots`` rows).  Over a process group of ``spec.groups``
+ranks (one process per request group, ``distributed.comm.Comm``), rank r
+holds only its group's global slots ``[r*spg, (r+1)*spg)`` as rows
+``[0, spg)``: the reference's ``(g, slots/g, ...)`` layout over its group
+mesh, with the shards in rank order forming the reference's global
+state.
 
-* ``slot_axes`` names the slot axis of each field; ``n_slots_of`` reads
-  its length; ``slot_nbytes`` is the bytes of one slot row.
-* ``write_slot`` merges a batch-1 prefill cache into one row;
+* ``slot_axes`` gives a tree of the state's own structure (dataclasses
+  and tuples) whose leaves name the slot axis of each tensor; every other
+  helper walks the state and that tree together, so all families share
+  the code.  ``n_slots_of`` reads the slot-axis length; ``slot_nbytes`` is
+  the bytes of one slot row.
+* ``write_slot`` merges a batch-1 prefill state into one row;
   ``make_paged_insert`` scatters a packed prefill's K/V into many slots
-  page by page, each rank keeping the pages of its own slots.
+  page by page, each rank keeping the pages of its own slots (KV caches
+  only).
 * ``check_serve_world`` checks that a ``Comm`` has one rank per group;
   ``make_sharded_decode`` is the per-group decode; ``SlotMigrator`` ships
-  slot rows between ranks with ``distributed.migrate.migrate_items``, the
-  fixed-capacity all_to_all executor of the FEM element migration.
+  slot rows (K/V, recurrent state, positions) between ranks with
+  ``distributed.migrate.migrate_items``, the fixed-capacity all_to_all
+  executor of the FEM element migration.
 
 All of them write the state in place.
 """
@@ -32,43 +39,67 @@ import torch
 
 from ..distributed.migrate import migrate_items
 from ..models.config import ModelConfig
-from .decode import KVCache, _kv_family, decode_step
+from ..models.rglru import RGLRUCache
+from ..models.ssm import SSMCache
+from ..models.transformer import hybrid_layer_kinds
+from .decode import (FAMILY_TODO, KV_FAMILIES, HybridState, KVCache,
+                     SSMState, State, _kv_family, decode_step)
 
-# the slot axis of each field: k / v are (L, b, hkv, S, hd)
+# the slot axis of each field: k / v are (L, b, hkv, S, hd); positions
+# and recurrent states carry the slot on axis 0, stacked ones on axis 1
 _KV_AXES = KVCache(k=1, v=1, stored_pos=0, pos=0)
 # a send buffer of one migration chunk stays under this many bytes (the
-# k and v rows of as many layers as fit; at least one layer a chunk)
+# rows of as many layers as fit; at least one layer a chunk)
 MIGRATE_CHUNK_BYTES = 1 << 28
 
 
-def slot_axes(cfg: ModelConfig) -> KVCache:
-    """Slot-axis index of each field of the serving state."""
-    _kv_family(cfg)
-    return _KV_AXES
+def slot_axes(cfg: ModelConfig):
+    """The slot-axis index of each leaf, in a tree of the serving state's
+    structure for ``cfg.family``."""
+    if cfg.family in KV_FAMILIES:
+        return _KV_AXES
+    if cfg.family == "ssm":
+        return SSMState(layers=SSMCache(state=1, conv=1), pos=0)
+    if cfg.family == "hybrid":
+        return HybridState(
+            layers=tuple(_KV_AXES if kind == "attn"
+                         else RGLRUCache(h=0, conv=0)
+                         for kind in hybrid_layer_kinds(cfg)),
+            pos=0)
+    raise NotImplementedError(FAMILY_TODO.format(cfg.family))
 
 
-def _fields(x):
-    return [getattr(x, f.name) for f in dataclasses.fields(x)]
+def _leaves(x) -> list:
+    """The leaves of a state (or axes) tree, dataclass fields and tuple
+    items in order."""
+    if dataclasses.is_dataclass(x):
+        return [leaf for f in dataclasses.fields(x)
+                for leaf in _leaves(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [leaf for item in x for leaf in _leaves(item)]
+    return [x]
 
 
-def slot_nbytes(state: KVCache, axes: KVCache) -> int:
+def slot_nbytes(state: State, axes) -> int:
     """Bytes of one slot row across the state: the unit of the migration
     volume accounting."""
     return sum(leaf.numel() // leaf.shape[ax] * leaf.element_size()
-               for leaf, ax in zip(_fields(state), _fields(axes)))
+               for leaf, ax in zip(_leaves(state), _leaves(axes)))
 
 
-def n_slots_of(state: KVCache, axes: KVCache) -> int:
+def n_slots_of(state: State, axes) -> int:
     """Slot-axis length of a state: the global slot count on one device,
     a rank's ``spg`` rows over a group."""
-    return int(state.k.shape[axes.k])
+    leaf, ax = _leaves(state)[0], _leaves(axes)[0]
+    return int(leaf.shape[ax])
 
 
-def write_slot(state: KVCache, row: KVCache, slot: int, axes: KVCache
-               ) -> KVCache:
+def write_slot(state: State, row: State, slot: int, axes) -> State:
     """Overwrite row ``slot`` of ``state`` with the batch-1 state ``row``
-    (a prefill cache of the same ``max_seq``), in place."""
-    for leaf, r, ax in zip(_fields(state), _fields(row), _fields(axes)):
+    (a prefill state of the same ``max_seq``), in place (a row's values
+    take the state's types: an ``act_dtype`` conv window lands exactly in
+    a float32 one)."""
+    for leaf, r, ax in zip(_leaves(state), _leaves(row), _leaves(axes)):
         idx = (slice(None),) * ax
         leaf[idx + (slot,)] = r[idx + (0,)]
     return state
@@ -96,9 +127,8 @@ def make_sharded_decode(cfg: ModelConfig, comm):
     Returns ``decode(model, state, tokens) -> (logits, next_tokens)``
     with the logits of this rank's rows and ``next_tokens`` of every
     slot."""
-    _kv_family(cfg)
 
-    def decode(model, state: KVCache, tokens: torch.Tensor):
+    def decode(model, state: State, tokens: torch.Tensor):
         logits, _ = decode_step(model, state, tokens, cfg)
         return logits, comm.all_gather(torch.argmax(logits[:, -1], dim=-1))
 
@@ -162,8 +192,36 @@ def make_paged_insert(cfg: ModelConfig, comm=None, *, total_slots: int,
     return insert
 
 
+def _units(state: State, axes) -> Tuple[List[List[torch.Tensor]],
+                                       List[torch.Tensor]]:
+    """The migration payload of a state, as views with the slot axis
+    first: one unit a layer (the layer's rows of every leaf stacked over
+    the layers, or every leaf of one cache of a per-layer tuple) and the
+    per-slot leaves outside the layers (positions)."""
+    stacked: Dict[int, List[torch.Tensor]] = {}
+    per_layer: List[List[torch.Tensor]] = []
+    rest: List[torch.Tensor] = []
+
+    def walk(x, ax):
+        if isinstance(x, tuple):
+            per_layer.extend([leaf.movedim(a, 0) for leaf, a in
+                              zip(_leaves(c), _leaves(ca))]
+                             for c, ca in zip(x, ax))
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), getattr(ax, f.name))
+        elif ax == 0:
+            rest.append(x)
+        else:               # slot axis 1: stacked over the layers on axis 0
+            for layer in range(x.shape[0]):
+                stacked.setdefault(layer, []).append(x[layer])
+
+    walk(state, axes)
+    return [stacked[k] for k in sorted(stacked)] + per_layer, rest
+
+
 class SlotMigrator:
-    """Ship KV slot rows between the ranks of a group with the all_to_all
+    """Ship slot rows between the ranks of a group with the all_to_all
     executor.
 
     ``__call__(state, moves)`` with ``moves`` a sequence of ``(src_slot,
@@ -174,18 +232,20 @@ class SlotMigrator:
     updated in place.  Returns the state and the executor's volume
     scalars, summed over the ranks.
 
-    The payload is each field's slot rows, slot axis first, weighted by
-    ``slot_nbytes``.  It is shipped in chunks of layers whose send buffer
-    stays under ``chunk_bytes`` (at least one layer a chunk), with the
-    same plan for every chunk, so the bits received equal one whole
-    call's; the volume scalars come from the first chunk.  The fixed
+    The payload is every leaf's slot rows, slot axis first (K/V,
+    recurrent state, conv windows, positions), weighted by the template's
+    ``slot_nbytes`` (the reference's ``w_bytes``, taken once: a conv
+    window that has turned float32 since ships more bytes than it
+    weighs).  It is shipped in chunks of whole layers whose send buffer
+    stays under ``chunk_bytes`` (at least one layer a chunk; the
+    positions go with the first), with the same plan for every chunk, so
+    the bits received equal one whole call's; the volume scalars come
+    from the first chunk.  The fixed
     capacity ships ``groups * spg`` rows a call, moved or not: the bytes
     put on the exchange are counted in ``comm.all_to_all_bytes``."""
 
-    def __init__(self, cfg: ModelConfig, comm, axes: KVCache,
-                 state_template: KVCache, *,
-                 chunk_bytes: int = MIGRATE_CHUNK_BYTES):
-        _kv_family(cfg)
+    def __init__(self, cfg: ModelConfig, comm, axes, state_template: State,
+                 *, chunk_bytes: int = MIGRATE_CHUNK_BYTES):
         self.comm, self.axes = comm, axes
         self.groups = comm.size
         self.spg = n_slots_of(state_template, axes)
@@ -221,28 +281,31 @@ class SlotMigrator:
             counts[dg] += 1
         return dest, valid, recv
 
-    def _chunks(self, state: KVCache) -> List[Dict[str, torch.Tensor]]:
-        """Payload views, slot axis first: k and v a range of layers at a
-        time, the positions with the first range."""
-        L = state.k.shape[0]
-        row_layer = 2 * state.k[0, 0].numel() * state.k.element_size()
-        per = max(1, self.chunk_bytes // (self.groups * self.spg * row_layer))
-        out = []
-        for l0 in range(0, L, per):
-            chunk = {"k": state.k[l0:l0 + per].movedim(1, 0),
-                     "v": state.v[l0:l0 + per].movedim(1, 0)}
-            if l0 == 0:
-                chunk.update(stored_pos=state.stored_pos, pos=state.pos)
-            out.append(chunk)
-        return out
+    def _chunks(self, state: State) -> List[Dict[str, torch.Tensor]]:
+        """Payload views, slot axis first: whole layers a chunk, the
+        positions with the first."""
+        units, rest = _units(state, self.axes)
+        rows = self.groups * self.spg
+        chunks: List[List[torch.Tensor]] = [[]]
+        size = 0
+        for unit in units:
+            b = rows * sum(v[0].numel() * v.element_size() for v in unit)
+            if chunks[-1] and size + b > self.chunk_bytes:
+                chunks.append([])
+                size = 0
+            chunks[-1].extend(unit)
+            size += b
+        chunks[0].extend(rest)
+        return [{str(i): v for i, v in enumerate(c)} for c in chunks]
 
-    def __call__(self, state: KVCache, moves: Sequence[Tuple[int, int]]
-                 ) -> Tuple[KVCache, Dict[str, float]]:
+    def __call__(self, state: State, moves: Sequence[Tuple[int, int]]
+                 ) -> Tuple[State, Dict[str, float]]:
         if not moves:
             return state, {"moved_bytes": 0.0, "received_bytes": 0.0,
                            "n_moved": 0, "overflow": 0}
         dest, valid, recv = self.plan(moves)
-        g, spg, dev = self.groups, self.spg, state.k.device
+        g, spg = self.groups, self.spg
+        dev = _leaves(state)[0].device
         mine = slice(self.comm.rank * spg, (self.comm.rank + 1) * spg)
         dest_l = torch.as_tensor(dest[mine], device=dev)
         valid_l = torch.as_tensor(valid[mine], device=dev)

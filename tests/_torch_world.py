@@ -417,10 +417,71 @@ def moe_requests(Request, prompts):
             for i, p in enumerate(prompts)]
 
 
-def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None):
+# the recurrent families (mamba2, recurrentgemma at SMOKE): sharded decode
+# with KV rebalancing and a forced migration; prompts of 20-38 tokens wrap
+# the hybrid's ring of 32
+RECURRENT_SPEC = dict(SERVE_BASE, rebalance_every=4)
+
+
+def recurrent_prompts(vocab, seed):
+    rng = np.random.default_rng(seed)
+    return {"parity": rng.integers(1, vocab, 36),
+            "kv": [rng.integers(1, vocab, 20 + 2 * i) for i in range(10)]}
+
+
+def recurrent_scenarios(make, Request, prompts):
+    return {"migration_parity": _migration_parity(make, Request,
+                                                  prompts["parity"]),
+            "kv_rebalance": _kv_rebalance(make, Request, prompts["kv"])}
+
+
+def recurrent_migrations(comm, cfg, arrays, moves):
+    """``SlotMigrator`` on this rank's rows of a global SSM / hybrid state
+    (``arrays``: its leaves in order), whole and one layer a chunk."""
+    from repro_torch.serve import SlotMigrator, init_serve_state, slot_axes
+    from repro_torch.serve.slots import _leaves
+    axes = _leaves(slot_axes(cfg))
+    spg = arrays[0].shape[axes[0]] // comm.size
+    mine = slice(comm.rank * spg, (comm.rank + 1) * spg)
+    out = {}
+    for name, chunk in (("whole", 1 << 62), ("chunked", 1)):
+        state = init_serve_state(cfg, spg, 64, device="cpu")
+        for leaf, ax, a in zip(_leaves(state), axes, arrays):
+            leaf.copy_(torch.as_tensor(a[(slice(None),) * ax + (mine,)]))
+        mig = SlotMigrator(cfg, comm, slot_axes(cfg), state,
+                           chunk_bytes=chunk)
+        sent = comm.all_to_all_bytes
+        state, stats = mig(state, moves)
+        out[name] = {"state": [x.numpy() for x in _leaves(state)],
+                     "stats": stats,
+                     "wire_bytes": comm.all_to_all_bytes - sent}
+    return out
+
+
+def recurrent_world(comm, arch, weights, prompts, arrays, moves):
+    """A recurrent family's sharded scenarios and its slot migrator."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model_from_tensors
+    from repro_torch.serve import Request, ServeSession, ServeSpec
+    cfg = get_smoke(arch)
+    model = model_from_tensors(cfg, {k: torch.as_tensor(v)
+                                     for k, v in weights.items()})
+
+    def make(**kw):
+        spec = ServeSpec(**{**RECURRENT_SPEC, **kw})
+        return ServeSession(model, cfg, spec, comm=comm)
+
+    return {"scenarios": recurrent_scenarios(make, Request, prompts),
+            "migration": recurrent_migrations(comm, cfg, arrays, moves)}
+
+
+def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None,
+                recurrent=()):
     """Every scenario of this world's group count on the port's sharded
     session, then (at 4 groups) the slot migrator alone and, with
-    ``moe_case`` = (cfg, weights, prompts), an MoE model's session."""
+    ``moe_case`` = (cfg, weights, prompts), an MoE model's session; then
+    each case of ``recurrent`` (``recurrent_world``'s arguments), by
+    architecture."""
     from repro_torch.models import model_from_tensors
     from repro_torch.serve import Request, ServeSession, ServeSpec
     model = model_from_tensors(cfg, {k: torch.as_tensor(v)
@@ -439,4 +500,6 @@ def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None):
                                         for k, v in mweights.items()})
         sess = ServeSession(moe, mcfg, ServeSpec(**MOE_SPEC), comm=comm)
         out["moe"] = _run_all(sess, moe_requests(Request, mprompts), 128)
+    out["recurrent"] = {case[0]: recurrent_world(comm, *case)
+                        for case in recurrent}
     return out

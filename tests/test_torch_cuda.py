@@ -517,6 +517,9 @@ def _qkv(rng, qshape, kshape, dtype, device):
     (1, 8, 2, 300, 120, True, 64),         # danube3's head dim, a window
     (1, 8, 2, 300, 80, True, 64),          # danube-1.8b's head dim
     (1, 24, 2, 200, 128, True, None),      # command-r's GQA group of 12
+    (1, 10, 1, 300, 256, True, 64),        # recurrentgemma's MQA of 10, d 256
+    (1, 10, 1, 2300, 256, True, 2048),     # its window of 2048, passed
+    (2, 3, 3, 77, 200, False, None),       # 128 < d < 256, ragged
 ])
 def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
                                       window):
@@ -631,13 +634,50 @@ def test_attention_wrappers_reject_bad_inputs(cuda):
         flash_attention_cuda(q, torch.zeros((1, 3, 8, 16), device=cuda),
                              torch.zeros((1, 3, 8, 16), device=cuda))
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros((1, 1, 8, 256), device=cuda)
+        big = torch.zeros((1, 1, 8, 257), device=cuda)
         flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="head dim"):
+        d256 = torch.zeros((1, 8, 256), device=cuda)
+        packed_attention_cuda(d256, d256, d256,
+                              torch.zeros(8, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="int32"):
         packed_attention_cuda(q[0], q[0], q[0],
                               torch.zeros(8, dtype=torch.int64, device=cuda))
+
+
+def test_refused_flash_launch_raises(cuda):
+    """A launch the C entry refuses returns its CUDA error, and the wrapper
+    raises on it (a head dim above 256 never reaches a kernel)."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    x = torch.zeros((1, 1, 8, 300), dtype=torch.bfloat16, device=cuda)
+    o = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    for entry in (lib.repro_flash_attention_tc, lib.repro_flash_attention):
+        err = entry(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(),
+                    1, 1, 1, 8, 300, 1.0, 1, 0, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(err, "flash_attention")
+
+
+def test_flash_attention_head_dim_256_runs_on_tensor_cores(cuda):
+    """recurrentgemma's prefill shape (10 / 1 heads, d = 256, window 2048,
+    a prompt past the window) runs the bf16 tensor-core kernel and
+    repeats its bits."""
+    rng = np.random.default_rng(256)
+    q, k, v = _qkv(rng, (1, 10, 2500, 256), (1, 1, 2500, 256),
+                   torch.bfloat16, cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_op(q, k, v, causal=True, window=2048)
+    again = ops.flash_attention_op(q, k, v, causal=True, window=2048)
+    assert flash_attention_cuda.variants == {"bf16_tensor_core": 2,
+                                             "f32_cuda_core": 0}
+    assert torch.equal(got, again)
+    _assert_close(got, ref.mha_ref(q, k, v, causal=True, window=2048),
+                  torch.bfloat16)
 
 
 # --- the serving path on the card --------------------------------------------
@@ -749,7 +789,10 @@ def test_serve_session_on_card_matches_cpu(cuda, prefill):
                                          prompt_buckets=(8, 16, 32),
                                          max_new_cap=12))
         if dev != "cpu":
-            name = "serve_prefill" if prefill == "packed" else "flash_attention"
+            # the SSM path runs no attention: its kernel is the balancer's
+            name = ("serve_prefill" if prefill == "packed" else
+                    "ksection_hist" if cfg.family == "ssm" else
+                    "flash_attention")
             assert ops.launch_counts()[name] > 0
         outs.append([r.out for r in reqs])
         logs.append(m["migration_log"])
@@ -826,6 +869,8 @@ def test_moe_apply_bf16_on_card_matches_cpu(cuda):
     ("phi35_moe_42b", "packed", (8, 16, 32)),
     ("grok_1_314b", "packed", (8, 16, 32)),
     ("h2o_danube3_4b", "full", (48, 64, 96)),      # prompts wrap the ring
+    ("mamba2_1_3b", "full", (8, 16, 32)),
+    ("recurrentgemma_2b", "full", (48, 64, 96)),   # prompts wrap the ring
 ])
 def test_serve_session_on_card_matches_cpu_at_smoke(cuda, arch, prefill,
                                                      buckets):
@@ -852,7 +897,10 @@ def test_serve_session_on_card_matches_cpu_at_smoke(cuda, arch, prefill,
                                          prompt_buckets=buckets,
                                          max_new_cap=16))
         if dev != "cpu":
-            name = "serve_prefill" if prefill == "packed" else "flash_attention"
+            # the SSM path runs no attention: its kernel is the balancer's
+            name = ("serve_prefill" if prefill == "packed" else
+                    "ksection_hist" if cfg.family == "ssm" else
+                    "flash_attention")
             assert ops.launch_counts()[name] > 0
         outs.append([r.out for r in reqs])
         logs.append(m["migration_log"])

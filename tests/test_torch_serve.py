@@ -26,8 +26,10 @@ from repro_torch import configs
 from repro_torch.core import BalanceSpec
 from repro_torch.data.packing import first_fit_pack
 from repro_torch.interop import params_from_jax
+from repro_torch.models import init_model
 from repro_torch.serve import (KVCache, Request, ServeSession, ServeSpec,
-                               bursty_trace, make_paged_insert, run_trace)
+                               bursty_trace, make_paged_insert,
+                               packed_prefill, run_trace)
 
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128)
@@ -318,3 +320,96 @@ def test_session_rejects_a_model_on_another_device(tiny):
     spec = ServeSpec(**_spec_kw("full"))
     with pytest.raises(ValueError, match="parameters"):
         ServeSession(model, cfg, spec, device="meta")
+
+
+# --- the recurrent families at SMOKE -----------------------------------------
+# mamba2 (O(1) state) and recurrentgemma (RG-LRU state and a local-attention
+# ring of 32, which the ring trace's prompts of 48-96 wrap), 'full' and
+# 'cheap' prefill (the packed prefill refuses recurrent state in both
+# packages).
+RECURRENT_CASES = [("mamba2_1_3b", "full", ARCH_TRACE),
+                   ("mamba2_1_3b", "cheap", ARCH_TRACE),
+                   ("recurrentgemma_2b", "full", RING_TRACE),
+                   ("recurrentgemma_2b", "cheap", ARCH_TRACE)]
+
+
+def _recurrent_leaves(state):
+    """(name, array) of every leaf of an SSMState / HybridState of either
+    package."""
+    if hasattr(state.layers, "state"):                  # SSMState
+        return [("state", state.layers.state), ("conv", state.layers.conv),
+                ("pos", state.pos)]
+    out = [("pos", state.pos)]
+    for i, c in enumerate(state.layers):
+        names = (("k", "v", "stored_pos", "pos") if hasattr(c, "k")
+                 else ("h", "conv"))
+        out += [(f"{i}.{n}", getattr(c, n)) for n in names]
+    return out
+
+
+@pytest.mark.parametrize("arch,prefill,trace_kw", RECURRENT_CASES,
+                         ids=[f"{a}-{p}" for a, p, _ in RECURRENT_CASES])
+def test_recurrent_session_matches_reference(arch, prefill, trace_kw):
+    """Tokens, groups, the migration log, prefill_stats, kv_slot_bytes and
+    the final state (every leaf, its type too) equal the JAX session's."""
+    jcfg, cfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    params = j_init_model(jcfg, jax.random.PRNGKey(0))
+    model = params_from_jax(params, cfg, device="cpu")
+    kw = dict(ARCH_SPEC, prefill=prefill)
+    jsess = JSession(params, jcfg, JSpec(**kw))
+    jr, jreqs = _drive(jsess, j_bursty_trace(12, vocab=cfg.vocab,
+                                             **trace_kw), j_run_trace)
+    sess = ServeSession(model, cfg, ServeSpec(**kw), device="cpu")
+    tr, treqs = _drive(sess, bursty_trace(12, vocab=cfg.vocab, **trace_kw),
+                       run_trace)
+    assert [r.rid for r in treqs] == [r.rid for r in jreqs]
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+    assert [r.group for r in treqs] == [r.group for r in jreqs]
+    assert tr["migration_log"] == jr["migration_log"]
+    assert len(tr["migration_log"]) >= 2
+    assert sess.prefill_stats == jsess.prefill_stats
+    assert sess.kv_slot_bytes == jsess.kv_slot_bytes
+    got, want = _recurrent_leaves(sess.state), _recurrent_leaves(jsess.state)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        b = np.asarray(b)
+        assert str(a.dtype).split(".")[-1] == str(b.dtype), name
+        scale = max(float(np.abs(b).max()), 1.0)
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * scale, name
+    if arch == "recurrentgemma_2b" and prefill == "full":
+        assert min(len(r.prompt) for r in treqs) > cfg.window
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "recurrentgemma_2b"])
+def test_packed_prefill_refuses_recurrent_state(arch):
+    cfg = configs.get_smoke(arch)
+    model = init_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="KV-cache family"):
+        ServeSession(model, cfg, ServeSpec(**_spec_kw("packed")),
+                     device="cpu")
+    with pytest.raises(ValueError, match="recurrent state"):
+        packed_prefill(model, *(torch.zeros(8, dtype=torch.int64)
+                                for _ in range(4)), cfg)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "recurrentgemma_2b"])
+def test_recurrent_slot_reuse_matches_fresh_session(arch):
+    """A request admitted into a freed slot decodes as in a fresh session:
+    the recurrent state, conv windows and ring are reset in place."""
+    cfg = configs.get_smoke(arch)
+    model = init_model(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(0)
+    prompt_a, prompt_b = rng.integers(1, cfg.vocab, 40), \
+        rng.integers(1, cfg.vocab, 12)
+    kw = dict(_spec_kw("full"), slots=1, groups=2, rebalance_every=1000)
+    eng = ServeSession(model, cfg, ServeSpec(**kw), device="cpu")
+    eng.submit(Request(rid=0, prompt=prompt_a, max_new=6))
+    eng.run(max_steps=16)
+    b = Request(rid=1, prompt=prompt_b, max_new=6)
+    eng.submit(b)
+    eng.run(max_steps=16)
+    fresh = ServeSession(model, cfg, ServeSpec(**kw), device="cpu")
+    b2 = Request(rid=2, prompt=prompt_b, max_new=6)
+    fresh.submit(b2)
+    fresh.run(max_steps=16)
+    assert b.done and b.out == b2.out

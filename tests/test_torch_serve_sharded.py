@@ -26,6 +26,7 @@ from repro.models import init_model as j_init_model
 from repro.serve import Request as JRequest
 from repro.serve import ServeSession as JSession
 from repro.serve import ServeSpec as JSpec
+from repro.serve import decode as JD
 from repro.serve.decode import KVCache as JKVCache
 from repro.serve.slots import SlotMigrator as JSlotMigrator
 from repro.serve.slots import build_serve_mesh, slot_axes as j_slot_axes
@@ -84,18 +85,66 @@ def moe_case():
     return cfg, weights, prompts, model
 
 
-def _port_worlds(cfg, weights, moe_case, tmp_path_factory):
+RECURRENT = ("mamba2_1_3b", "recurrentgemma_2b")
+# moves of the recurrent migrator case: a chain and two more
+RECURRENT_MOVES = [(1, 6), (6, 2), (4, 0), (7, 5)]
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """Per architecture: the JAX SMOKE params and config, the port
+    weights, the prompts, a random global state of 8 slots (its leaves)
+    for the migrator."""
+    out = {}
+    for i, arch in enumerate(RECURRENT):
+        jcfg = jconfigs.get_smoke(arch)
+        params = j_init_model(jcfg, jax.random.PRNGKey(0))
+        model = params_from_jax(params, configs.get_smoke(arch),
+                                device="cpu")
+        weights = {k: v.numpy() for k, v in model.state_dict().items()}
+        rng = np.random.default_rng(30 + i)
+        template = JD.init_serve_state(jcfg, 8, 64)
+        arrays = [rng.integers(-1, 64, x.shape).astype(np.int32)
+                  if x.dtype == jnp.int32 else
+                  rng.standard_normal(x.shape).astype(np.float32)
+                  for x in jax.tree.leaves(template)]
+        out[arch] = dict(jcfg=jcfg, params=params, weights=weights,
+                         prompts=W.recurrent_prompts(jcfg.vocab, 40 + i),
+                         arrays=arrays, template=template)
+    return out
+
+
+def _port_worlds(cfg, weights, moe_case, recurrent, tmp_path_factory):
     """{groups: [rank 0's results, rank 1's, ...]} from one world each."""
     prompts = _prompts(cfg.vocab)
+    rec = [(arch, r["weights"], r["prompts"], r["arrays"], RECURRENT_MOVES)
+           for arch, r in recurrent.items()]
     return {p: W.world(W.serve_world, cfg, weights, prompts,
                        _migration_case(cfg) if p == 4 else None,
                        moe_case[:3] if p == 4 else None,
+                       rec if p == 4 else (),
                        tmp_path=tmp_path_factory.mktemp(f"serve{p}"), p=p)
             for p in (4, 2)}
 
 
+def _j_recurrent(r):
+    """The JAX package's recurrent scenarios and migrator on 4 groups."""
+    jcfg, params = r["jcfg"], r["params"]
+
+    def make(**kw):
+        return JSession(params, jcfg, JSpec(**{**W.RECURRENT_SPEC, **kw}))
+
+    state = jax.tree.unflatten(jax.tree.structure(r["template"]),
+                               [jnp.asarray(a) for a in r["arrays"]])
+    mig = JSlotMigrator(jcfg, build_serve_mesh(4), j_slot_axes(jcfg), state)
+    state, stats = mig(state, RECURRENT_MOVES)
+    return {"scenarios": W.recurrent_scenarios(make, JRequest, r["prompts"]),
+            "migration": ([np.asarray(x) for x in jax.tree.leaves(state)],
+                          stats, mig.bytes_per_slot)}
+
+
 @pytest.fixture(scope="module")
-def runs(tiny, moe_case, tmp_path_factory):
+def runs(tiny, moe_case, recurrent, tmp_path_factory):
     """The port's worlds (in a thread: the ranks are processes) while the
     JAX package runs the same scenarios here."""
     jcfg, cfg, params, _, weights = tiny
@@ -105,10 +154,12 @@ def runs(tiny, moe_case, tmp_path_factory):
         return JSession(params, jcfg, JSpec(**{**W.SERVE_BASE, **kw}))
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        worlds = pool.submit(_port_worlds, cfg, weights, moe_case,
+        worlds = pool.submit(_port_worlds, cfg, weights, moe_case, recurrent,
                              tmp_path_factory)
         reference = {p: W.serve_scenarios(make, JRequest, prompts, p)
                      for p in (4, 2)}
+        reference["recurrent"] = {arch: _j_recurrent(r)
+                                  for arch, r in recurrent.items()}
         return worlds.result(), reference
 
 
@@ -270,3 +321,60 @@ def test_slot_migrator_matches_reference_whole_and_chunked(tiny, port):
     assert ranks[0]["whole"]["wire_bytes"] == 8 * (nbytes + 8)
     assert ranks[0]["chunked"]["wire_bytes"] == 8 * (nbytes + 16)
 
+
+
+# --- the recurrent families ----------------------------------------------------
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("name", ["migration_parity", "kv_rebalance"])
+def test_recurrent_sharded_session_matches_reference(port, reference, arch,
+                                                     name):
+    """mamba2 and recurrentgemma with sharded decode and KV rebalancing:
+    tokens, groups, slots, the migration log (moved_kv_bytes in the
+    reference's count) and prefill_stats equal the JAX session's on every
+    rank."""
+    want = _plain(reference["recurrent"][arch]["scenarios"][name])
+    for rank, res in enumerate(port[4]):
+        assert _plain(res["recurrent"][arch]["scenarios"][name]) == want, rank
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forced_migration_changes_no_token(port, arch):
+    res = port[4][0]["recurrent"][arch]["scenarios"]
+    ref, mig = res["migration_parity"]["ref"], res["migration_parity"]["mig"]
+    assert ref["done"] == mig["done"] == [True]
+    assert mig["migrations"] == [1] and mig["group"] == [2]
+    assert ref["out"] == mig["out"]
+    assert mig["stats"]["moved_kv_bytes"] == mig["kv_slot_bytes"]
+    kv = res["kv_rebalance"]
+    assert sum(kv["migrations"]) >= 1
+    assert sum(e["moved_kv_bytes"] for e in kv["log"]) == (
+        sum(kv["migrations"]) * kv["kv_slot_bytes"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_slot_migrator_matches_reference(port, reference,
+                                                   recurrent, arch):
+    """The SSM state (stacked layers) and the hybrid's per-layer tuple of
+    rings and RG-LRU states, shipped whole and one layer a chunk: the
+    ranks' rows in rank order equal the JAX migrator's global state, with
+    the same stats."""
+    from repro_torch.serve import slot_axes
+    from repro_torch.serve.slots import _leaves
+    want, jstats, jbytes = reference["recurrent"][arch]["migration"]
+    axes = _leaves(slot_axes(configs.get_smoke(arch)))
+    ranks = [r["recurrent"][arch]["migration"] for r in port[4]]
+    for name in ("whole", "chunked"):
+        got = [np.concatenate([r[name]["state"][i] for r in ranks], axis=ax)
+               for i, ax in enumerate(axes)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for r in ranks:
+            assert r[name]["stats"] == jstats
+    assert jstats["moved_bytes"] == len(RECURRENT_MOVES) * jbytes
+    # one layer a chunk: the weight and validity rows go once a chunk
+    n_layers = configs.get_smoke(arch).n_layers
+    whole, chunked = ranks[0]["whole"], ranks[0]["chunked"]
+    assert chunked["wire_bytes"] - whole["wire_bytes"] == (
+        8 * 8 * (n_layers - 1))
