@@ -111,11 +111,28 @@ CUDA toolkit's nvcc.  It
     cores with the window) and over phase 6's trace; holds the flash
     kernel at d = 256 against its plain version at s = 6,144 with SDPA's
     time beside it; the SMOKE config with a ring, card against CPU;
-20. prints the kernel table as one JSON line (with each rank's launches
+20. serves whisper-medium at full width and depth (24 encoder and 24
+    decoder layers): the batch API with 16 rows of 1,500 stub frames and
+    128-token prompts, then 64 decode steps (every flash launch bf16 on
+    the tensor cores at the encoder's, the decoder's and the
+    cross-attention's shapes, 72 at prefill and 24 a step), held against
+    the plain route on the card; a 'cheap' session over phase 6's trace
+    (vocab 51,865), the reference's engine path; the flash kernel at
+    the encoder's (1,500 x 1,500, no mask) and the cross-attention's
+    (128 x 1,500 and 1 x 1,500) shapes against its plain version with
+    SDPA's time beside it; the SMOKE config's batch API and cheap
+    session, card against CPU;
+21. serves qwen2-vl-72b at full width (depth cut) with full prefill over
+    phase 6's trace (packed refused with the "mrope" message; every flash
+    launch bf16 at 64 / 8 heads), then the VLM front end: 4 rows of 256
+    patch embeddings before 128-token prompts and 8 decode steps, held
+    against the plain route; the SMOKE config, card against CPU;
+22. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-19 in ``launches_by_path`` and the flash kernel's d = 256 reading
-    as ``at_head_dim_256``), the card's name and power limit, and
-    ``{"ok": true, ...}`` as the last line.
+    14-21 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    ``at_head_dim_256`` and whisper's as ``at_encoder``,
+    ``at_cross_prefill`` and ``at_cross_decode``), the card's name and
+    power limit, and ``{"ok": true, ...}`` as the last line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
@@ -1689,14 +1706,16 @@ def compare_mlp(serve, dev):
         f"another bf16 value")
 
 
-def attention_bound(pairs, hq, hkv, n_in, n_out, d, extra_bytes=0):
+def attention_bound(pairs, hq, hkv, n_in, n_out, d, extra_bytes=0,
+                    n_kv=None):
     """(bound ms, by): 4 d flops per visible (query, key) pair and head
     over the bf16 tensor-core peak, against the bytes the function must
-    move over the memory rate: q, k and v (bf16) read once over the
-    ``n_in`` tokens that have a visible key, o written once over all
-    ``n_out`` rows."""
+    move over the memory rate: q (bf16) read once over the ``n_in``
+    tokens that have a visible key, k and v over ``n_kv`` keys (default
+    ``n_in``), o written once over all ``n_out`` rows."""
+    n_kv = n_in if n_kv is None else n_kv
     t_ops = 4 * d * pairs / PEAK_BF16_PER_S * 1e3
-    t_bytes = (2 * (hq + 2 * hkv) * n_in * d + 2 * hq * n_out * d
+    t_bytes = (2 * (hq * n_in + 2 * hkv * n_kv) * d + 2 * hq * n_out * d
                + extra_bytes) / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1733,30 +1752,35 @@ ATTN_F32_RTOL = 2e-5
 
 
 def compare_flash(dev, s, dtype="bfloat16", hq=32, hkv=8, d=128,
-                  window=None):
-    """The flash kernel against mha_ref at b = 1, causal (by default 32 /
-    8 heads, d = 128, no window); SDPA (causal, GQA; with a window, a
-    boolean band mask) as the yardstick.  bf16 runs the tensor-core
-    kernel, float32 the CUDA-core one (checked by the per-variant
-    counts)."""
+                  window=None, b=1, s_kv=None, causal=True):
+    """The flash kernel against mha_ref (by default b = 1, causal, 32 / 8
+    heads, d = 128, no window; ``s_kv`` keys for ``s`` queries without a
+    mask: cross-attention); SDPA (GQA; causal or no mask as the kernel;
+    with a window, a boolean band mask) as the yardstick.  bf16 runs the
+    tensor-core kernel, float32 the CUDA-core one (checked by the
+    per-variant counts)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (VARIANTS,
                                                      flash_attention_cuda)
-    g = torch.Generator(device=dev).manual_seed(s)
+    s_kv = s if s_kv is None else s_kv
+    # self-attention keeps the inputs of earlier runs' readings
+    g = torch.Generator(device=dev).manual_seed(
+        s if s_kv == s else 10007 * s + s_kv)
     dt = getattr(torch, dtype)
-    q = torch.randn((1, hq, s, d), generator=g, device=dev).to(dt)
-    k = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
-    v = torch.randn((1, hkv, s, d), generator=g, device=dev).to(dt)
+    q = torch.randn((b, hq, s, d), generator=g, device=dev).to(dt)
+    k = torch.randn((b, hkv, s_kv, d), generator=g, device=dev).to(dt)
+    v = torch.randn((b, hkv, s_kv, d), generator=g, device=dev).to(dt)
     variant = VARIANTS[dt]
     before = flash_attention_cuda.variants[variant]
-    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     check(flash_attention_cuda.variants[variant] == before + 1,
           f"flash_attention {dtype}: the {variant} kernel did not run")
-    want = ref.mha_ref(q, k, v, causal=True, window=window)
-    label = f"flash_attention {dtype} s={s} hq={hq} hkv={hkv} d={d} " \
-        f"window={window}"
+    want = ref.mha_ref(q, k, v, causal=causal, window=window)
+    shape = (f"b={b} hq={hq} hkv={hkv} s={s} s_kv={s_kv} d={d} "
+             f"{'causal' if causal else 'no mask'} window={window}")
+    label = f"flash_attention {dtype} {shape}"
     if dt == torch.bfloat16:
         err, reading = attention_err(label, got, want)
     else:
@@ -1767,24 +1791,24 @@ def compare_flash(dev, s, dtype="bfloat16", hq=32, hkv=8, d=128,
         reading = f"max_abs_err={err:.3e} (limit {ATTN_F32_RTOL * scale:.3e})"
     if window is None:
         sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
-        pairs = s * (s + 1) // 2
+            q, k, v, is_causal=causal, enable_gqa=True)
+        pairs = s * (s + 1) // 2 if causal else s * s_kv
     else:
-        i = torch.arange(s, device=dev)
+        i = torch.arange(s, device=dev)             # causal callers only
         band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
             q, k, v, attn_mask=band, enable_gqa=True)
         pairs = sum(min(r + 1, window) for r in range(s))
     lib_err = float((sdpa().float() - want.float()).abs().max())
-    ms, call_ms = timed_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
-                                                        window=window))
+    ms, call_ms = timed_ms(lambda: flash_attention_cuda(
+        q, k, v, causal=causal, window=window))
     plain_ms, plain_call = timed_ms(
-        lambda: ref.mha_ref(q, k, v, causal=True, window=window), reps=5)
+        lambda: ref.mha_ref(q, k, v, causal=causal, window=window), reps=5)
     lib_ms, lib_call = timed_ms(sdpa)
-    bound, by = attention_bound(hq * pairs, hq, hkv, s, s, d)
-    log(f"flash_attention b=1 hq={hq} hkv={hkv} s={s} d={d} causal "
-        f"window={window} {dtype} ({variant}, {pairs} visible pairs a "
-        f"head): kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms="
+    bound, by = attention_bound(b * hq * pairs, hq, hkv, b * s, b * s, d,
+                                n_kv=b * s_kv)
+    log(f"flash_attention {shape} {dtype} ({variant}, {pairs} visible "
+        f"pairs a head): kernel_ms={ms:.4f} (call {call_ms:.4f}) plain_ms="
         f"{plain_ms:.4f} (call {plain_call:.4f}) sdpa_ms={lib_ms:.4f} (call "
         f"{lib_call:.4f}) bound_ms={bound:.4f} ({by}, bf16 rates) "
         f"share={bound / ms:.4f} {reading} (sdpa max abs err {lib_err:.3e})")
@@ -2241,7 +2265,8 @@ def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
 # depth kept on one 80 GB card (published widths; every other field as
 # published): the deepest that leaves >= 10 GB free with the float32 head,
 # the KV cache of SERVE_SPEC and the packed prefill's activations
-DEPTH = {"command_r_plus_104b": 14, "phi35_moe_42b": 24, "grok_1_314b": 6}
+DEPTH = {"command_r_plus_104b": 14, "phi35_moe_42b": 24, "grok_1_314b": 6,
+         "qwen2_vl_72b": 33}
 # phase 14: sliding window 4096 over a ring of S = 4096 positions; every
 # prompt passes the window, so every decode reads a wrapped ring
 SWA_SPEC = dict(slots=8, groups=4, max_seq=8192, prefill="full",
@@ -2734,6 +2759,308 @@ def serve_hybrid(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 20-21: the encoder-decoder (whisper) and the M-RoPE VLM (qwen2-vl)
+# ---------------------------------------------------------------------------
+
+# phase 20a: whisper's batch API: 16 rows of 1,500 stub frames (seeded
+# random embeddings) and 128-token prompts, then 64 greedy decode steps
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS = 16, 128, 64
+# phase 21b: the VLM front end: 4 rows of 256 patch embeddings before
+# 128-token prompts, then 8 decode steps
+VLM_ROWS, VLM_PROMPT, VLM_STEPS = 4, 128, 8
+
+
+def flash_call(q, k, v, causal=True, window=None, **kw):
+    """What ``recorded_calls`` keeps of a flash call: (dtype, q shape, k
+    shape, causal, window)."""
+    return q.dtype, tuple(q.shape), tuple(k.shape), causal, window
+
+
+def batch_run(model, cfg, dev, batch, max_seq, steps):
+    """``prefill(batch)`` then ``steps`` greedy decode steps on the card,
+    the launch counts set to 0 just before and the flash calls recorded.
+    Returns the prefill's float32 logits, each step's tokens and top-2
+    margins, the seconds of the prefill and of each step, the counts
+    after the prefill and after the run, the flash calls, and the
+    cross-attention K/V bytes of one row (encoder-decoder)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.serve.decode import decode_step, prefill
+    gc.collect()
+    torch.cuda.synchronize()
+    out = dict(tokens=[], margins=[], step_s=[])
+    ops.reset_launch_counts()
+    with recorded_calls(layers, "flash_attention_op", flash_call) as calls:
+        t0 = time.perf_counter()
+        logits, state = prefill(model, batch, cfg, max_seq=max_seq)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_counts"] = ops.launch_counts()
+        out["prefill_calls"] = len(calls)
+        out["first"] = logits.float().cpu()
+        for _ in range(steps + 1):
+            top = logits.float().topk(2, dim=-1)
+            out["margins"].append((top.values[:, 0]
+                                   - top.values[:, 1]).cpu())
+            tok = top.indices[:, :1]
+            out["tokens"].append(tok[:, 0].cpu())
+            if len(out["tokens"]) > steps:
+                break
+            t0 = time.perf_counter()
+            logits, state = decode_step(model, state, tok, cfg)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            logits = logits[:, -1]
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    out["counts"] = ops.launch_counts()
+    out["variants"] = dict(flash_attention_cuda.variants)
+    out["calls"] = list(calls)
+    if hasattr(state, "cross_k"):
+        out["cross_row_bytes"] = 2 * (state.cross_k[:, 0].numel()
+                                      * state.cross_k.element_size())
+    del state
+    return out
+
+
+def batch_against_plain(model, cfg, dev, batch, max_seq, steps, label):
+    """``batch_run`` with the kernels (``use_pallas=True``) and on the
+    plain route (``use_pallas=False``: no kernel launches) on the same
+    card and weights: the prefill's logits within BF16_TOL of the largest
+    |logit|; each row's tokens equal up to its first near-tie (a top-2
+    margin below that tolerance in either run).  Returns the kernel
+    run."""
+    import torch
+    runs = {use: batch_run(model, cfg.replace(use_pallas=use), dev, batch,
+                           max_seq, steps) for use in (True, False)}
+    k, p = runs[True], runs[False]
+    check(p["counts"]["flash_attention"] == 0,
+          f"{label}: the plain route launched {p['counts']}")
+    scale = float(p["first"].abs().max())
+    err = float((k["first"] - p["first"]).abs().max())
+    tol = BF16_TOL * scale
+    check(err <= tol, f"{label}: prefill logits differ by {err} > {tol}")
+    cut = []
+    for row in range(k["first"].shape[0]):
+        for t in range(steps + 1):
+            if min(float(k["margins"][t][row]),
+                   float(p["margins"][t][row])) < tol:
+                cut.append((row, t))
+                break
+            check(int(k["tokens"][t][row]) == int(p["tokens"][t][row]),
+                  f"{label}: row {row} token {t} differs above a near-tie")
+    step = sorted(k["step_s"])
+    log(f"{label}: prefill {k['prefill_s']:.4f} s (plain route "
+        f"{p['prefill_s']:.4f}), decode step p50 {step[len(step) // 2]:.4f} "
+        f"s max {step[-1]:.4f} (plain p50 "
+        f"{sorted(p['step_s'])[len(step) // 2]:.4f}); prefill logits within "
+        f"{err / scale:.3e} of max|logit| (tolerance {BF16_TOL}); tokens "
+        f"equal except {len(cut)} rows cut short at a near-tie (row, "
+        f"token): {cut}")
+    return k
+
+
+def check_flash_bf16(label, run, expected):
+    """Every flash launch of a ``batch_run`` ran the bf16 tensor-core
+    kernel, and there were ``expected`` of them."""
+    counts, variants = run["counts"], run["variants"]
+    check(counts["flash_attention"] == expected
+          and variants["bf16_tensor_core"] == expected,
+          f"{label}: {counts['flash_attention']} flash launches, expected "
+          f"{expected}, all bf16 on the tensor cores ({variants})")
+
+
+def serve_whisper(dev):
+    """Phase 20: whisper-medium at full width and depth (24 + 24 layers).
+    (a) The batch API: prefill of 16 rows of 1,500 frames and 128-token
+    prompts, 64 decode steps, every flash launch checked (encoder
+    non-causal at 1,500, decoder causal, cross-attention at prefill and
+    decode), held against the plain route; (b) a 'cheap' ServeSession
+    over phase 6's trace (zero cross K/V, the reference's engine path);
+    (d) the kernel at the encoder's and the cross-attention's shapes."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve import bursty_trace
+    cfg, model = full_width_model("whisper_medium", dev)
+    L, h, hd, F = cfg.n_layers, cfg.n_heads, cfg.hd, cfg.enc_seq
+    g = torch.Generator(device=dev).manual_seed(20)
+    frames = torch.randn((WHISPER_ROWS, F, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (WHISPER_ROWS, WHISPER_PROMPT),
+                           generator=g, device=dev)
+    warm = {"frames": frames[:1], "tokens": tokens[:1, :16]}
+    batch_run(model, cfg, dev, warm, 64, 2)
+    k = batch_against_plain(model, cfg, dev,
+                            {"frames": frames, "tokens": tokens}, 2048,
+                            WHISPER_STEPS, f"{cfg.name} batch API, "
+                            f"{WHISPER_ROWS} rows x {F} frames + "
+                            f"{WHISPER_PROMPT} tokens, {WHISPER_STEPS} steps")
+    check(k["prefill_counts"]["flash_attention"] == k["prefill_calls"]
+          == cfg.enc_layers + 2 * L,
+          f"prefill: {k['prefill_counts']['flash_attention']} flash "
+          f"launches, expected {cfg.enc_layers + 2 * L}")
+    check_flash_bf16("whisper batch API", k,
+                     cfg.enc_layers + 2 * L + WHISPER_STEPS * L)
+    b, s = WHISPER_ROWS, WHISPER_PROMPT
+    want = sorted([(torch.bfloat16, (b, h, F, hd), (b, h, F, hd), False,
+                    None)] * cfg.enc_layers
+                  + [(torch.bfloat16, (b, h, s, hd), (b, h, s, hd), True,
+                      None)] * L
+                  + [(torch.bfloat16, (b, h, s, hd), (b, h, F, hd), False,
+                      None)] * L
+                  + [(torch.bfloat16, (b, h, 1, hd), (b, h, F, hd), False,
+                      None)] * (WHISPER_STEPS * L), key=str)
+    check(sorted(k["calls"], key=str) == want,
+          "whisper's flash calls are not the encoder's, the decoder's and "
+          "the cross-attention's shapes")
+    log(f"  flash launches: {k['prefill_counts']['flash_attention']} at "
+        f"prefill ({cfg.enc_layers} encoder at {F} x {F} no mask, {L} "
+        f"decoder causal at {s}, {L} cross at {s} x {F}), "
+        f"{(k['counts']['flash_attention'] - k['prefill_calls']) // WHISPER_STEPS}"
+        f" a decode step (1 x {F}); all bf16 on the tensor cores")
+    log(f"  cross K/V bytes a row: {k['cross_row_bytes']} ({L} layers x {h} "
+        f"heads x {F} frames x {hd} x 2 (K, V) x 2 B)")
+    check(k["cross_row_bytes"] == L * h * F * hd * 2 * 2, "cross K/V bytes")
+    del frames, tokens
+    free_memory()
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    spec = dict(SERVE_SPEC, prefill="cheap")
+    serve_run(model, cfg, dev, spec, bursty_trace(3, **dict(
+        SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))   # warm-up
+    slots = {}
+
+    def inspect(session):
+        slots["bytes"] = slot_bytes_of(session)
+        slots["cross_zero"] = bool((session.state.cross_k == 0).all()
+                                   and (session.state.cross_v == 0).all())
+        slots["max_pos"] = int(session.state.pos.max())
+
+    with recorded_calls(layers, "flash_attention_op", flash_call) as calls:
+        m, reqs, counts, peak, _ = serve_checked(
+            model, cfg, dev, spec, trace, f"{cfg.name}, cheap prefill (the "
+            "reference's engine path)", inspect=inspect)
+    check(len(calls) == counts["flash_attention"] > 0
+          and all(c[1][2] == 1 and c[2][2] == F and not c[3]
+                  for c in calls),
+          "the cheap session's flash calls are not 1 x 1500 cross calls")
+    check(slots["cross_zero"], "the cheap session's cross K/V are not zero")
+    log(f"  cheap session: {counts['flash_attention']} cross-attention "
+        f"launches ({len(calls) // L} decode steps x {L}); slot bytes "
+        f"{slots['bytes'][0]}; cross K/V zero as in the reference; row "
+        f"positions reach {slots['max_pos']} (the sinusoid index clamps "
+        f"past {spec['max_seq']})")
+    del model
+    free_memory()
+    rows = {"encoder": compare_flash(dev, F, hq=h, hkv=h, d=hd, b=b,
+                                     causal=False),
+            "cross_prefill": compare_flash(dev, s, hq=h, hkv=h, d=hd, b=b,
+                                           s_kv=F, causal=False),
+            "cross_decode": compare_flash(dev, 1, hq=h, hkv=h, d=hd, b=b,
+                                          s_kv=F, causal=False)}
+    return dict(batch_launches=k["counts"], launches=counts, rows=rows)
+
+
+def encdec_card_vs_cpu(dev):
+    """Phase 20c: whisper SMOKE's batch API in float32, the same weights on
+    the card (kernels) and the CPU (plain versions): prefill and 4 decode
+    steps, logits within F32_TOL of the largest."""
+    import copy
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model
+    from repro_torch.serve.decode import decode_step, prefill
+    cfg = get_smoke("whisper_medium").replace(use_pallas=True)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(21)
+    frames = torch.randn((3, cfg.enc_seq, cfg.d_model), generator=g)
+    tokens = torch.randint(0, cfg.vocab, (3, 9), generator=g)
+
+    def run(model, on):
+        """Prefill and 4 decode steps on ``on``, fed the CPU run's tokens
+        (``fed``, filled by the CPU run, which goes first)."""
+        out = []
+        logits, state = prefill(model, {"frames": frames.to(on),
+                                        "tokens": tokens.to(on)}, cfg,
+                                max_seq=32)
+        for step in range(5):
+            out.append(logits.reshape(3, -1).cpu())
+            if step == 4:
+                return out
+            if on == "cpu":
+                fed.append(torch.argmax(out[-1], dim=-1)[:, None])
+            logits, state = decode_step(model, state, fed[step].to(on), cfg)
+
+    fed = []
+    want = run(cpu, "cpu")
+    ops.reset_launch_counts()
+    got = run(card, dev)
+    counts = ops.launch_counts()
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want))
+    check(worst <= F32_TOL, f"smoke whisper batch API: {worst} of "
+          "max|logit|")
+    check(counts["flash_attention"] == cfg.enc_layers + 6 * cfg.n_layers,
+          f"smoke whisper batch API: {counts['flash_attention']} flash "
+          "launches")
+    log(f"smoke whisper batch API (float32) card vs CPU: prefill and 4 "
+        f"decode steps within {worst:.3e} of max|logit| (tolerance "
+        f"{F32_TOL}); {counts['flash_attention']} flash launches")
+
+
+def serve_qwen2_vl(dev):
+    """Phase 21: qwen2-vl-72b at full width (depth cut by DEPTH): (a) a
+    'full' ServeSession over phase 6's trace, every flash launch bf16 on
+    the tensor cores at 64 / 8 heads, and 'packed' refused with the
+    reference's "mrope" message; (b) the VLM front end through the batch
+    API: 4 rows of 256 patch embeddings and 128-token prompts, 8 decode
+    steps, held against the plain route."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve import ServeSession, ServeSpec, bursty_trace
+    cfg, model = full_width_model("qwen2_vl_72b", dev)
+    try:
+        ServeSession(model, cfg, ServeSpec(**SERVE_SPEC), device=dev)
+        check(False, "packed prefill was not refused for M-RoPE")
+    except ValueError as e:
+        check("mrope" in str(e), f"packed refused for another reason: {e}")
+        log(f"  packed prefill refused: {e}")
+    free_memory()
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    spec = dict(SERVE_SPEC, prefill="full")
+    serve_run(model, cfg, dev, spec, bursty_trace(3, **dict(
+        SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))   # warm-up
+    with recorded_calls(layers, "flash_attention_op", flash_call) as calls:
+        _, _, counts, _, _ = serve_checked(
+            model, cfg, dev, spec, trace, f"{cfg.name} ({cfg.n_layers} "
+            "layers), full prefill")
+    check(counts["flash_attention"] == len(trace) * cfg.n_layers
+          == len(calls), "one flash launch a layer a prompt")
+    check(all(c[0] == torch.bfloat16 and c[1][1] == cfg.n_heads
+              and c[2][1] == cfg.n_kv_heads and c[1][3] == cfg.hd and c[3]
+              for c in calls),
+          "a flash launch not bf16 causal at 64 / 8 heads, d = 128")
+    g = torch.Generator(device=dev).manual_seed(21)
+    patches = torch.randn((VLM_ROWS, cfg.vision_patches, cfg.d_model),
+                          generator=g, device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (VLM_ROWS, VLM_PROMPT), generator=g,
+                           device=dev)
+    k = batch_against_plain(model, cfg, dev, {"tokens": tokens,
+                                              "patch_embeds": patches},
+                            SERVE_SPEC["max_seq"], VLM_STEPS,
+                            f"{cfg.name} batch API, {VLM_ROWS} rows x "
+                            f"{cfg.vision_patches} patches + {VLM_PROMPT} "
+                            f"tokens, {VLM_STEPS} steps")
+    n_in = cfg.vision_patches + VLM_PROMPT
+    check_flash_bf16("qwen2-vl batch API", k, cfg.n_layers)
+    check(all(c[1][2] == n_in for c in k["calls"]),
+          f"the VLM prefill's flash calls are not at {n_in} positions")
+    del model
+    return dict(launches=counts, batch_launches=k["counts"])
+
+
+# ---------------------------------------------------------------------------
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
 SRC = "src/repro_torch/kernels/csrc/"
@@ -2909,14 +3236,31 @@ def main():
           serve_card_vs_cpu, dev, "recurrentgemma_2b", "full", RING_BUCKETS)
     log(f"phases 18-19: {time.perf_counter() - t_new:.1f} s; command time "
         f"so far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    whisper = phase("phase 20: whisper-medium at full width and depth (the "
+                    "encoder-decoder: batch API, cheap session, flash at "
+                    "the encoder's and cross-attention's shapes)",
+                    serve_whisper, dev)
+    phase("phase 20c: whisper SMOKE batch API, card against CPU",
+          encdec_card_vs_cpu, dev)
+    phase("phase 20c: whisper SMOKE cheap, card against CPU",
+          serve_card_vs_cpu, dev, "whisper_medium", "cheap")
+    vlm = phase("phase 21: qwen2-vl-72b at full width (M-RoPE, full "
+                "prefill; the VLM front end)", serve_qwen2_vl, dev)
+    free_memory()
+    phase("phase 21c: qwen2-vl SMOKE full, card against CPU",
+          serve_card_vs_cpu, dev, "qwen2_vl_72b", "full")
+    log(f"phases 20-21: {time.perf_counter() - t_new:.1f} s; command time "
+        f"so far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
-            or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid)
+            or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
+                        whisper, vlm)
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
     # each path's launches, counted from 0 over its own run; main path
-    # 4's per rank (phase 13's trace); phases 14-19's per path
+    # 4's per rank (phase 13's trace); phases 14-21's per path
     launches = {**{k: fem[2][k] for k in FEM_KERNELS},
                 "prefix_scan": sharded["launches"]["prefix_scan"],
                 "serve_prefill": serve["packed"][1]["serve_prefill"],
@@ -2932,10 +3276,25 @@ def main():
              "mamba2_1_3b sharded (per rank)": mamba_sharded["launches"],
              "recurrentgemma_2b full (window 2048)": hybrid["launches"],
              "recurrentgemma_2b full (phase 6's trace)":
-                 hybrid["short_launches"]}
-    # the flash kernel at the hybrid's head dim, beside its main-path row
+                 hybrid["short_launches"],
+             "whisper_medium batch API (16 x 1500 frames, 64 steps)":
+                 whisper["batch_launches"],
+             "whisper_medium cheap (phase 6's trace)": whisper["launches"],
+             "qwen2_vl_72b full (phase 6's trace)": vlm["launches"],
+             "qwen2_vl_72b batch API (4 x 256 patches, 8 steps)":
+                 vlm["batch_launches"]}
+    # the flash kernel at the hybrid's head dim and at whisper's encoder
+    # and cross-attention shapes, beside its main-path row
     d256 = dict(hybrid["row"], shape="b=1 hq=10 hkv=1 s=6144 d=256 causal "
                 "window=2048 bf16")
+    w = whisper["rows"]
+    encdec = {
+        "at_encoder": dict(w["encoder"], shape="b=16 hq=16 hkv=16 s=1500 "
+                           "s_kv=1500 d=64 no mask bf16"),
+        "at_cross_prefill": dict(w["cross_prefill"], shape="b=16 hq=16 "
+                                 "hkv=16 s=128 s_kv=1500 d=64 no mask bf16"),
+        "at_cross_decode": dict(w["cross_decode"], shape="b=16 hq=16 hkv=16 "
+                                "s=1 s_kv=1500 d=64 no mask bf16")}
     table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
@@ -2948,7 +3307,7 @@ def main():
                   launches_by_path={
                       p: [r[name] for r in c] if isinstance(c, list)
                       else c[name] for p, c in paths.items()},
-                  **({"at_head_dim_256": d256}
+                  **({"at_head_dim_256": d256, **encdec}
                      if name == "flash_attention" else {}))
              for name in REPLACES]
     log(json.dumps({"kernels": table}))

@@ -2,11 +2,11 @@
 
 Each module exports ``CONFIG`` (the full-scale config) and ``SMOKE`` (a
 reduced config of the same family for CPU tests), verbatim from the JAX
-package.  The dense family (``llama3_8b``, the two sliding-window
+package: the dense family (``llama3_8b``, the two sliding-window
 ``h2o_danube`` configs, ``command_r_plus_104b``), the MoE family
-(``phi35_moe_42b``, ``grok_1_314b``), the SSM family (``mamba2_1_3b``)
-and the hybrid family (``recurrentgemma_2b``) are ported; the
-encoder-decoder and VLM architectures wait in ROADMAP.md.
+(``phi35_moe_42b``, ``grok_1_314b``), the encoder-decoder
+(``whisper_medium``), the VLM (``qwen2_vl_72b``), the SSM family
+(``mamba2_1_3b``) and the hybrid family (``recurrentgemma_2b``).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import importlib
 
 from ..models.config import ModelConfig
 
-# the JAX package's order, less the architectures not ported yet
+# the JAX package's order
 ARCH_IDS = [
     "grok_1_314b",
     "phi35_moe_42b",
@@ -23,16 +23,15 @@ ARCH_IDS = [
     "llama3_8b",
     "h2o_danube_1_8b",
     "command_r_plus_104b",
+    "whisper_medium",
+    "qwen2_vl_72b",
     "mamba2_1_3b",
 ]
 
 
 def _module(arch: str):
     if arch not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (ported: {ARCH_IDS}; "
-            "the encoder-decoder whisper_medium and the VLM qwen2_vl_72b "
-            "wait in ROADMAP.md, queue 1, item 10)")
+        raise ValueError(f"architecture {arch!r}: one of {ARCH_IDS}")
     return importlib.import_module(f".{arch}", __name__)
 
 

@@ -125,21 +125,42 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _layer_tensors(layers, n: int, dev) -> list:
+    """One dict of tensors a layer from the JAX package's ``layers``: a
+    list of per-layer dicts, or one dict with every leaf stacked over the
+    layers on axis 0."""
+    if isinstance(layers, (list, tuple)):
+        if len(layers) != n:
+            raise ValueError(f"{len(layers)} JAX layers for {n} blocks")
+        return [{k: _tensor(v, dev) for k, v in _flatten(lp).items()}
+                for lp in layers]
+    stacked = {k: _tensor(v, dev) for k, v in _flatten(layers).items()}
+    for k, w in stacked.items():
+        if w.shape[0] != n:
+            raise ValueError(f"JAX leaf {k} stacks {w.shape[0]} layers for "
+                             f"{n} blocks")
+    return [{k: w[li] for k, w in stacked.items()} for li in range(n)]
+
+
 def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
                     ) -> torch.nn.Module:
     """A port model holding copies of the JAX package's parameters
-    (``repro.models.init_model``'s tree: ``embed`` {tok, head},
-    ``layers`` and ``ln_f``).  ``layers`` is, by family:
+    (``repro.models.init_model``'s tree: ``embed`` {tok, head}, the layers
+    and ``ln_f``).  The layers are, by family:
 
-    * dense / MoE: one dict with every leaf stacked over the layers on
-      axis 0 -- ``ln_attn``, ``attn``, ``ln_mlp`` and ``mlp`` {wi, wg, wo}
-      or ``moe`` {router, wi, wg, wo};
-    * SSM: stacked the same way -- ``ln`` and ``mixer`` {in_proj, conv_w,
-      conv_b, A_log, D, dt_bias, norm_w, out_proj};
-    * hybrid: a Python list with one dict a layer, whose keys differ by
-      the layer's kind -- ``ln_mix``, ``ln_mlp``, ``mlp`` and ``attn`` or
-      ``rglru`` {in_x, in_gate, conv_w, conv_b, w_r, b_r, w_i, b_i, lam,
-      out}.
+    * dense / MoE / VLM: ``layers``, one dict with every leaf stacked over
+      the layers on axis 0 -- ``ln_attn``, ``attn``, ``ln_mlp`` and
+      ``mlp`` {wi, wg, wo} or ``moe`` {router, wi, wg, wo};
+    * SSM: ``layers`` stacked the same way -- ``ln`` and ``mixer``
+      {in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w, out_proj};
+    * hybrid: ``layers``, a Python list with one dict a layer, whose keys
+      differ by the layer's kind -- ``ln_mix``, ``ln_mlp``, ``mlp`` and
+      ``attn`` or ``rglru`` {in_x, in_gate, conv_w, conv_b, w_r, b_r, w_i,
+      b_i, lam, out};
+    * encoder-decoder: ``enc_layers`` (``ln_attn``, ``attn``, ``ln_mlp``,
+      ``mlp`` {wi, wo}) and ``dec_layers`` (``ln_self``, ``self_attn``,
+      ``ln_cross``, ``cross_attn``, ``ln_mlp``, ``mlp``), both stacked,
+      and ``ln_enc``.
 
     Leaves may be ``Boxed`` or bare arrays; the layouts are the same in
     both packages, so nothing is transposed.  Every block must have
@@ -147,29 +168,22 @@ def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
     block's."""
     model = init_model(cfg, seed=None, device=device)
     dev = model.ln_f.device
-    layers, n = params["layers"], len(model.layers)
+    stacks = (("enc_layers", "dec_layers") if cfg.family == "encdec"
+              else ("layers",))
     with torch.no_grad():
         model.embed.tok.copy_(_tensor(params["embed"]["tok"], dev))
         model.embed.head.copy_(_tensor(params["embed"]["head"], dev))
         model.ln_f.copy_(_tensor(params["ln_f"], dev))
-        if isinstance(layers, (list, tuple)):
-            if len(layers) != n:
-                raise ValueError(f"{len(layers)} JAX layers for {n} blocks")
-            per_layer = [{k: _tensor(v, dev) for k, v in _flatten(lp).items()}
-                         for lp in layers]
-        else:
-            stacked = {k: _tensor(v, dev) for k, v in _flatten(layers).items()}
-            for k, w in stacked.items():
-                if w.shape[0] != n:
-                    raise ValueError(f"JAX leaf {k} stacks {w.shape[0]} "
-                                     f"layers for {n} blocks")
-            per_layer = [{k: w[li] for k, w in stacked.items()}
-                         for li in range(n)]
-        for block, tensors in zip(model.layers, per_layer):
-            own = dict(block.named_parameters())
-            if set(own) != set(tensors):
-                raise ValueError(f"parameter names differ: port {sorted(own)}"
-                                 f", JAX {sorted(tensors)}")
-            for name, w in tensors.items():
-                own[name].copy_(w)
+        if cfg.family == "encdec":
+            model.ln_enc.copy_(_tensor(params["ln_enc"], dev))
+        for stack in stacks:
+            blocks = getattr(model, stack)
+            for block, tensors in zip(blocks, _layer_tensors(
+                    params[stack], len(blocks), dev)):
+                own = dict(block.named_parameters())
+                if set(own) != set(tensors):
+                    raise ValueError(f"parameter names differ: port "
+                                     f"{sorted(own)}, JAX {sorted(tensors)}")
+                for name, w in tensors.items():
+                    own[name].copy_(w)
     return model

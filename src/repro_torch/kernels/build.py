@@ -106,11 +106,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_prefix_scan.restype = i
     lib.repro_prefix_scan_tile.argtypes = []
     lib.repro_prefix_scan_tile.restype = i
-    lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i,
-                                          i, p]
+    lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
+                                          i, i, p]
     lib.repro_flash_attention.restype = i
-    lib.repro_flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, f,
-                                             i, i, p]
+    lib.repro_flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                             f, i, i, p]
     lib.repro_flash_attention_tc.restype = i
     lib.repro_packed_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
                                            f, p]

@@ -58,20 +58,26 @@ def check_attention_inputs(fn: str, q, k, v, heads_axis: int,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Attention on a CUDA device: q (b, hq, s, d), k / v (b, hkv, s, d),
-    float32 or bfloat16, contiguous, d <= 256.  Query head h reads kv head
-    ``h // (hq // hkv)``; key j is visible from query i iff ``j <= i``
-    (causal) and ``j > i - window`` (window).  Returns (b, hq, s, d) in
-    q's dtype.  bf16 runs the tensor-core kernel, float32 the CUDA-core
-    one (``VARIANTS``).  Adds one to ``flash_attention_cuda.launches`` and
-    to its variant's entry of ``flash_attention_cuda.variants`` per
-    launch."""
+    """Attention on a CUDA device: q (b, hq, s, d), k / v (b, hkv, s_kv,
+    d), float32 or bfloat16, contiguous, d <= 256.  Query head h reads kv
+    head ``h // (hq // hkv)``; key j is visible from query i iff ``j <=
+    i`` (causal) and ``j > i - window`` (window).  s_kv may differ from s
+    only without a mask (``causal=False``, no window): cross-attention.
+    Returns (b, hq, s, d) in q's dtype.  bf16 runs the tensor-core kernel,
+    float32 the CUDA-core one (``VARIANTS``).  Adds one to
+    ``flash_attention_cuda.launches`` and to its variant's entry of
+    ``flash_attention_cuda.variants`` per launch."""
     check_attention_inputs("flash_attention_cuda", q, k, v, heads_axis=1,
                            max_d=MAX_HEAD_DIM)
     b, hq, s, d = q.shape
-    if k.dim() != 4 or k.shape[0] != b or k.shape[2] != s:
+    if k.dim() != 4 or k.shape[0] != b:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree")
+    s_kv = k.shape[2]
+    if s_kv != s and (causal or window is not None):
+        raise ValueError(f"flash_attention_cuda: {s_kv} keys for {s} "
+                         "queries (cross-attention) take no causal mask and "
+                         "no window")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if scale is None:
@@ -82,7 +88,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-            k.shape[1], s, d, scale, int(causal), window or 0)
+            k.shape[1], s, s_kv, d, scale, int(causal), window or 0)
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
             err = lib.repro_flash_attention_tc(*args, stream)

@@ -122,9 +122,10 @@ class ElementOperator:
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: Optional[int] = None,
                        use_pallas: Optional[bool] = None) -> torch.Tensor:
-    """Blocked attention: q (b, hq, s, d), k / v (b, hkv, s, d) with the
-    kv heads unexpanded (query head h reads kv head h // (hq // hkv)).
-    Any s runs on either path."""
+    """Blocked attention: q (b, hq, s, d), k / v (b, hkv, s_kv, d) with
+    the kv heads unexpanded (query head h reads kv head h // (hq // hkv)).
+    Any s runs on either path; s_kv != s (cross-attention) without a mask
+    only."""
     if use_kernel(q, use_pallas):
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,

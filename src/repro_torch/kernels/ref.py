@@ -198,12 +198,14 @@ def fem_matvec_ref(tets: torch.Tensor, grads: torch.Tensor, vol: torch.Tensor,
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: int | None = None,
             scale: float | None = None) -> torch.Tensor:
-    """Reference attention.  q: (b, hq, s, d), k/v: (b, hkv, s, d).
+    """Reference attention.  q: (b, hq, s, d), k/v: (b, hkv, s_kv, d).
 
     GQA: query head h reads kv head h // (hq // hkv).  float32 softmax.
     ``window``: key j visible from query i iff i - window < j (combined
-    with causal: j <= i)."""
+    with causal: j <= i).  The mask is built from both lengths, so s_kv
+    may differ from s (cross-attention, no mask)."""
     b, hq, s, d = q.shape
+    s_kv = k.shape[2]
     group = hq // k.shape[1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -212,8 +214,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vq = v.repeat_interleave(group, dim=1).to(f32)
     logits = torch.einsum("bhid,bhjd->bhij", q.to(f32), kq) * scale
     i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    j = torch.arange(s_kv, device=q.device)[None, :]
+    mask = torch.ones((s, s_kv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= j <= i
     if window is not None:

@@ -1,7 +1,6 @@
 """Architecture configuration: one dataclass covers all 10 architectures of
-the JAX package (same fields, defaults and parameter count).  The dense
-and MoE families run in this package so far; ``act_dtype`` / ``p_dtype``
-are torch dtypes."""
+the JAX package (same fields, defaults and parameter count);
+``act_dtype`` / ``p_dtype`` are torch dtypes."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,5 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, attention, the gated MLPs
-(SwiGLU, GeGLU), embeddings.  Counterpart of
+"""Shared model layers: RMSNorm, RoPE and M-RoPE, attention, the MLPs
+(SwiGLU, GeGLU and the plain GELU MLP), embeddings.  Counterpart of
 ``repro/models/layers.py``.
 
 Parameters live in ``nn.Module``s with the JAX package's layouts (``wq``
@@ -16,9 +16,10 @@ the activation and round once, as the reference does (``matmul_f32``,
 
 Full-sequence attention has the reference's three strategies: chunked
 (online softmax over KV chunks), blocked causal, and the hand-written
-flash kernel (``cfg.use_pallas``; plain ``mha_ref`` on CPU tensors).  The
-reference's tensor-parallel ``shard_map`` branch and M-RoPE are not
-ported (ROADMAP.md, queue 1, item 10).
+flash kernel (``cfg.use_pallas``; plain ``mha_ref`` on CPU tensors), which
+also takes the encoder-decoder's cross-attention (K/V of another length
+than Q, no mask).  The reference's tensor-parallel ``shard_map`` branch
+is not ported (ROADMAP.md, queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -32,10 +33,9 @@ from ..kernels.ops import flash_attention_op
 from .config import ModelConfig
 
 F32 = torch.float32
-#: the gated MLP activations the port runs: SwiGLU and GeGLU
+#: the gated MLP activations: SwiGLU and GeGLU (``"gelu_mlp"`` is the
+#: plain GELU MLP, ``wo(gelu(x wi))``)
 GATED_ACTS = ("silu", "gelu")
-MROPE_TODO = ("M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md, queue 1, "
-              "item 10)")
 
 
 def dense_param(shape, dtype: torch.dtype, device, gen=None,
@@ -81,6 +81,27 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)
     ang = pos[:, None, :, None].to(F32) * freqs          # (b, 1, s, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): x (b, h, s, d), pos3 (3, b, s) the
+    (t, h, w) position streams; the d/2 rotary frequencies are split into
+    ``sections``, each rotated by its own stream."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to d/2 = "
+                         f"{d // 2}")
+    freqs = rope_freqs(d, theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))
+    pos_sel = pos3.to(F32)[sec_id]                       # (d/2, b, s)
+    ang = pos_sel.permute(1, 2, 0)[:, None] * freqs      # (b, 1, s, d/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.to(F32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -195,21 +216,36 @@ def _blocked_causal_attention(q, k, v, *, window: Optional[int], chunk: int,
 
 def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     pos: torch.Tensor, causal: bool = True,
-                    return_kv: bool = False):
+                    pos3: Optional[torch.Tensor] = None,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    return_kv: bool = False, use_rope: bool = True):
     """Full-sequence attention (prefill).  x: (b, s, d_model), pos: (b, s).
 
-    ``return_kv=True`` also returns the rope'd, unexpanded (hkv) K/V for
-    seeding the cache.  With ``cfg.use_pallas`` the attention core is
-    ``flash_attention_op`` on the unexpanded K/V (the kernel reads kv
-    head ``h // group``); like the reference's flash path it ignores
-    ``cfg.attn_logit_softcap``."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(MROPE_TODO)
+    ``pos3`` (3, b, s): M-RoPE's position streams (configs with
+    ``mrope_sections``).  ``kv_override=(k, v)``: K/V (b, hkv, s_kv, hd)
+    given, not projected from ``x`` -- the encoder-decoder's
+    cross-attention, whose K and Q take no rotation.  ``use_rope=False``
+    for the absolute-position whisper stacks.  ``return_kv=True`` also
+    returns the rotated, unexpanded (hkv) K/V for seeding the cache.
+    With ``cfg.use_pallas`` the attention core is ``flash_attention_op``
+    on the unexpanded K/V (the kernel reads kv head ``h // group``;
+    cross-attention with s_kv != s as well); like the reference's flash
+    path it ignores ``cfg.attn_logit_softcap``."""
     group = cfg.n_heads // cfg.n_kv_heads
     act = cfg.act_dtype
-    q = apply_rope(project_heads(x, attn.wq, act), pos, cfg.rope_theta)
-    k = apply_rope(project_heads(x, attn.wk, act), pos, cfg.rope_theta)
-    v = project_heads(x, attn.wv, act)
+    q = project_heads(x, attn.wq, act)
+    if kv_override is None:
+        k = project_heads(x, attn.wk, act)
+        v = project_heads(x, attn.wv, act)
+    else:
+        k, v = kv_override
+    if cfg.mrope_sections is not None and pos3 is not None:
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    elif kv_override is None and use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     kv_cacheable = (k, v)
     if cfg.use_pallas:
         out = flash_attention_op(q, k, v, causal=causal, window=cfg.window)
@@ -233,23 +269,25 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
 def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     stored_pos: torch.Tensor, pos: torch.Tensor
+                     stored_pos: torch.Tensor, pos: torch.Tensor,
+                     use_rope: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode against a position-tracked cache.
 
     x: (b, 1, d); cache: (b, hkv, S, hd); stored_pos: (b, S) absolute
     position held by each cache slot (-1 empty); pos: (b,) current
     position.  The new K/V entry is folded in here; the caller writes it
-    to the cache afterwards.  Returns (y, k_new, v_new), entries
-    (b, hkv, 1, hd)."""
+    to the cache afterwards.  ``use_rope=False``: no rotation (whisper's
+    decoder).  Returns (y, k_new, v_new), entries (b, hkv, 1, hd)."""
     b = x.shape[0]
     group = cfg.n_heads // cfg.n_kv_heads
     act = cfg.act_dtype
-    q = apply_rope(project_heads(x, attn.wq, act), pos[:, None],
-                   cfg.rope_theta)
-    k_new = apply_rope(project_heads(x, attn.wk, act), pos[:, None],
-                       cfg.rope_theta)
+    q = project_heads(x, attn.wq, act)
+    k_new = project_heads(x, attn.wk, act)
     v_new = project_heads(x, attn.wv, act)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.hd)
     qg = q.reshape(b, cfg.n_kv_heads, group, cfg.hd).to(F32)
     logits = torch.matmul(qg, cache_k.to(F32).transpose(-1, -2)) * scale
@@ -274,26 +312,24 @@ def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GeGLU / plain GELU)
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
     """A gated MLP, ``wo(act(x wg) * (x wi))``: SwiGLU (``mlp_act='silu'``,
-    the dense and MoE configs) or GeGLU (``'gelu'``, recurrentgemma).  The
-    plain GELU MLP (``'gelu_mlp'``) belongs to the encoder-decoder family,
-    which is not ported."""
+    the dense and MoE configs) or GeGLU (``'gelu'``, recurrentgemma); or
+    the plain GELU MLP ``wo(gelu(x wi))`` (``'gelu_mlp'``, whisper), which
+    has no ``wg``."""
 
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.mlp_act not in GATED_ACTS:
-            raise NotImplementedError(
-                f"mlp_act={cfg.mlp_act!r}: the plain GELU MLP of the "
-                "encoder-decoder family (whisper) is not ported yet "
-                "(ROADMAP.md, queue 1, item 10); the port runs the gated "
-                f"MLPs {GATED_ACTS}")
+        if cfg.mlp_act not in GATED_ACTS + ("gelu_mlp",):
+            raise ValueError(f"mlp_act={cfg.mlp_act!r}: one of "
+                             f"{GATED_ACTS + ('gelu_mlp',)}")
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.p_dtype
         self.wi = dense_param((d, f), dt, device, gen)
-        self.wg = dense_param((d, f), dt, device, gen)
+        if cfg.mlp_act in GATED_ACTS:
+            self.wg = dense_param((d, f), dt, device, gen)
         self.wo = dense_param((f, d), dt, device, gen)
 
 
@@ -327,11 +363,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Both input products stay in float32 through the activation and
-    are rounded once to ``act_dtype`` before ``wo``, as the reference
-    does; ``wo`` too sums in float32 and rounds once."""
-    act = torch.nn.functional.silu if cfg.mlp_act == "silu" else gelu
-    h = act(matmul_f32(x, mlp.wg)) * matmul_f32(x, mlp.wi)
+    """The input products stay in float32 through the activation and are
+    rounded once to ``act_dtype`` before ``wo``, as the reference does;
+    ``wo`` too sums in float32 and rounds once."""
+    h = matmul_f32(x, mlp.wi)
+    if cfg.mlp_act == "gelu_mlp":
+        h = gelu(h)
+    else:
+        act = torch.nn.functional.silu if cfg.mlp_act == "silu" else gelu
+        h = act(matmul_f32(x, mlp.wg)) * h
     return matmul_f32(h.to(cfg.act_dtype), mlp.wo).to(cfg.act_dtype)
 
 

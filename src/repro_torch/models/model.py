@@ -1,5 +1,5 @@
-"""Model registry: family -> init.  The dense, MoE, SSM and hybrid
-families are ported."""
+"""Model registry: family -> init, for every family of the JAX
+package."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,10 +10,10 @@ from ..device import resolve_device
 from . import transformer as T
 from .config import ModelConfig
 
-#: the LM of each family ``init_model`` builds (the reference's families,
-#: less the encoder-decoder and the VLM front end)
-LMS = {"dense": T.DecoderLM, "moe": T.DecoderLM, "ssm": T.SSMLM,
-       "hybrid": T.HybridLM}
+#: the LM of each family ``init_model`` builds (the VLM is a decoder whose
+#: stub front end hands it patch embeddings)
+LMS = {"dense": T.DecoderLM, "moe": T.DecoderLM, "vlm": T.DecoderLM,
+       "ssm": T.SSMLM, "hybrid": T.HybridLM, "encdec": T.EncDecLM}
 FAMILIES = tuple(LMS)
 
 
@@ -25,10 +25,7 @@ def init_model(cfg: ModelConfig, seed: Optional[int] = 0, *, device=None
     the weights uninitialised, to be loaded."""
     dev = resolve_device(device)
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the encoder-decoder "
-            "(whisper) and VLM (qwen2-vl) families wait in ROADMAP.md, "
-            f"queue 1, item 10; the port runs the families {FAMILIES}")
+        raise ValueError(f"family {cfg.family!r}: one of {FAMILIES}")
     gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return LMS[cfg.family](cfg, dev, gen)

@@ -1,5 +1,6 @@
 """Serving: prefill / decode, state slots, continuous batching with
-load-balanced request groups (the dense, MoE, SSM and hybrid families),
+load-balanced request groups (every family: dense, MoE, VLM, SSM,
+hybrid and the encoder-decoder),
 on one device or over a process group of one rank per group with
 slot migration.
 
@@ -7,9 +8,9 @@ Build a ``ServeSpec`` and hand it with a model to ``ServeSession``;
 ``repro_torch.serve.trace`` gives seeded bursty arrival traces and the
 open-loop latency run (``run_trace``).
 """
-from .decode import (HybridState, KVCache, SSMState, decode_step,
-                     init_decode_state, init_kv_cache, init_serve_state,
-                     packed_prefill, prefill, reset_slot)
+from .decode import (EncDecState, HybridState, KVCache, SSMState,
+                     decode_step, init_decode_state, init_kv_cache,
+                     init_serve_state, packed_prefill, prefill, reset_slot)
 from .engine import Request, ServeSession
 from .slots import (SlotMigrator, check_serve_world, make_paged_insert,
                     make_sharded_decode, n_slots_of, slot_axes, slot_nbytes,
@@ -19,8 +20,8 @@ from .spec import (ServeSpec, get_serve_stage, register_serve_stage,
 from .trace import TraceRequest, bursty_trace, run_trace
 
 __all__ = [
-    "HybridState", "KVCache", "Request", "SSMState", "ServeSession",
-    "ServeSpec", "SlotMigrator",
+    "EncDecState", "HybridState", "KVCache", "Request", "SSMState",
+    "ServeSession", "ServeSpec", "SlotMigrator",
     "TraceRequest", "bursty_trace", "check_serve_world", "decode_step",
     "get_serve_stage", "init_decode_state", "init_kv_cache",
     "init_serve_state", "make_paged_insert", "make_sharded_decode",

@@ -1,23 +1,32 @@
-"""Prefill and single-token decode for the served families: the KV-cache
-decoders (dense and MoE), the SSM (mamba2) and the hybrid
-(recurrentgemma).  Counterpart of ``repro/serve/decode.py``.
+"""Prefill and single-token decode for every family: the KV-cache
+decoders (dense, MoE and the VLM), the SSM (mamba2), the hybrid
+(recurrentgemma) and the encoder-decoder (whisper).  Counterpart of
+``repro/serve/decode.py``.
 
 Serving state by family (the batch dimension is the slot axis):
 
-* dense / MoE: ``KVCache`` -- k / v (L, b, hkv, S, hd) with
+* dense / MoE / VLM: ``KVCache`` -- k / v (L, b, hkv, S, hd) with
   ``stored_pos`` (b, S) the absolute position each cache slot holds (-1
   empty) and ``pos`` (b,) the next position; S = min(window, max_seq)
   makes a ring buffer for sliding-window models.  The blocks' second
   half is ``models.transformer.block_ffn`` (MLP or MoE); an MoE block
   routes each batch row as its own group, so a decode row, a full
   prefill's prompt and the whole packed buffer (pad tokens included) are
-  each one group.
+  each one group.  The VLM's prefill prepends patch embeddings and
+  rotates with M-RoPE, whose three streams a prompt gives the same
+  positions (so its angles are RoPE's); its decode is RoPE's.
 * SSM: ``SSMState`` -- an ``SSMCache`` stacked over the layers (float32
   state (L, b, h, dstate, p), conv window (L, b, conv_dim, kconv - 1))
   and ``pos``: O(1) in the sequence length.
 * hybrid: ``HybridState`` -- one cache a layer, a ``KVCache`` of one
   layer (a ring of S = min(window, max_seq)) for local attention or an
   ``RGLRUCache``, and ``pos``.
+* encoder-decoder: ``EncDecState`` -- the decoder's self-attention
+  ``KVCache``, the cross-attention K/V of every layer over the encoder's
+  frames (L, b, hkv, s_enc, hd), computed once at prefill, and ``pos``.
+  Only ``prefill`` (the batch API, with ``batch['frames']``) runs the
+  encoder; a serving session seats whisper with ``prefill='cheap'``
+  over zero cross K/V, as the reference does.
 
 The conv windows follow the reference's types: a prefill seeds them in
 ``act_dtype``, and the first decode step turns them float32 (the
@@ -29,9 +38,6 @@ place (``decode_step``, ``reset_slot``, ``slots.write_slot``), since a
 copy of a full-width cache is gigabytes.  So nothing may keep a second
 reference to a state and expect it unchanged: ``reset_slot`` writes the
 empty values directly instead of copying them from a pristine state.
-
-The encoder-decoder and VLM families wait (ROADMAP.md, queue 1, items 10
-and 11).
 """
 from __future__ import annotations
 
@@ -49,18 +55,15 @@ from ..models.rglru import (RGLRUCache, init_rglru_cache, rglru_block_apply,
                             rglru_block_decode)
 from ..models.ssm import (SSMCache, init_ssm_cache, mamba2_apply,
                           mamba2_decode)
-from ..models.transformer import (DecoderLM, HybridLM, SSMLM, block_ffn,
-                                  hybrid_layer_kinds)
+from ..models.transformer import (DecoderLM, EncDecLM, HybridLM, SSMLM,
+                                  _sinusoid, block_ffn, decoder_inputs,
+                                  encoder_apply, hybrid_layer_kinds)
 
 F32 = torch.float32
 #: the families whose serving state is a ``KVCache``
-KV_FAMILIES = ("dense", "moe")
+KV_FAMILIES = ("dense", "moe", "vlm")
 #: the families the port serves
-SERVED_FAMILIES = KV_FAMILIES + ("ssm", "hybrid")
-FAMILY_TODO = ("family {!r} cannot be served yet: the port serves "
-               + str(SERVED_FAMILIES) + "; the encoder-decoder (whisper) and "
-               "VLM (qwen2-vl) families wait (ROADMAP.md, queue 1, items 10 "
-               "and 11)")
+SERVED_FAMILIES = KV_FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass
@@ -83,24 +86,32 @@ class HybridState:
     pos: torch.Tensor          # (b,) int32 next position
 
 
-State = Union[KVCache, SSMState, HybridState]
+@dataclasses.dataclass
+class EncDecState:
+    self_kv: KVCache           # the decoder's self-attention cache
+    cross_k: torch.Tensor      # (L, b, hkv, s_enc, hd)
+    cross_v: torch.Tensor
+    pos: torch.Tensor          # (b,) int32 next position
+
+
+State = Union[KVCache, SSMState, HybridState, EncDecState]
 
 
 def _served(cfg: ModelConfig) -> None:
     if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+        raise ValueError(f"family {cfg.family!r}: one of {SERVED_FAMILIES}")
 
 
 def _kv_family(cfg: ModelConfig) -> None:
     """The packed prefill and its paged insert take KV caches only, as in
     the reference: recurrent state cannot be segment-masked inside one
-    packed forward."""
+    packed forward, and the encoder-decoder's rows need their frames."""
     _served(cfg)
     if cfg.family not in KV_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} carries recurrent state, "
-                         "which one packed forward cannot segment-mask: the "
-                         f"packed prefill takes the KV-cache families "
-                         f"{KV_FAMILIES}")
+        raise ValueError(f"family {cfg.family!r} carries recurrent state or "
+                         "encoder frames, which one packed forward cannot "
+                         "segment-mask: the packed prefill takes the "
+                         f"KV-cache families {KV_FAMILIES}")
 
 
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
@@ -138,24 +149,25 @@ def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# dense / MoE decoder
+# dense / MoE / VLM decoder
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def decoder_prefill(model: DecoderLM, tokens: torch.Tensor,
-                    cfg: ModelConfig, *, max_seq: int
+                    cfg: ModelConfig, *, max_seq: int,
+                    patch_embeds: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, KVCache]:
-    """Forward over the prompt (b, s): last-position logits (b, vocab)
-    float32 and a cache seeded with the prompt's K/V."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    """Forward over the prompt (b, s) -- after the VLM's patch embeddings
+    (b, n_p, d), if given -- : last-position logits (b, vocab) float32 and
+    a cache seeded with the K/V of all n_p + s positions."""
+    x, pos, pos3 = decoder_inputs(model, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)[None].expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for layer in model.layers:
         h = rmsnorm(x, layer.ln_attn)
-        y, (k, v) = attention_apply(layer.attn, h, cfg, pos=pos, causal=True,
-                                    return_kv=True)
+        y, (k, v) = attention_apply(layer.attn, h, cfg, pos=pos, pos3=pos3,
+                                    causal=True, return_kv=True)
         ks.append(k)
         vs.append(v)
         x = block_ffn(layer, x + y, cfg)
@@ -385,21 +397,110 @@ def hybrid_decode_step(model: HybridLM, state: HybridState,
 
 
 # ---------------------------------------------------------------------------
+# encoder-decoder (whisper): decode over the decoder's positions with
+# cross-attention to the (fixed) encoder output
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def encdec_prefill(model: EncDecLM, frames: torch.Tensor,
+                   tokens: torch.Tensor, cfg: ModelConfig, *, max_seq: int
+                   ) -> Tuple[torch.Tensor, EncDecState]:
+    """The encoder over ``frames`` (b, s_enc, d), then the decoder over
+    the prompt (b, s): last-position logits (b, vocab) float32 and the
+    state with the prompt's self-attention K/V and every layer's cross
+    K/V (the encoder's output projected once)."""
+    enc = encoder_apply(model, frames, cfg)
+    b, s = tokens.shape
+    dev, act = enc.device, cfg.act_dtype
+    x = embed_tokens(model.embed, tokens, cfg) + _sinusoid(
+        s, cfg.d_model, act, dev)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    cache = init_kv_cache(cfg, b, max_seq, device=dev)
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, enc.shape[1], cfg.hd)
+    cross_k = torch.empty(shape, dtype=act, device=dev)
+    cross_v = torch.empty(shape, dtype=act, device=dev)
+    for li, layer in enumerate(model.dec_layers):
+        h = rmsnorm(x, layer.ln_self)
+        y, (k, v) = attention_apply(layer.self_attn, h, cfg, pos=pos,
+                                    causal=True, return_kv=True,
+                                    use_rope=False)
+        cache.k[li, :, :, :s] = k
+        cache.v[li, :, :, :s] = v
+        x = x + y
+        h = rmsnorm(x, layer.ln_cross)
+        cross_k[li] = project_heads(enc, layer.cross_attn.wk, act)
+        cross_v[li] = project_heads(enc, layer.cross_attn.wv, act)
+        x = x + attention_apply(layer.cross_attn, h, cfg, pos=pos,
+                                causal=False,
+                                kv_override=(cross_k[li], cross_v[li]))
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x[:, -1])
+    cache.stored_pos[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
+    cache.pos.fill_(s)
+    return logits, EncDecState(cache, cross_k, cross_v, _pos(b, s, dev))
+
+
+@torch.no_grad()
+def encdec_decode_step(model: EncDecLM, state: EncDecState,
+                       tokens: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, EncDecState]:
+    """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
+    float32; ``state`` advances in place.
+
+    Two of the reference's choices are kept: every row adds the
+    sinusoid of row 0's position (``state.pos[0]``), and that position
+    indexes a table of S + 1 rows, which JAX clamps to its last row once
+    the position passes S (a 'cheap' session's rows start at ``max_seq -
+    1``); here the index is clamped explicitly."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    cache = state.self_kv
+    S = cache.k.shape[3]
+    pe = _sinusoid(S + 1, cfg.d_model, cfg.act_dtype, x.device)
+    x = x + pe[state.pos[0].clamp(0, S).long()]
+    ks, vs = [], []
+    for li, layer in enumerate(model.dec_layers):
+        h = rmsnorm(x, layer.ln_self)
+        y, k_new, v_new = attention_decode(
+            layer.self_attn, h, cfg, cache_k=cache.k[li],
+            cache_v=cache.v[li], stored_pos=cache.stored_pos, pos=cache.pos,
+            use_rope=False)
+        ks.append(k_new)
+        vs.append(v_new)
+        x = x + y
+        h = rmsnorm(x, layer.ln_cross)
+        x = x + attention_apply(layer.cross_attn, h, cfg,
+                                pos=cache.pos[:, None], causal=False,
+                                kv_override=(state.cross_k[li],
+                                             state.cross_v[li]))
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+    x = rmsnorm(x, model.ln_f)
+    logits = lm_logits(model.embed, x)
+    _write_slot(cache, torch.stack(ks), torch.stack(vs))
+    state.pos += 1
+    return logits, state
+
+
+# ---------------------------------------------------------------------------
 # dispatch by family
 # ---------------------------------------------------------------------------
 
 def prefill(model, batch: Dict, cfg: ModelConfig, *, max_seq: int
             ) -> Tuple[torch.Tensor, State]:
     """Last-position logits (b, vocab) float32 and the batch's state after
-    its prompts ``batch['tokens']`` (b, s)."""
+    its prompts ``batch['tokens']`` (b, s); the encoder-decoder also takes
+    ``batch['frames']`` (b, s_enc, d) and the decoders the VLM's
+    ``batch['patch_embeds']`` (b, n_p, d)."""
     _served(cfg)
-    if batch.get("patch_embeds") is not None:
-        raise NotImplementedError(FAMILY_TODO.format("vlm"))
     if cfg.family == "ssm":
         return ssm_prefill(model, batch["tokens"], cfg)
     if cfg.family == "hybrid":
         return hybrid_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
-    return decoder_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
+    if cfg.family == "encdec":
+        return encdec_prefill(model, batch["frames"], batch["tokens"], cfg,
+                              max_seq=max_seq)
+    return decoder_prefill(model, batch["tokens"], cfg, max_seq=max_seq,
+                           patch_embeds=batch.get("patch_embeds"))
 
 
 def decode_step(model, state: State, tokens: torch.Tensor, cfg: ModelConfig
@@ -409,6 +510,8 @@ def decode_step(model, state: State, tokens: torch.Tensor, cfg: ModelConfig
         return ssm_decode_step(model, state, tokens, cfg)
     if cfg.family == "hybrid":
         return hybrid_decode_step(model, state, tokens, cfg)
+    if cfg.family == "encdec":
+        return encdec_decode_step(model, state, tokens, cfg)
     return decoder_decode_step(model, state, tokens, cfg)
 
 
@@ -420,10 +523,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device) -> State:
     """The reference's dry-run state: every row's positions pre-wound
     (``pos = max_seq - 1``; a KV cache's ``stored_pos = arange(S)``, a
-    hybrid attention layer's ring the last S positions) over zero K/V
-    and zero recurrent state.  The 'cheap' prefill oracle starts from
-    it."""
+    hybrid attention layer's ring the last S positions) over zero K/V,
+    zero cross K/V of ``cfg.enc_seq`` frames and zero recurrent state.
+    The 'cheap' prefill oracle starts from it."""
     _served(cfg)
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.hd)
+        state = EncDecState(
+            init_kv_cache(cfg, batch, max_seq, device=device),
+            torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+            torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+            _pos(batch, 0, device))
+        for i in range(batch):
+            reset_slot(state, i, cfg, wound_to=max_seq)
+        return state
     if cfg.family == "ssm":
         return SSMState(init_ssm_cache(cfg, batch, device=device,
                                        n_layers=cfg.n_layers),
@@ -443,8 +556,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 def init_serve_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                      device) -> State:
     """Empty decode state: pos = 0, no stored positions, zero recurrent
-    state (the 'full' and 'packed' prefills seed each row)."""
+    state (the 'full' and 'packed' prefills seed each row).  The
+    encoder-decoder has none, as in the reference: a prefill of its row
+    needs encoder frames, which a serving request does not carry."""
     _served(cfg)
+    if cfg.family == "encdec":
+        raise ValueError(f"init_serve_state: family {cfg.family!r} "
+                         "unsupported (encdec prefill needs frames; use "
+                         "prefill='cheap')")
     if cfg.family == "ssm":
         return SSMState(init_ssm_cache(cfg, batch, device=device,
                                        n_layers=cfg.n_layers),
@@ -489,6 +608,10 @@ def reset_slot(state: State, i: int, cfg: ModelConfig, *,
     if cfg.family == "ssm":
         state.layers.state[:, i].zero_()
         state.layers.conv[:, i].zero_()
+    elif cfg.family == "encdec":
+        _reset_kv_row(state.self_kv, i, None if wound_to is None else 0, pos)
+        state.cross_k[:, i].zero_()
+        state.cross_v[:, i].zero_()
     elif cfg.family == "hybrid":
         for c in state.layers:
             if isinstance(c, KVCache):

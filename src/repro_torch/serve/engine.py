@@ -223,7 +223,8 @@ class ServeSession:
 
     On one device (``device``, default CUDA; ``decode='replicated'``) the
     decode state is the family's state (``serve.decode``: a ``KVCache``,
-    an ``SSMState`` or a ``HybridState``) over all ``spec.total_slots``
+    an ``SSMState``, a ``HybridState`` or an ``EncDecState``, whose
+    family only 'cheap' prefill seats) over all ``spec.total_slots``
     slots.  ``kv_slot_bytes`` is one slot's bytes in the state as it is
     built, as the reference counts them: a conv window counts in
     ``act_dtype``, though decode turns it float32.

@@ -3,7 +3,8 @@ packed prefill, and the migration of slots between the ranks of a group.
 Counterpart of ``repro/serve/slots.py``.
 
 The serving state is the family's state of ``serve.decode`` (a
-``KVCache``, an ``SSMState`` or a ``HybridState``) whose batch dimension
+``KVCache``, an ``SSMState``, a ``HybridState`` or an ``EncDecState``)
+whose batch dimension
 is a slot axis.  On one device it holds every global slot
 (``spec.total_slots`` rows).  Over a process group of ``spec.groups``
 ranks (one process per request group, ``distributed.comm.Comm``), rank r
@@ -42,8 +43,8 @@ from ..models.config import ModelConfig
 from ..models.rglru import RGLRUCache
 from ..models.ssm import SSMCache
 from ..models.transformer import hybrid_layer_kinds
-from .decode import (FAMILY_TODO, KV_FAMILIES, HybridState, KVCache,
-                     SSMState, State, _kv_family, decode_step)
+from .decode import (KV_FAMILIES, EncDecState, HybridState, KVCache,
+                     SSMState, State, _kv_family, _served, decode_step)
 
 # the slot axis of each field: k / v are (L, b, hkv, S, hd); positions
 # and recurrent states carry the slot on axis 0, stacked ones on axis 1
@@ -66,7 +67,8 @@ def slot_axes(cfg: ModelConfig):
                          else RGLRUCache(h=0, conv=0)
                          for kind in hybrid_layer_kinds(cfg)),
             pos=0)
-    raise NotImplementedError(FAMILY_TODO.format(cfg.family))
+    _served(cfg)
+    return EncDecState(self_kv=_KV_AXES, cross_k=1, cross_v=1, pos=0)
 
 
 def _leaves(x) -> list:

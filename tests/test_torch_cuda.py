@@ -535,6 +535,39 @@ def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (16, 16, 16, 1, 1500, 64),     # whisper's cross-attention at decode
+    (2, 16, 16, 128, 1500, 64),    # ... at prefill (fewer rows than 16)
+    (1, 16, 16, 1500, 1500, 64),   # the encoder's self-attention, no mask
+    (1, 4, 2, 300, 77, 32),        # fewer keys than queries, GQA
+    (2, 4, 4, 65, 129, 16),        # ragged query and key tiles
+    (1, 8, 2, 3, 1, 128),          # one key
+])
+def test_flash_attention_cross_lengths_close(cuda, dtype, b, hq, hkv, sq,
+                                             skv, d):
+    """K/V of another length than Q, without a mask (cross-attention):
+    each element against mha_ref, whose mask takes both lengths."""
+    rng = np.random.default_rng(sq * 3 + skv)
+    q, k, v = _qkv(rng, (b, hq, sq, d), (b, hkv, skv, d), dtype, cuda)
+    before = flash_attention_cuda.variants[VARIANTS[dtype]]
+    got = ops.flash_attention_op(q, k, v, causal=False)
+    assert flash_attention_cuda.variants[VARIANTS[dtype]] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, ref.mha_ref(q, k, v, causal=False), dtype)
+
+
+def test_flash_attention_refuses_cross_lengths_with_a_mask(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    kv = torch.zeros((1, 2, 20, 16), device=cuda)
+    before = flash_attention_cuda.launches
+    for kw in (dict(causal=True), dict(causal=False, window=4),
+               dict(causal=True, window=4)):
+        with pytest.raises(ValueError, match="cross-attention"):
+            flash_attention_cuda(q, kv, kv, **kw)
+    assert flash_attention_cuda.launches == before
+
+
 def test_flash_attention_path_shape_runs_on_tensor_cores(cuda):
     """The full prefill's shape on the serving path (32 / 8 heads, d = 128,
     a 128-token prompt, causal, bf16) runs the tensor-core kernel."""
@@ -656,11 +689,13 @@ def test_refused_flash_launch_raises(cuda):
     o = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     for entry in (lib.repro_flash_attention_tc, lib.repro_flash_attention):
-        err = entry(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(),
-                    1, 1, 1, 8, 300, 1.0, 1, 0, stream)
-        assert err != 0
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            build.check(err, "flash_attention")
+        for s_kv, d, causal in ((8, 300, 1), (5, 8, 1)):
+            err = entry(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                        o.data_ptr(), 1, 1, 1, 8, s_kv, d, 1.0, causal, 0,
+                        stream)
+            assert err != 0
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                build.check(err, "flash_attention")
 
 
 def test_flash_attention_head_dim_256_runs_on_tensor_cores(cuda):
@@ -871,6 +906,8 @@ def test_moe_apply_bf16_on_card_matches_cpu(cuda):
     ("h2o_danube3_4b", "full", (48, 64, 96)),      # prompts wrap the ring
     ("mamba2_1_3b", "full", (8, 16, 32)),
     ("recurrentgemma_2b", "full", (48, 64, 96)),   # prompts wrap the ring
+    ("whisper_medium", "cheap", (8, 16, 32)),      # cross-attention at decode
+    ("qwen2_vl_72b", "full", (8, 16, 32)),         # M-RoPE prefill
 ])
 def test_serve_session_on_card_matches_cpu_at_smoke(cuda, arch, prefill,
                                                      buckets):
@@ -906,6 +943,40 @@ def test_serve_session_on_card_matches_cpu_at_smoke(cuda, arch, prefill,
         logs.append(m["migration_log"])
     assert outs[0] == outs[1]
     assert logs[0] == logs[1]
+
+
+def test_encdec_prefill_and_decode_on_card_match_cpu(cuda):
+    """whisper's batch API at SMOKE in float32: the encoder (non-causal),
+    the decoder (causal) and the cross-attention (64 frames) run the flash
+    kernel on the card, 3 launches a layer at prefill and one a decode
+    step; logits within 1e-4 of the CPU's largest."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.serve import decode
+    cfg = get_smoke("whisper_medium").replace(use_pallas=True)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    frames = torch.randn((3, cfg.enc_seq, cfg.d_model), generator=g)
+    tokens = torch.randint(0, cfg.vocab, (3, 9), generator=g)
+    ops.reset_launch_counts()
+    got, gs = decode.prefill(card, {"frames": frames.to(cuda),
+                                    "tokens": tokens.to(cuda)}, cfg,
+                             max_seq=32)
+    assert flash_attention_cuda.launches == cfg.enc_layers + 2 * cfg.n_layers
+    want, ws = decode.prefill(cpu, {"frames": frames, "tokens": tokens}, cfg,
+                              max_seq=32)
+    tok = torch.argmax(want, dim=-1)[:, None]
+    for _ in range(4):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        before = flash_attention_cuda.launches
+        got, gs = decode.decode_step(card, gs, tok.to(cuda), cfg)
+        assert flash_attention_cuda.launches == before + cfg.n_layers
+        want, ws = decode.decode_step(cpu, ws, tok, cfg)
+        tok = torch.argmax(want[:, -1], dim=-1)[:, None]
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
 
 
 # --- the redesigned histogram and SFC keys -------------------------------------

@@ -167,10 +167,23 @@ def test_geglu_bf16_within_one_step():
 
 
 def test_plain_gelu_mlp_is_refused(smoke):
-    _, cfg, _, _ = smoke
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, "
-                       "item 10"):
-        TL.MLP(cfg.replace(mlp_act="gelu_mlp"), "cpu")
+    """Named for the refusal it held while the plain GELU MLP (whisper's)
+    was not ported; now the MLP at these widths against the reference's:
+    ``wi`` and ``wo`` only, tanh GELU in float32, rounded once."""
+    jcfg, cfg, _, _ = smoke
+    jcfg, cfg = jcfg.replace(mlp_act="gelu_mlp"), \
+        cfg.replace(mlp_act="gelu_mlp")
+    jp = JL.init_mlp(jax.random.PRNGKey(4), jcfg)
+    assert set(jp) == {"wi", "wo"}
+    mlp = TL.MLP(cfg, "cpu")
+    assert not hasattr(mlp, "wg")
+    with torch.no_grad():
+        for name in ("wi", "wo"):
+            getattr(mlp, name).copy_(torch.as_tensor(
+                np.array(jp[name].value)))
+    x = _x((2, 9, cfg.d_model), 5)
+    _close(TL.mlp_apply(mlp, torch.as_tensor(x), cfg),
+           JL.mlp_apply(jp, jnp.asarray(x), jcfg))
 
 
 # --- the RG-LRU ----------------------------------------------------------------

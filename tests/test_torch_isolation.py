@@ -84,6 +84,28 @@ def test_entry_points_default_to_cuda(tmp_path):
     assert ServeSession(model, cfg, spec, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch,prefill", [("whisper_medium", "cheap"),
+                                          ("qwen2_vl_72b", "full")])
+def test_encdec_and_vlm_stand_alone_and_default_to_cuda(arch, prefill):
+    """The encoder-decoder and VLM modules are among the files checked
+    above, and their entry points run on CUDA unless asked for the CPU."""
+    assert {f"{arch}.py", "transformer.py", "decode.py"} <= {
+        p.name for p in PORT_FILES}
+    cfg = get_smoke(arch)
+    spec = ServeSpec(prefill=prefill, decode="replicated", rebalance="tags")
+    if torch.cuda.is_available():
+        model = init_model(cfg)
+        assert model.ln_f.is_cuda
+        assert ServeSession(model, cfg, spec).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(cfg)
+    model = init_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeSession(model, cfg, spec)
+    assert ServeSession(model, cfg, spec, device="cpu").device.type == "cpu"
+
+
 def test_sharded_session_names_the_roadmap_item():
     """The sharded session is ported (ROADMAP queue 1, item 9) and fails
     fast, as the JAX package's does, without a process group of p ranks

@@ -87,13 +87,16 @@ def test_config_verbatim_with_the_same_size(which, arch):
         assert abs(t.n_params() - 8.03e9) < 0.01e9
 
 
-def test_unported_architectures_name_the_roadmap():
-    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS if a not in (
-        "whisper_medium", "qwen2_vl_72b")]
-    assert len(configs.ARCH_IDS) == 8
-    for arch in ("whisper_medium", "qwen2_vl_72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(arch)
+def test_every_architecture_is_the_references():
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert len(configs.ARCH_IDS) == 10
+    for arch in configs.ARCH_IDS:
+        for get, jget in ((configs.get_config, jconfigs.get_config),
+                          (configs.get_smoke, jconfigs.get_smoke)):
+            assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
+                jget(arch)), arch
+    with pytest.raises(ValueError, match="one of"):
+        configs.get_config("gpt2")
 
 
 def test_params_from_jax_copies_every_weight(tiny):
@@ -144,16 +147,19 @@ def test_lm_logits_casts_a_bfloat16_head_once():
 
 def test_init_model_is_seeded_and_refuses_other_families():
     cfg = configs.get_smoke("llama3_8b").replace(**TINY)
-    from repro_torch.models import init_model
+    from repro_torch.models import EncDecLM, init_model
     a = init_model(cfg, seed=3, device="cpu")
     b = init_model(cfg, seed=3, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
                                                   b.parameters()))
     assert isinstance(a.layers, torch.nn.ModuleList)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg.replace(family="encdec"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg.replace(mlp_act="gelu_mlp"), device="cpu")
+    enc = init_model(cfg.replace(family="encdec", enc_layers=1,
+                                 mlp_act="gelu_mlp"), device="cpu")
+    assert isinstance(enc, EncDecLM) and len(enc.enc_layers) == 1
+    plain = init_model(cfg.replace(mlp_act="gelu_mlp"), device="cpu")
+    assert not hasattr(plain.layers[0].mlp, "wg")
+    with pytest.raises(ValueError, match="family"):
+        init_model(cfg.replace(family="audio"), device="cpu")
 
 
 # --- layers ------------------------------------------------------------------
