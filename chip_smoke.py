@@ -126,13 +126,32 @@ CUDA toolkit's nvcc.  It
     phase 6's trace (packed refused with the "mrope" message; every flash
     launch bf16 at 64 / 8 heads), then the VLM front end: 4 rows of 256
     patch embeddings before 128-token prompts and 8 decode steps, held
-    against the plain route; the SMOKE config, card against CPU;
-22. prints the kernel table as one JSON line (with each rank's launches
+    against the plain route; the flash kernel at qwen2-vl's shape (64 /
+    8 heads, d = 128, causal) at each prompt length of the session,
+    against its plain version with SDPA's time beside it; the SMOKE
+    config, card against CPU;
+22. drives the fifth main path, training: llama3-8b at full width (depth
+    cut to TRAIN_DEPTH; bf16, remat, the plain attention as in the
+    reference) through ``launch.train.train`` on 4 x 2,048-token batches
+    of the synthetic corpus packed on the card (``prefix_scan`` at every
+    batch), 5 steps on the stream and 5 on one repeated batch, with each
+    step's split, tokens/s, peak memory and model-FLOPs share, then layer
+    0's and the head's bf16 gradients through ``_ProductF32`` held against
+    float32 recomputes (22a); the packer on the card against the CPU,
+    batches and parts bit for bit, every input it handed ``prefix_scan``
+    and ``ksection_hist`` held against the plain versions (22b); every
+    architecture's SMOKE config trained 3 steps on the card and on the
+    CPU from the same weights, llama also compressed, every SMOKE
+    config's bf16 gradients through ``_ProductF32`` against float32
+    recomputes, and a checkpoint restored and resumed on the card bit for
+    bit (22c);
+23. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-21 in ``launches_by_path``, the flash kernel's d = 256 reading as
-    ``at_head_dim_256`` and whisper's as ``at_encoder``,
-    ``at_cross_prefill`` and ``at_cross_decode``), the card's name and
-    power limit, and ``{"ok": true, ...}`` as the last line.
+    14-22 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
+    and ``at_cross_decode``, and qwen2-vl's as ``at_qwen2_vl``), the
+    card's name and power limit, and ``{"ok": true, ...}`` as the last
+    line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
@@ -666,6 +685,24 @@ def check_hist_agreement(agree, launched, label):
     log(f"{label}: ksection_hist against its plain version on each of the "
         f"path's {launched} inputs (items n in {agree['n']}, cuts m in "
         f"{agree['m']}): equal bit for bit")
+
+
+def check_scan_agreement(inputs, launched, label):
+    """The scan kernel against its plain version on every input the
+    path's balancer handed ``exclusive_scan_op`` on the card (equal bits:
+    integer weights sum exactly in float32)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
+    on_card = [x.to(torch.float32).contiguous() for x in inputs if x.is_cuda]
+    check(len(on_card) == launched, f"{label}: {len(on_card)} scan inputs "
+          f"on the card against {launched} prefix_scan launches")
+    check(all(torch.equal(exclusive_scan_cuda(x), ref.exclusive_scan_ref(x))
+              for x in on_card),
+          f"{label}: prefix_scan != its plain version at the path's shapes")
+    log(f"{label}: prefix_scan against its plain version on each of the "
+        f"path's {launched} inputs (n in "
+        f"{sorted({int(x.shape[0]) for x in on_card})}): equal bit for bit")
 
 
 def compare_sfc(coords_np, dev):
@@ -3041,6 +3078,16 @@ def serve_qwen2_vl(dev):
               and c[2][1] == cfg.n_kv_heads and c[1][3] == cfg.hd and c[3]
               for c in calls),
           "a flash launch not bf16 causal at 64 / 8 heads, d = 128")
+    # the kernel at the session's shapes: one row per prompt length, with
+    # the session's launches at that length
+    free_memory()
+    lengths = {}
+    for c in calls:
+        lengths[c[1][2]] = lengths.get(c[1][2], 0) + 1
+    flash_rows = {s: dict(compare_flash(dev, s, hq=cfg.n_heads,
+                                        hkv=cfg.n_kv_heads, d=cfg.hd),
+                          launches=n) for s, n in sorted(lengths.items())}
+    log(f"  flash launches by prompt length: {dict(sorted(lengths.items()))}")
     g = torch.Generator(device=dev).manual_seed(21)
     patches = torch.randn((VLM_ROWS, cfg.vision_patches, cfg.d_model),
                           generator=g, device=dev).to(torch.bfloat16)
@@ -3057,7 +3104,506 @@ def serve_qwen2_vl(dev):
     check(all(c[1][2] == n_in for c in k["calls"]),
           f"the VLM prefill's flash calls are not at {n_in} positions")
     del model
-    return dict(launches=counts, batch_launches=k["counts"])
+    return dict(launches=counts, batch_launches=k["counts"],
+                flash_rows=flash_rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: training at llama3-8b width (main path 5: launch.train.train)
+# ---------------------------------------------------------------------------
+
+# depth kept for training on one 80 GB card (published widths; remat on,
+# bf16, the plain attention as in the reference): the deepest that leaves
+# >= 10 GB free with bf16 parameters and gradients, float32 AdamW moments,
+# the update's float32 temporaries (slices of optimizer.UPDATE_CHUNK), the
+# remat-saved layer inputs, one layer's recompute and the loss's logits
+TRAIN_DEPTH = 20
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STREAM, TRAIN_REPEAT = 5, 5    # steps on the stream, then one batch
+TRAIN_LR = 1e-4
+# phase 22b: the reference's packing test shape
+PACK_LENGTHS, PACK_ROWS, PACK_SEEDS = 256, 16, 4
+# phase 22c: SMOKE, float32, card against CPU from the same weights
+SMOKE_TRAIN_STEPS, SMOKE_TRAIN_LR = 3, 1e-3
+SMOKE_LOSS_RTOL = 1e-4
+
+
+def train_flops(cfg, tokens):
+    """(model FLOPs of one training step, the plain attention's FLOPs, the
+    matmul parameters N): 6 N tokens for the products of the layers and
+    the LM head (forward and backward), plus 2 N_layers tokens for the
+    remat's second forward of the layers; the attention's QK and PV
+    products over the full s x s square the chunked route computes (2
+    FLOPs a multiply-add), forward, backward and recomputed."""
+    hd, d = cfg.hd, cfg.d_model
+    per_layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    n_layers = cfg.n_layers * per_layer
+    n_matmul = n_layers + d * cfg.vocab
+    model = 6 * n_matmul * tokens + (2 * n_layers * tokens if cfg.remat
+                                     else 0)
+    attn = 4 * 4 * cfg.n_heads * hd * tokens * TRAIN_SEQ * cfg.n_layers
+    return model, attn, n_matmul
+
+
+def train_full_width(dev):
+    """Phase 22a: llama3-8b at full width, TRAIN_DEPTH layers, bf16, remat
+    on, through ``launch.train.train``: TRAIN_STREAM steps on the
+    synthetic corpus packed on the card (every packed batch launches
+    ``prefix_scan``), each loss finite and below 2 ln(vocab) (the
+    reference's smoke bound), then TRAIN_REPEAT steps on one repeated
+    batch, whose last loss must be below its first.  Prints each step's
+    split (packing, forward + backward, update), tokens/s, the peak
+    memory and the model-FLOPs share.  Then holds layer 0's and the
+    head's bf16 gradients through ``_ProductF32`` against the emulated
+    and plain routes (``layer_product_grads``)."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import corpus_stream, train
+    free_memory()
+    full = get_config("llama3_8b")
+    cfg = full.replace(n_layers=TRAIN_DEPTH)
+    check(cfg.remat and not cfg.use_pallas and cfg.dtype == "bfloat16",
+          "the training config is not bf16 with remat and plain attention")
+    stream = corpus_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    repeated = []
+
+    def batches():
+        for _ in range(TRAIN_STREAM):
+            yield next(stream)
+        repeated.append(next(stream))
+        for _ in range(TRAIN_REPEAT):
+            yield repeated[0]
+
+    steps = TRAIN_STREAM + TRAIN_REPEAT
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_calls(ops, "exclusive_scan_op",
+                        lambda x, **kw: x.detach().clone()) as scans:
+        out = train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, ckpt=None, device=dev, batches=batches(),
+                    log=log)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_scan_agreement(scans, counts["prefix_scan"], "phase 22a")
+    peak = memory(dev)[1]
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    hist = out["history"]
+    profile_train_step(cfg, out["model"], out["opt"], repeated[0], dev)
+    out["opt"] = None
+    free_memory()
+    row = {k: torch.as_tensor(v[:1], device=dev)
+           for k, v in repeated[0].items()}
+    layer_product_grads(out["model"], row["tokens"], row["labels"], cfg)
+    del out, row
+    free_memory()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for r in hist:
+        t = r["t_pack"] + r["t_grad"] + r["t_update"]
+        log(f"  train step {r['step']}: loss {r['loss']:.6f} gnorm "
+            f"{r['gnorm']:.4f} lr {r['lr']:.3e}; {t:.4f} s = pack "
+            f"{r['t_pack']:.4f} + forward/backward {r['t_grad']:.4f} + "
+            f"update {r['t_update']:.4f}")
+    losses = [r["loss"] for r in hist]
+    cap = 2 * math.log(cfg.vocab)
+    check(all(math.isfinite(x) and x < cap for x in losses[:TRAIN_STREAM]),
+          f"a stream step's loss is not finite or not below 2 ln(vocab) = "
+          f"{cap:.4f}: {losses[:TRAIN_STREAM]}")
+    rep = losses[TRAIN_STREAM:]
+    check(rep[-1] < rep[0], f"the repeated batch's loss did not fall: {rep}")
+    check(counts["prefix_scan"] >= TRAIN_STREAM + 1,
+          f"prefix_scan launched {counts['prefix_scan']} times for "
+          f"{TRAIN_STREAM + 1} packed batches")
+    check(counts["flash_attention"] == 0 and counts["serve_prefill"] == 0,
+          f"an attention kernel ran on the training path: {counts}")
+    steady = hist[1:]
+    med = lambda k: statistics.median(r[k] for r in steady)  # noqa: E731
+    packed = hist[1:TRAIN_STREAM + 1]      # steps that packed a batch
+    t_step = statistics.median(r["t_pack"] + r["t_grad"] + r["t_update"]
+                               for r in packed)
+    pack = statistics.median(r["t_pack"] for r in packed)
+    flops, attn_flops, n_matmul = train_flops(cfg, tokens)
+    share = flops / (t_step * PEAK_BF16_PER_S)
+    log(f"phase 22a: {cfg.name} {cfg.n_layers} of {full.n_layers} layers "
+        f"(d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), {n_params} parameters, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} ({tokens} tokens a step), lr "
+        f"{TRAIN_LR}: {steps} steps in {wall:.2f} s; a packed step (steps "
+        f"1-{TRAIN_STREAM}) median {t_step:.4f} s: packing on the card "
+        f"{pack:.4f}; steps 1-{steps - 1} median forward/backward "
+        f"{med('t_grad'):.4f}, update {med('t_update'):.4f}; "
+        f"{tokens / t_step:.1f} tokens/s;"
+        f" peak {peak / 1e9:.3f} GB; model FLOPs {flops:.4e} a step "
+        f"(N_matmul {n_matmul}; the plain attention's {attn_flops:.4e} "
+        f"besides), share of the bf16 peak {share:.4f}; launches {counts} "
+        f"({counts['prefix_scan'] / (TRAIN_STREAM + 1):.2f} prefix_scan a "
+        f"packed batch); losses {losses}")
+    return dict(launches=counts, t_step=t_step, share=share, peak=peak,
+                steps=steps)
+
+
+# kernels the profiler names for the dense products (cuBLAS's and
+# CUTLASS's) and for the optimizer's and casts' elementwise work
+MATMUL_KERNELS = r"gemm|gemv|nvjet|xmma|cutlass"
+
+
+def profile_train_step(cfg, model, opt, batch, dev):
+    """One more training step of phase 22a's model on its repeated batch
+    under torch.profiler, after the counted run: the device's busy and
+    idle shares, the dense products' share of the device time, and the
+    kernels with the most time."""
+    import re
+    import torch
+    from repro_torch.train import AdamWConfig, make_train_step
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup=1,
+                                            total_steps=1))
+    tensors = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    prof, _ = profiled(lambda: step(model, opt, tensors))
+    wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    mm = sum(e.time_range.elapsed_us() for e in events
+             if re.search(MATMUL_KERNELS, e.name)) / 1e6
+    log(f"phase 22a profiled step: device busy {busy:.4f} s, of it dense "
+        f"products {mm:.4f} s ({mm / busy:.4f}), the rest {busy - mm:.4f} "
+        f"s")
+    trace_summary("22a train step", prof, wall, top_dev=12)
+
+
+def smoke_train_batch(cfg, dev):
+    """``data.random_batch(cfg)`` (2 rows x 64 positions, seed 0) on
+    ``dev``."""
+    import torch
+    from repro_torch.data import random_batch
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in random_batch(cfg).items()}
+
+
+# Gradients of bf16 products through ``layers._ProductF32``, leaf by leaf,
+# each as a share of the leaf's max |g| on the other route:
+# - against the 'emulated' route (the same forward bits; the backward's
+#   products in float32 of the cotangent rounded to bf16, as
+#   ``_ProductF32`` rounds it): within 2^-6, four steps of bf16's 2^-8
+#   (the two differ only by summation order and the outputs' rounding);
+# - against plain autograd on operands upcast to float32 (the CPU's
+#   route): within 2^-5.  Two bf16 runs of these models that differ only
+#   in summation order and in the cotangent's rounding, neither through
+#   ``_ProductF32``, land up to 1.9e-2 apart on an H100 (recurrentgemma's
+#   SMOKE config; the check prints this floor, emulated against plain,
+#   beside its own): 2^-6 is below the floor of bf16 training here.
+# A wrong, swapped or dropped operand gradient is off by its own size.
+PRODUCT_GRAD_TOL = {"emulated": 2.0 ** -6, "plain": 2.0 ** -5}
+
+
+def product_route_grads(loss_of, leaves):
+    """The gradients of ``loss_of()`` with respect to ``leaves`` by three
+    routes of the bf16 products that ``matmul_f32`` / ``bmm_f32`` send to
+    ``_ProductF32`` on the card: 'through' it (``torch.mm`` / ``bmm`` with
+    ``out_dtype=float32``; the backward's products in bf16 of the float32
+    cotangent rounded to bf16); 'emulated' (the same forward; the
+    backward's products in float32 of the cotangent rounded to bf16 and
+    back, rounded to the operands' type); 'plain' (the operands upcast,
+    plain autograd, the CPU's route).  Returns ({route: grads}, the
+    number of products the first run sent through ``_ProductF32``)."""
+    import torch
+    from repro_torch.models import layers
+    own, calls, f32 = layers._ProductF32, [0], torch.float32
+
+    def mm(a, b, **kw):
+        return (torch.bmm if a.dim() == 3 else torch.mm)(a, b, **kw)
+
+    class Emulated(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            ctx.save_for_backward(a, b)
+            return mm(a, b, out_dtype=f32)
+
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            g = g.to(a.dtype).to(f32)
+            return (mm(g, b.to(f32).transpose(-1, -2)).to(a.dtype),
+                    mm(a.to(f32).transpose(-1, -2), g).to(b.dtype))
+
+    def through(a, b):
+        calls[0] += 1
+        return own.apply(a, b)
+
+    routes = {"through": through, "emulated": Emulated.apply,
+              "plain": lambda a, b: mm(a.to(f32), b.to(f32))}
+    out = {}
+    for name, route in routes.items():
+        layers._ProductF32 = type("Route", (), {"apply": staticmethod(route)})
+        try:
+            out[name] = torch.autograd.grad(loss_of(), leaves)
+        finally:
+            layers._ProductF32 = own
+    return out, calls[0]
+
+
+def check_product_grads(names, grads, calls, label):
+    """Every leaf's gradient through ``_ProductF32`` against the emulated
+    and the plain route, each within its PRODUCT_GRAD_TOL, in the leaf's
+    type and shape.  Returns {route: (worst leaf, its error)}."""
+    import torch
+    check(calls > 0, f"{label}: no product went through _ProductF32")
+
+    def worst_leaf(got, want):
+        errs = {}
+        for n, g, w in zip(names, got, want):
+            check(g is not None and g.dtype == w.dtype
+                  and g.shape == w.shape,
+                  f"{label}: {n}'s gradient is missing or of another type")
+            w32 = w.to(torch.float32)
+            errs[n] = float((g.to(torch.float32) - w32).abs().max()) / max(
+                float(w32.abs().max()), 1e-30)
+        n = max(errs, key=errs.get)
+        return n, errs[n]
+
+    worst = {}
+    for route, tol in PRODUCT_GRAD_TOL.items():
+        n, err = worst[route] = worst_leaf(grads["through"], grads[route])
+        check(err <= tol, f"{label}: {n}'s gradient differs from the "
+              f"{route} route by {err:.3e} of its max |g| (limit {tol:.3e})")
+    floor = worst_leaf(grads["emulated"], grads["plain"])
+    log(f"{label}: {len(names)} gradient leaves through _ProductF32 "
+        f"({calls} products); worst against the emulated route "
+        f"{worst['emulated'][0]} {worst['emulated'][1]:.3e} of its max |g| "
+        f"(limit {PRODUCT_GRAD_TOL['emulated']:.3e}), against plain "
+        f"autograd on upcast operands {worst['plain'][0]} "
+        f"{worst['plain'][1]:.3e} (limit {PRODUCT_GRAD_TOL['plain']:.3e}); "
+        f"emulated against plain, no _ProductF32: {floor[0]} "
+        f"{floor[1]:.3e}")
+    return worst
+
+
+def smoke_product_grads(arch, dev):
+    """``arch``'s SMOKE config in bf16 on the card: every parameter's
+    gradient of ``loss_fn`` through ``_ProductF32`` against the emulated
+    and plain routes (``product_route_grads``), from the same weights and
+    batch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model, loss_fn
+    cfg = get_smoke(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+    model = init_model(cfg, seed=0, device=dev).requires_grad_(True)
+    batch = smoke_train_batch(cfg, dev)
+    names, leaves = zip(*model.named_parameters())
+    grads, calls = product_route_grads(lambda: loss_fn(model, batch, cfg),
+                                       leaves)
+    return check_product_grads(names, grads, calls,
+                               f"smoke {arch} bf16 gradients")
+
+
+def layer_product_grads(model, tokens, labels, cfg):
+    """Phase 22a's model: layer 0, the final norm and the LM head at full
+    width on one row, bf16, the loss ``_masked_ce`` of the layer's output;
+    every gradient (and the layer input's) through ``_ProductF32``
+    against the emulated and plain routes (``product_route_grads``)."""
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import (_masked_ce, block_apply,
+                                                decoder_inputs)
+    import torch
+    with torch.no_grad():
+        x0, pos, pos3 = decoder_inputs(model, tokens, cfg)
+    x0.requires_grad_(True)
+    layer = model.layers[0]
+
+    def loss_of():
+        x, _ = block_apply(layer, x0, cfg, pos, pos3)
+        return _masked_ce(model.embed.head, rmsnorm(x, model.ln_f), labels,
+                          cfg)
+
+    named = [(f"layers.0.{n}", p) for n, p in layer.named_parameters()]
+    named += [("ln_f", model.ln_f), ("embed.head", model.embed.head),
+              ("layer input", x0)]
+    names, leaves = zip(*named)
+    grads, calls = product_route_grads(loss_of, leaves)
+    return check_product_grads(
+        names, grads, calls, f"phase 22a: {cfg.name} layer 0 and head "
+        f"at full width ({tokens.shape[0]} x {tokens.shape[1]} tokens)")
+
+
+def pack_card_vs_cpu(dev):
+    """Phase 22b: ``pack_batches`` of phase 22a's corpus on the card and on
+    the CPU, every batch equal bit for bit; ``balanced_pack`` with
+    'sorted' and 'ksection' at PACK_LENGTHS lognormal lengths and p =
+    PACK_ROWS (the reference's test shape), with and without old rows,
+    equal to the CPU's parts and metrics.  Every input the packer handed
+    ``prefix_scan`` and ``ksection_hist`` on the card is held against the
+    plain version; the launches of the corpus pass and of the packs are
+    returned for the kernels line."""
+    import numpy as np
+    from repro_torch.data import SyntheticCorpus, balanced_pack, pack_batches
+    from repro_torch.kernels import ops
+    docs = SyntheticCorpus(vocab=128256, seed=1).documents(2048)
+    keep_scan = lambda x, **kw: x.detach().clone()  # noqa: E731
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_calls(ops, "exclusive_scan_op", keep_scan) as scans:
+        card = list(pack_batches(docs, TRAIN_BATCH, TRAIN_SEQ, vocab=128256,
+                                 device=dev))
+    t_card = time.perf_counter() - t0
+    corpus = ops.launch_counts()
+    check_scan_agreement(scans, corpus["prefix_scan"], "phase 22b corpus")
+    t0 = time.perf_counter()
+    cpu = list(pack_batches(docs, TRAIN_BATCH, TRAIN_SEQ, vocab=128256,
+                            device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    check(len(card) == len(cpu), "pack_batches: another number of batches")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        check(np.array_equal(a["tokens"], b["tokens"])
+              and np.array_equal(a["labels"], b["labels"]),
+              f"pack_batches: batch {i} differs between card and CPU")
+    check(corpus["prefix_scan"] >= len(card), f"{corpus['prefix_scan']} "
+          f"prefix_scan launches for {len(card)} packed batches")
+    log(f"phase 22b: {len(card)} batches of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"equal bit for bit, card {t_card:.3f} s ({corpus['prefix_scan']} "
+        f"prefix_scan launches), CPU {t_cpu:.3f} s")
+    by_method = {}
+    ops.reset_launch_counts()
+    with recorded_calls(ops, "exclusive_scan_op", keep_scan) as scans, \
+            recorded_hist_inputs() as hists:
+        for method, kernel in (("sorted", "prefix_scan"),
+                               ("ksection", "ksection_hist")):
+            before = ops.launch_counts()[kernel]
+            for seed in range(PACK_SEEDS):
+                rng = np.random.default_rng(seed)
+                lengths = np.maximum(8, rng.lognormal(
+                    5.0, 0.8, PACK_LENGTHS)).astype(np.int64)
+                old = None
+                for _ in range(2):
+                    got = balanced_pack(lengths, PACK_ROWS, old_rows=old,
+                                        method=method, device=dev)
+                    want = balanced_pack(lengths, PACK_ROWS, old_rows=old,
+                                         method=method, device="cpu")
+                    check(np.array_equal(got[0], want[0])
+                          and got[1] == want[1],
+                          f"balanced_pack {method} seed {seed}: card "
+                          f"{got[1]} against CPU {want[1]}")
+                    old = got[0]
+                    lengths = lengths.copy()
+                    lengths[:10] += 50
+            by_method[method] = ops.launch_counts()[kernel] - before
+            check(by_method[method] > 0, f"balanced_pack {method}: {kernel} "
+                  "was not launched")
+    packs = ops.launch_counts()
+    check_scan_agreement(scans, packs["prefix_scan"], "phase 22b packs")
+    check_hist_agreement(hist_agreement(hists), packs["ksection_hist"],
+                         "phase 22b packs")
+    log(f"phase 22b: balanced_pack ({PACK_LENGTHS} lengths, p = "
+        f"{PACK_ROWS}, {PACK_SEEDS} seeds, fresh and with old rows) equal "
+        f"to the CPU; launches {by_method}")
+    return dict(batches=len(card), corpus_launches=corpus,
+                pack_launches=packs)
+
+
+def smoke_train_card_vs_cpu(arch, compress, dev):
+    """``arch``'s SMOKE config in float32: SMOKE_TRAIN_STEPS
+    ``make_train_step`` steps (with EF compression if ``compress``) on the
+    card and on the CPU from the same weights and batch: losses within
+    SMOKE_LOSS_RTOL relative, parameters after the first step within 2 lr
+    + 1e-5 (AdamW's first step moves a weight by about lr times the sign
+    of its gradient, which a gradient near 0 may have either way)."""
+    import copy
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.train import (AdamWConfig, init_compress_state,
+                                   init_opt_state, make_train_step)
+    ocfg = AdamWConfig(lr=SMOKE_TRAIN_LR, warmup=1,
+                       total_steps=SMOKE_TRAIN_STEPS)
+    cfg = get_smoke(arch)
+    cpu_model = init_model(cfg, seed=0, device="cpu")
+    runs = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        model = copy.deepcopy(cpu_model).to(d) if side == "card" else cpu_model
+        step = make_train_step(cfg, ocfg, compress=compress)
+        opt = init_opt_state(model, ocfg)
+        comp = init_compress_state(model) if compress else None
+        batch = smoke_train_batch(cfg, d)
+        losses, first = [], None
+        for i in range(SMOKE_TRAIN_STEPS):
+            if compress:
+                model, opt, comp, m = step(model, opt, batch, comp)
+            else:
+                model, opt, m = step(model, opt, batch)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                first = {n: p.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+        runs[side] = losses, first
+    (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    worst = max(pc, key=lambda n: float((pc[n] - ph[n]).abs().max()))
+    moved = float((pc[worst] - ph[worst]).abs().max())
+    label = f"smoke {arch}{' compressed' if compress else ''} train"
+    check(rel <= SMOKE_LOSS_RTOL, f"{label}: losses {lc} against {lh}")
+    check(moved <= 2 * ocfg.lr + 1e-5, f"{label}: {worst} after step 1 "
+          f"differs by {moved:.3e}")
+    log(f"{label} card vs CPU (float32): losses {lc}, worst relative "
+        f"{rel:.3e} (limit {SMOKE_LOSS_RTOL}); parameters after step 1 "
+        f"within {moved:.3e} (limit {2 * ocfg.lr + 1e-5:.3e})")
+
+
+def checkpoint_resume_on_card(dev, path):
+    """The SMOKE llama on the card after two steps, saved under ``path``
+    and restored into a model of other weights: parameters, moments and
+    step bit for bit; a step from the restored state equal to the
+    unbroken run's, bit for bit."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step, restore, save)
+    cfg = get_smoke("llama3_8b")
+    ocfg = AdamWConfig(lr=SMOKE_TRAIN_LR, warmup=1, total_steps=4)
+    step = make_train_step(cfg, ocfg)
+    batch = smoke_train_batch(cfg, dev)
+    model = init_model(cfg, seed=0, device=dev)
+    opt = init_opt_state(model, ocfg)
+    for _ in range(2):
+        model, opt, _ = step(model, opt, batch)
+    save(path, 2, {"params": model, "opt": opt})
+    fresh = init_model(cfg, seed=3, device=dev)
+    _, state = restore(path, template={"params": fresh,
+                                       "opt": init_opt_state(fresh, ocfg)})
+    own = dict(fresh.named_parameters())
+    check(all(torch.equal(own[n], p) and torch.equal(state["opt"].m[n],
+                                                     opt.m[n])
+              and torch.equal(state["opt"].v[n], opt.v[n])
+              for n, p in model.named_parameters())
+          and state["opt"].step == opt.step,
+          "the restored checkpoint differs from the saved state")
+    model, _, m = step(model, opt, batch)
+    fresh, _, m2 = step(fresh, state["opt"], batch)
+    check(float(m["loss"]) == float(m2["loss"]) and all(
+        torch.equal(p, q) for p, q in zip(model.parameters(),
+                                          fresh.parameters())),
+          "a resumed step differs from the unbroken one")
+    log("smoke llama3-8b checkpoint on the card: restored bit for bit, the "
+        "resumed step equal to the unbroken one")
+
+
+def train_card_vs_cpu(dev):
+    """Phase 22c: every architecture's SMOKE config in float32, card
+    against CPU (``smoke_train_card_vs_cpu``), llama once more with
+    compression; every architecture's SMOKE config in bf16, its gradients
+    through ``_ProductF32`` against the emulated and plain routes
+    (``smoke_product_grads``); a checkpoint of the card's llama restored
+    and resumed bit for bit."""
+    import shutil
+    from repro_torch.configs import ARCH_IDS
+    for arch, compress in ([(a, False) for a in ARCH_IDS]
+                           + [("llama3_8b", True)]):
+        smoke_train_card_vs_cpu(arch, compress, dev)
+    for arch in ARCH_IDS:
+        smoke_product_grads(arch, dev)
+    path = os.path.join(ROOT, "build", "train_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    checkpoint_resume_on_card(dev, path)
 
 
 # ---------------------------------------------------------------------------
@@ -3252,10 +3798,20 @@ def main():
           serve_card_vs_cpu, dev, "qwen2_vl_72b", "full")
     log(f"phases 20-21: {time.perf_counter() - t_new:.1f} s; command time "
         f"so far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    training = phase("phase 22a: training at llama3-8b width (main path 5: "
+                     "launch.train.train, the packer on the card)",
+                     train_full_width, dev)
+    packing = phase("phase 22b: the training packer, card against CPU",
+                    pack_card_vs_cpu, dev)
+    phase("phase 22c: SMOKE training of every architecture, card against "
+          "CPU; checkpoint and resume on the card", train_card_vs_cpu, dev)
+    log(f"phase 22: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
-                        whisper, vlm)
+                        whisper, vlm, training, packing)
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -3282,7 +3838,14 @@ def main():
              "whisper_medium cheap (phase 6's trace)": whisper["launches"],
              "qwen2_vl_72b full (phase 6's trace)": vlm["launches"],
              "qwen2_vl_72b batch API (4 x 256 patches, 8 steps)":
-                 vlm["batch_launches"]}
+                 vlm["batch_launches"],
+             f"llama3_8b train ({TRAIN_DEPTH} layers, {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ}, {training['steps']} steps)": training["launches"],
+             f"training packer, corpus pass ({packing['batches']} batches)":
+                 packing["corpus_launches"],
+             f"balanced_pack sorted and ksection ({PACK_LENGTHS} lengths, p "
+             f"= {PACK_ROWS}, {PACK_SEEDS} seeds x 2)":
+                 packing["pack_launches"]}
     # the flash kernel at the hybrid's head dim and at whisper's encoder
     # and cross-attention shapes, beside its main-path row
     d256 = dict(hybrid["row"], shape="b=1 hq=10 hkv=1 s=6144 d=256 causal "
@@ -3294,7 +3857,10 @@ def main():
         "at_cross_prefill": dict(w["cross_prefill"], shape="b=16 hq=16 "
                                  "hkv=16 s=128 s_kv=1500 d=64 no mask bf16"),
         "at_cross_decode": dict(w["cross_decode"], shape="b=16 hq=16 hkv=16 "
-                                "s=1 s_kv=1500 d=64 no mask bf16")}
+                                "s=1 s_kv=1500 d=64 no mask bf16"),
+        "at_qwen2_vl": {f"s={n}": dict(r, shape=f"b=1 hq=64 hkv=8 s={n} d=128 "
+                                       "causal bf16")
+                        for n, r in vlm["flash_rows"].items()}}
     table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],

@@ -1,4 +1,8 @@
-"""Data pipeline: packing (the serving engine's part so far)."""
-from .packing import first_fit_pack
+"""Data pipeline: the balanced training-data packer, the synthetic
+corpus and random batches, and the serving engine's first-fit packer."""
+from .packing import (SyntheticCorpus, attention_cost, balanced_pack,
+                      first_fit_pack, greedy_pack, pack_batches,
+                      random_batch)
 
-__all__ = ["first_fit_pack"]
+__all__ = ["SyntheticCorpus", "attention_cost", "balanced_pack",
+           "first_fit_pack", "greedy_pack", "pack_batches", "random_batch"]

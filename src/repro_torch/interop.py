@@ -11,21 +11,27 @@ layer's state crosses as one rank's pieces: ``halo_plan_from_jax`` and
 ``sharded_elements_from_jax`` take the JAX package's ``HaloPlan`` and
 ``(p, C, ...)`` ``ShardedElements`` (any object with their fields).  The serving side's
 state is the model's weights: ``params_from_jax`` builds a port model
-from the JAX package's parameter tree.
+from the JAX package's parameter tree.  The training side adds the
+optimizer's moments (``opt_state_from_jax``, through the same layer
+mapping, ``tensors_from_jax``) and whole checkpoints the JAX package
+wrote (``checkpoint_from_jax``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core.rtree import RefinementForest
+from .device import resolve_device
 from .fem.halo import HaloPlan
 from .fem.mesh import Mesh
 from .fem.parallel import ShardedElements
 from .models.config import ModelConfig
 from .models.model import init_model
+from .train.checkpoint import read_checkpoint
+from .train.optimizer import OptState
 
 MESH_ARRAYS = ("verts", "node_tets", "node_tag", "node_mid", "leaf_nodes")
 FOREST_ARRAYS = ("parent", "child0", "child1")
@@ -107,7 +113,9 @@ def _tensor(leaf, device) -> torch.Tensor:
     """A leaf of the JAX package's parameter tree (a ``Boxed`` with its
     ``value``, or a bare array) as a tensor.  bfloat16 arrays, which
     numpy holds as an extension type torch cannot read, cross as their
-    16-bit patterns."""
+    16-bit patterns.  A tensor (a checkpoint's array) is copied."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device, copy=True)
     a = np.asarray(getattr(leaf, "value", leaf))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(
@@ -167,23 +175,82 @@ def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
     exactly its JAX layer's parameter names, and the layer exactly the
     block's."""
     model = init_model(cfg, seed=None, device=device)
-    dev = model.ln_f.device
-    stacks = (("enc_layers", "dec_layers") if cfg.family == "encdec"
-              else ("layers",))
+    tensors = tensors_from_jax(params, cfg, device=model.ln_f.device)
+    own = dict(model.named_parameters())
+    if set(own) != set(tensors):
+        raise ValueError(
+            f"parameter names differ: port only "
+            f"{sorted(set(own) - set(tensors))[:6]}, JAX only "
+            f"{sorted(set(tensors) - set(own))[:6]}")
     with torch.no_grad():
-        model.embed.tok.copy_(_tensor(params["embed"]["tok"], dev))
-        model.embed.head.copy_(_tensor(params["embed"]["head"], dev))
-        model.ln_f.copy_(_tensor(params["ln_f"], dev))
-        if cfg.family == "encdec":
-            model.ln_enc.copy_(_tensor(params["ln_enc"], dev))
-        for stack in stacks:
-            blocks = getattr(model, stack)
-            for block, tensors in zip(blocks, _layer_tensors(
-                    params[stack], len(blocks), dev)):
-                own = dict(block.named_parameters())
-                if set(own) != set(tensors):
-                    raise ValueError(f"parameter names differ: port "
-                                     f"{sorted(own)}, JAX {sorted(tensors)}")
-                for name, w in tensors.items():
-                    own[name].copy_(w)
+        for name, w in tensors.items():
+            own[name].copy_(w)
     return model
+
+
+def tensors_from_jax(tree: Dict, cfg: ModelConfig, *, device=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The leaves of a tree shaped like the JAX package's parameters (the
+    parameters, their gradients, or Adam's ``m`` / ``v``) by the port
+    model's parameter names (``state_dict`` style: ``embed.tok``,
+    ``layers.3.attn.wq``, ...), copied to ``device`` (default CUDA): the
+    layer mapping ``params_from_jax`` describes."""
+    dev = resolve_device(device)
+    stacks = ((("enc_layers", cfg.enc_layers), ("dec_layers", cfg.n_layers))
+              if cfg.family == "encdec" else (("layers", cfg.n_layers),))
+    out = {"embed.tok": _tensor(tree["embed"]["tok"], dev),
+           "embed.head": _tensor(tree["embed"]["head"], dev),
+           "ln_f": _tensor(tree["ln_f"], dev)}
+    if cfg.family == "encdec":
+        out["ln_enc"] = _tensor(tree["ln_enc"], dev)
+    for stack, n in stacks:
+        for i, layer in enumerate(_layer_tensors(tree[stack], n, dev)):
+            out.update({f"{stack}.{i}.{k}": w for k, w in layer.items()})
+    return out
+
+
+def opt_state_from_jax(opt: Any, cfg: ModelConfig, *, device=None
+                       ) -> OptState:
+    """The port's ``OptState`` from the JAX package's (``step``, ``m``,
+    ``v``; any object with those fields, or a 3-sequence in that order):
+    the moments keyed by the port's parameter names, on ``device``."""
+    step, m, v = ((opt.step, opt.m, opt.v) if hasattr(opt, "m")
+                  else tuple(opt))
+    return OptState(int(np.asarray(step)),
+                    tensors_from_jax(m, cfg, device=device),
+                    tensors_from_jax(v, cfg, device=device))
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
+    """Nested dicts from '/'-joined keys; a dict whose keys are all
+    indices becomes a list (the hybrid's per-layer list)."""
+    root: Dict = {}
+    for key, val in flat.items():
+        node = root
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(root)
+
+
+def checkpoint_from_jax(path: str, cfg: ModelConfig,
+                        step: Optional[int] = None, *, device=None
+                        ) -> Tuple[int, torch.nn.Module, OptState]:
+    """``(step, model, opt_state)`` for the port from a checkpoint the JAX
+    package's ``repro.train.save`` wrote of ``{"params": params, "opt":
+    opt_state}`` (its launcher's layout), ``step=None`` the newest.
+    bfloat16 arrays are read as raw words by the manifest's dtype, so no
+    bfloat16 numpy type is needed."""
+    step, flat = read_checkpoint(path, step)
+    tree = _unflatten(flat)
+    model = params_from_jax(tree["params"], cfg, device=device)
+    return step, model, opt_state_from_jax(tree["opt"], cfg, device=device)

@@ -31,7 +31,14 @@ def check_attention_inputs(fn: str, q, k, v, heads_axis: int,
                            max_d: int) -> None:
     """Raise unless q / k / v are contiguous CUDA tensors of one supported
     type on one device, with head dim <= ``max_d`` and query heads a
-    multiple of the kv heads (``heads_axis`` is the heads dimension)."""
+    multiple of the kv heads (``heads_axis`` is the heads dimension).
+    The kernels have no backward pass and autograd cannot see them, so
+    inputs that require grad while grad is enabled raise too (before
+    anything else): a launch would drop their gradients silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(f"{fn} has no backward pass and its inputs "
+                           "require grad: train with use_pallas=False (the "
+                           "plain attention), as the reference does")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors; {name} is on "

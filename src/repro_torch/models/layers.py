@@ -14,12 +14,18 @@ products, ``models.moe``) keep the up-projections in float32 through
 the activation and round once, as the reference does (``matmul_f32``,
 ``bmm_f32``).
 
+Parameters are built frozen (``requires_grad=False``): serving takes no
+gradients, and the train step turns grad on for the model it trains.
+``chunked_cross_entropy`` is the reference's sequence-chunked loss.
+
 Full-sequence attention has the reference's three strategies: chunked
 (online softmax over KV chunks), blocked causal, and the hand-written
 flash kernel (``cfg.use_pallas``; plain ``mha_ref`` on CPU tensors), which
 also takes the encoder-decoder's cross-attention (K/V of another length
-than Q, no mask).  The reference's tensor-parallel ``shard_map`` branch
-is not ported (ROADMAP.md, queue 1, item 10).
+than Q, no mask).  The kernel has no backward pass: training runs the
+plain strategies, as the reference does.  The reference's
+tensor-parallel ``shard_map`` branch is not ported (ROADMAP.md, queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -333,15 +339,37 @@ class MLP(nn.Module):
         self.wo = dense_param((f, d), dt, device, gen)
 
 
+class _ProductF32(torch.autograd.Function):
+    """``a @ b`` of bf16 CUDA operands (2-D, or 3-D batched) with a
+    float32 result: ``torch.mm`` / ``torch.bmm`` with ``out_dtype``.  The
+    gradients are bf16 products of the float32 cotangent rounded to bf16,
+    in the operands' type (what a bf16 product's gradient is)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        gb = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., k) @ w (k, n)`` with a float32 result from operands of
     their own type (the reference's ``preferred_element_type=float32``).
     On the card bf16 operands go to ``torch.mm(..., out_dtype=float32)``
-    as they are, so the weights are never copied to float32; the CPU has
-    no such product, so there the operands are upcast first."""
+    as they are (``_ProductF32``, which also differentiates it), so the
+    weights are never copied to float32; the CPU has no such product, so
+    there the operands are upcast first."""
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        y = torch.mm(x2, w, out_dtype=F32)
+        y = _ProductF32.apply(x2, w)
     else:
         y = torch.mm(x2.to(F32), w.to(F32))
     return y.reshape(*x.shape[:-1], w.shape[-1])
@@ -352,7 +380,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``matmul_f32``: on the card bf16 operands go to ``torch.bmm(...,
     out_dtype=float32)``; the CPU upcasts them first."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        return torch.bmm(a, b, out_dtype=F32)
+        return _ProductF32.apply(a, b)
     return torch.bmm(a.to(F32), b.to(F32))
 
 
@@ -405,9 +433,32 @@ class Embedding(nn.Module):
 
 def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    return emb.tok[tokens].to(cfg.act_dtype)
+    """The rows of the token table.  ``F.embedding``, not indexing: its
+    gradient adds a repeated token's rows in a fixed order (indexing's
+    adds them in any order on the CPU, so two runs could differ)."""
+    return torch.nn.functional.embedding(tokens, emb.tok).to(cfg.act_dtype)
 
 
 def lm_logits(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits from a float32 product (any leading dims)."""
     return torch.matmul(x.to(F32), emb.head_f32())
+
+
+def chunked_cross_entropy(head: torch.Tensor, x: torch.Tensor,
+                          labels: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """Mean cross-entropy of ``labels`` (b, s) under the logits of ``x``
+    (b, s, d) and ``head`` (d, vocab), over ``max(s // loss_chunk, 1)``
+    sequence chunks so that the (b, s, vocab) logits never exist at once.
+    Like the reference, ``s`` must split into equal chunks."""
+    b, s, d = x.shape
+    nc = max(s // cfg.loss_chunk, 1)
+    xc = x.reshape(b, nc, s // nc, d)
+    lc = labels.reshape(b, nc, s // nc).long()
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for ci in range(nc):
+        logits = matmul_f32(xc[:, ci], head)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[:, ci, :, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (b * s)

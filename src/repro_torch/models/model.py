@@ -1,5 +1,5 @@
-"""Model registry: family -> init, for every family of the JAX
-package."""
+"""Model registry: family -> init, loss and hidden states, for every
+family of the JAX package."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -41,3 +41,35 @@ def model_from_tensors(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
     model = init_model(cfg, seed=None, device="meta")
     model.load_state_dict(tensors, strict=True, assign=True)
     return model
+
+
+def loss_fn(model: torch.nn.Module, batch: Dict, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """The training loss of ``batch`` (``tokens``, ``labels`` (-1 = not
+    scored) and, by family, ``frames`` / ``patch_embeds`` / ``pos3``): a
+    float32 scalar."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return T.decoder_loss(model, batch, cfg)
+    if cfg.family == "encdec":
+        return T.encdec_loss(model, batch, cfg)
+    if cfg.family == "hybrid":
+        return T.hybrid_loss(model, batch, cfg)
+    if cfg.family == "ssm":
+        return T.ssm_loss(model, batch, cfg)
+    raise ValueError(cfg.family)
+
+
+def hidden_fn(model: torch.nn.Module, batch: Dict, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The final hidden states (b, s, d) of ``batch``."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return T.decoder_hidden(model, batch["tokens"], cfg,
+                                pos3=batch.get("pos3"),
+                                patch_embeds=batch.get("patch_embeds"))
+    if cfg.family == "encdec":
+        return T.encdec_hidden(model, batch["frames"], batch["tokens"], cfg)
+    if cfg.family == "hybrid":
+        return T.hybrid_hidden(model, batch["tokens"], cfg)
+    if cfg.family == "ssm":
+        return T.ssm_hidden(model, batch["tokens"], cfg)
+    raise ValueError(cfg.family)

@@ -18,20 +18,31 @@ embedding and the final norm.  Counterpart of
 The reference stacks the decoder's and the SSM's layers for
 ``lax.scan``; here every family is a Python loop, and each LM's
 constructor takes the place of the reference's ``init_*``.
+
+Training: ``decoder_loss``, ``encdec_loss``, ``hybrid_loss`` and
+``ssm_loss`` score each family's hidden states (``decoder_hidden``,
+``encdec_hidden``, ``hybrid_hidden``, ``ssm_hidden``) with the
+sequence-chunked masked cross-entropy ``_masked_ce``; the decoder adds
+0.01 of the MoE aux loss.  Where the reference wraps a layer body in
+``jax.checkpoint`` under ``cfg.remat`` (decoder, encoder, decoder of the
+encoder-decoder, SSM), ``remat`` runs it through
+``torch.utils.checkpoint`` while grad is enabled.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embedding, attention_apply,
-                     embed_tokens, mlp_apply, ones_param, rmsnorm)
+                     embed_tokens, matmul_f32, mlp_apply, ones_param,
+                     project_heads, rmsnorm)
 from .moe import MoE, moe_apply
-from .rglru import RGLRU
-from .ssm import Mamba2
+from .rglru import RGLRU, rglru_block_apply
+from .ssm import Mamba2, mamba2_apply
 
 F32 = torch.float32
 
@@ -52,17 +63,30 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device, gen)
 
 
-def block_ffn(block: Block, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def block_ffn(block: Block, x: torch.Tensor, cfg: ModelConfig, *,
+              with_aux: bool = False):
     """``x`` plus the block's MLP, or MoE, of ``rmsnorm(x)``: the second
-    half of every block, for prefill, decode and packed prefill alike.
-    The MoE's aux loss is a training term and is dropped here."""
+    half of every block, for prefill, decode, packed prefill and training
+    alike.  The MoE's aux loss is a training term: ``with_aux=True``
+    returns it too (a float32 zero for an MLP block), else it is
+    dropped."""
     h = rmsnorm(x, block.ln_mlp)
     if hasattr(block, "moe"):
-        y, _ = moe_apply(block.moe, h, cfg)
+        y, aux = moe_apply(block.moe, h, cfg)
     else:
         y = mlp_apply(block.mlp, h, cfg)
-    return x + y
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return (x + y, aux) if with_aux else x + y
+
+
+def remat(cfg: ModelConfig, body, *args):
+    """``body(*args)``; under ``cfg.remat`` while grad is enabled, through
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward pass: the reference's ``jax.checkpoint`` of a layer body).
+    Serving runs without grad and calls ``body`` as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
 
 
 class DecoderLM(nn.Module):
@@ -93,21 +117,75 @@ def decoder_inputs(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
     return x, pos, pos3
 
 
+def block_apply(layer: Block, x: torch.Tensor, cfg: ModelConfig,
+                pos: torch.Tensor, pos3: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One causal decoder block over the whole sequence: (x, aux)."""
+    h = rmsnorm(x, layer.ln_attn)
+    x = x + attention_apply(layer.attn, h, cfg, pos=pos, pos3=pos3,
+                            causal=True)
+    return block_ffn(layer, x, cfg, with_aux=True)
+
+
 def decoder_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
                    *, pos3: Optional[torch.Tensor] = None,
-                   patch_embeds: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   patch_embeds: Optional[torch.Tensor] = None,
+                   with_aux: bool = False):
     """The final hidden state (b, s, d) of a causal forward over
     ``patch_embeds`` and ``tokens``; ``pos3`` replaces the M-RoPE streams
     ``decoder_inputs`` builds (distinct (t, h, w) ids of image patches).
-    The MoE's aux loss is dropped."""
+    ``with_aux=True`` returns (hidden, aux): the MoE's aux loss summed
+    over the layers (float32; 0 without experts), as the reference's
+    ``decoder_hidden`` does; else the aux is dropped."""
     x, pos, own3 = decoder_inputs(model, tokens, cfg, patch_embeds)
     pos3 = own3 if pos3 is None else pos3
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for layer in model.layers:
-        h = rmsnorm(x, layer.ln_attn)
-        x = block_ffn(layer, x + attention_apply(layer.attn, h, cfg, pos=pos,
-                                                 pos3=pos3, causal=True), cfg)
-    return rmsnorm(x, model.ln_f)
+        x, a = remat(cfg, block_apply, layer, x, cfg, pos, pos3)
+        aux = aux + a
+    x = rmsnorm(x, model.ln_f)
+    return (x, aux) if with_aux else x
+
+
+def _masked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is >= 0, in
+    ``nc = max(s // loss_chunk, 1)`` sequence chunks of ``cs = s // nc``
+    positions (the (b, s, vocab) logits never exist at once).  As in the
+    reference, positions past ``nc * cs`` are not scored: s = 200 with
+    chunks of 64 scores 198."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    b, s, _ = x.shape
+    nc = max(s // cfg.loss_chunk, 1)
+    cs = s // nc
+    num = torch.zeros((), dtype=F32, device=x.device)
+    den = torch.zeros((), dtype=F32, device=x.device)
+    for ci in range(nc):
+        sl = slice(ci * cs, (ci + 1) * cs)
+        logits = matmul_f32(x[:, sl], head)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[:, sl, None])[..., 0]
+        num = num + torch.sum(torch.where(mask[:, sl], logz - gold, 0.0))
+        den = den + torch.sum(mask[:, sl])
+    return num / torch.clamp(den, min=1.0)
+
+
+def decoder_loss(model: DecoderLM, batch: Dict, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """``_masked_ce`` of ``batch['labels']`` plus 0.01 times the MoE aux
+    loss.  The VLM's patch positions carry no label: -1 is prepended
+    over them."""
+    patches = batch.get("patch_embeds")
+    x, aux = decoder_hidden(model, batch["tokens"], cfg,
+                            pos3=batch.get("pos3"), patch_embeds=patches,
+                            with_aux=True)
+    labels = batch["labels"]
+    if patches is not None:
+        pad = torch.full((labels.shape[0], patches.shape[1]), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return _masked_ce(model.embed.head, x, labels, cfg) + 0.01 * aux
 
 
 class SSMBlock(nn.Module):
@@ -224,6 +302,14 @@ class EncDecLM(nn.Module):
         self.ln_f = ones_param(cfg.d_model, cfg.p_dtype, device)
 
 
+def _encoder_block(layer: EncBlock, x: torch.Tensor, cfg: ModelConfig,
+                   pos: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, layer.ln_attn)
+    x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=False,
+                            use_rope=False)
+    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+
+
 def encoder_apply(model: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
                   ) -> torch.Tensor:
     """frames (b, s_enc, d): precomputed embeddings (the reference's stub
@@ -233,8 +319,83 @@ def encoder_apply(model: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
                                              frames.device)
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
     for layer in model.enc_layers:
-        h = rmsnorm(x, layer.ln_attn)
-        x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=False,
-                                use_rope=False)
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+        x = remat(cfg, _encoder_block, layer, x, cfg, pos)
     return rmsnorm(x, model.ln_enc)
+
+
+def _decoder_block(layer: DecBlock, x: torch.Tensor, enc: torch.Tensor,
+                   cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Self-attention, cross-attention to ``enc`` (its K/V projected here,
+    once a layer), MLP."""
+    act = cfg.act_dtype
+    h = rmsnorm(x, layer.ln_self)
+    x = x + attention_apply(layer.self_attn, h, cfg, pos=pos, causal=True,
+                            use_rope=False)
+    h = rmsnorm(x, layer.ln_cross)
+    kv = (project_heads(enc, layer.cross_attn.wk, act),
+          project_heads(enc, layer.cross_attn.wv, act))
+    x = x + attention_apply(layer.cross_attn, h, cfg, pos=pos, causal=False,
+                            kv_override=kv)
+    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+
+
+def encdec_hidden(model: EncDecLM, frames: torch.Tensor,
+                  tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's final hidden state (b, s, d) over ``tokens`` (b, s)
+    with cross-attention to the encoder's output over ``frames``."""
+    enc = encoder_apply(model, frames, cfg)
+    b, s = tokens.shape
+    x = embed_tokens(model.embed, tokens, cfg) + _sinusoid(
+        s, cfg.d_model, cfg.act_dtype, enc.device)
+    pos = torch.arange(s, device=enc.device)[None].expand(b, s)
+    for layer in model.dec_layers:
+        x = remat(cfg, _decoder_block, layer, x, enc, cfg, pos)
+    return rmsnorm(x, model.ln_f)
+
+
+def encdec_loss(model: EncDecLM, batch: Dict, cfg: ModelConfig
+                ) -> torch.Tensor:
+    x = encdec_hidden(model, batch["frames"], batch["tokens"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg)
+
+
+def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """The final hidden state (b, s, d): RG-LRU or local-attention mixer,
+    then the GeGLU MLP, a layer.  The reference unrolls these layers
+    without remat, and so does this."""
+    x = embed_tokens(model.embed, tokens, cfg)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    for layer, kind in zip(model.layers, hybrid_layer_kinds(cfg)):
+        h = rmsnorm(x, layer.ln_mix)
+        if kind == "attn":
+            x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=True)
+        else:
+            x = x + rglru_block_apply(layer.rglru, h, cfg)
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+    return rmsnorm(x, model.ln_f)
+
+
+def hybrid_loss(model: HybridLM, batch: Dict, cfg: ModelConfig
+                ) -> torch.Tensor:
+    x = hybrid_hidden(model, batch["tokens"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg)
+
+
+def _ssm_block(layer: SSMBlock, x: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    return x + mamba2_apply(layer.mixer, rmsnorm(x, layer.ln), cfg)
+
+
+def ssm_hidden(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    x = embed_tokens(model.embed, tokens, cfg)
+    for layer in model.layers:
+        x = remat(cfg, _ssm_block, layer, x, cfg)
+    return rmsnorm(x, model.ln_f)
+
+
+def ssm_loss(model: SSMLM, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
+    x = ssm_hidden(model, batch["tokens"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg)

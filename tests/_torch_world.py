@@ -503,3 +503,15 @@ def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None,
     out["recurrent"] = {case[0]: recurrent_world(comm, *case)
                         for case in recurrent}
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_train.py
+# ---------------------------------------------------------------------------
+
+def compressed_sums(comm, xs):
+    """``train.compressed_psum`` of this rank's row of each (p, ...) array
+    of ``xs``."""
+    from repro_torch.train import compressed_psum
+    return [compressed_psum(torch.as_tensor(x[comm.rank]), comm).numpy()
+            for x in xs]

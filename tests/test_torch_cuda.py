@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core import Balancer, BalanceSpec
 from repro_torch.fem import AdaptiveSession, AdaptSpec, cylinder_mesh
 from repro_torch.kernels import ops
@@ -1219,3 +1220,102 @@ def test_sharded_serving_on_card_matches_cpu_ranks(cuda, tmp_path):
         assert moved == ref == cpu[rank][3][0][0]
         assert group == 2 and migrations == 1
     assert sum(e["n_moved"] for e in card[0][1]) >= 1
+
+
+# ---------------------------------------------------------------------------
+# training: the attention kernels refuse autograd; a SMOKE train step and
+# the packer, card against CPU
+# ---------------------------------------------------------------------------
+
+def test_attention_kernels_refuse_grad_on_card(cuda):
+    """A kernel launch would drop the gradients of inputs that require
+    grad (autograd cannot see it): both wrappers, and the model's flash
+    route, raise; without grad they launch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_model, loss_fn
+    q = torch.randn(1, 4, 64, 16, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 64, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention_op(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.packed_attention_op(q[0], k[0], k[0],
+                                torch.zeros(64, dtype=torch.int32,
+                                            device=cuda))
+    before = flash_attention_cuda.launches
+    with torch.no_grad():
+        ops.flash_attention_op(q, k, k)
+    assert flash_attention_cuda.launches == before + 1
+    cfg = get_smoke("llama3_8b").replace(use_pallas=True)
+    model = init_model(cfg, device=cuda).requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss_fn(model, {"tokens": tokens, "labels": tokens}, cfg)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (the repository root's): its phase-22 checks are
+    the ones these tests run."""
+    import importlib
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("arch,compress", [
+    ("llama3_8b", False), ("llama3_8b", True), ("phi35_moe_42b", False),
+    ("mamba2_1_3b", False), ("recurrentgemma_2b", False),
+    ("whisper_medium", False), ("qwen2_vl_72b", False)])
+def test_smoke_train_steps_on_card_match_cpu(cuda, arch, compress):
+    """Three SMOKE train steps from the same weights, float32: losses
+    within 1e-4 relative, parameters after the first step within 2 lr +
+    1e-5 (AdamW's first step moves a weight by about lr times the sign
+    of its gradient, which a gradient near 0 may have either way)."""
+    _chip_smoke().smoke_train_card_vs_cpu(arch, compress, cuda)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bf16_product_gradients_match_upcast_on_card(cuda, arch):
+    """The SMOKE config in bf16: every parameter's gradient of ``loss_fn``
+    through ``_ProductF32`` (the card's bf16 products with a float32
+    result), leaf by leaf as a share of the leaf's max |g|: within 2^-6
+    of the same forward with the backward's products emulated in float32
+    (the cotangent rounded to bf16, as ``_ProductF32`` rounds it), and
+    within 2^-5 of plain autograd on operands upcast to float32
+    (``chip_smoke.PRODUCT_GRAD_TOL`` says why)."""
+    _chip_smoke().smoke_product_grads(arch, cuda)
+
+
+def test_checkpoint_round_trip_and_resume_on_card(cuda, tmp_path):
+    _chip_smoke().checkpoint_resume_on_card(cuda, str(tmp_path))
+
+
+@pytest.mark.parametrize("method", ["sorted", "ksection"])
+def test_balanced_pack_on_card_equals_cpu(cuda, method):
+    from repro_torch.data import (SyntheticCorpus, balanced_pack,
+                                  pack_batches)
+    from repro_torch.kernels.ksection_hist import ksection_hist_cuda
+    kernel = exclusive_scan_cuda if method == "sorted" else ksection_hist_cuda
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        lengths = np.maximum(8, rng.lognormal(5.0, 0.8, 256)).astype(np.int64)
+        before = kernel.launches
+        rows, info = balanced_pack(lengths, 16, method=method, device=cuda)
+        assert kernel.launches > before
+        want, winfo = balanced_pack(lengths, 16, method=method, device="cpu")
+        assert np.array_equal(rows, want) and info == winfo
+        lengths[:10] += 50
+        rows2, info2 = balanced_pack(lengths, 16, old_rows=rows,
+                                     method=method, device=cuda)
+        want2, winfo2 = balanced_pack(lengths, 16, old_rows=want,
+                                      method=method, device="cpu")
+        assert np.array_equal(rows2, want2) and info2 == winfo2
+    docs = SyntheticCorpus(vocab=512, seed=0).documents(200)
+    card = list(pack_batches(docs, 8, 512, vocab=512, device=cuda))
+    cpu = list(pack_batches(docs, 8, 512, vocab=512, device="cpu"))
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
+        assert np.array_equal(a["tokens"], b["tokens"])
+        assert np.array_equal(a["labels"], b["labels"])

@@ -45,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.fem, "
             "repro_torch.kernels, repro_torch.interop, repro_torch.telemetry, "
             "repro_torch.configs, repro_torch.data, repro_torch.models, "
-            "repro_torch.serve; "
+            "repro_torch.serve, repro_torch.train, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -104,6 +104,31 @@ def test_encdec_and_vlm_stand_alone_and_default_to_cuda(arch, prefill):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeSession(model, cfg, spec)
     assert ServeSession(model, cfg, spec, device="cpu").device.type == "cpu"
+
+
+def test_training_stands_alone_and_defaults_to_cuda(tmp_path):
+    """The training modules are among the files checked above, and the
+    training entry points (the packer's balancer, the launcher's loop)
+    run on CUDA unless asked for the CPU."""
+    import numpy as np
+    from repro_torch.data import balanced_pack
+    from repro_torch.launch.train import train
+    assert {"optimizer.py", "compress.py", "checkpoint.py", "train_step.py",
+            "train.py", "packing.py"} <= {p.name for p in PORT_FILES}
+    cfg = get_smoke("llama3_8b")
+    lengths = np.arange(8, 72)
+    if torch.cuda.is_available():
+        assert balanced_pack(lengths, 4)[0].shape == lengths.shape
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        balanced_pack(lengths, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, steps=1, ckpt=None, log=lambda *a: None)
+    rows, _ = balanced_pack(lengths, 4, device="cpu")
+    assert rows.shape == lengths.shape
+    out = train(cfg, steps=1, batch=2, seq=64, ckpt=str(tmp_path / "ck"),
+                device="cpu", log=lambda *a: None)
+    assert out["model"].ln_f.device.type == "cpu"
 
 
 def test_sharded_session_names_the_roadmap_item():
