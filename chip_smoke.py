@@ -100,10 +100,12 @@ CUDA toolkit's nvcc.  It
     balancer's histogram is held against its plain version on every
     input; prints the slot bytes as built (the reference's count) and
     after decode (float32 conv windows); the SMOKE config card against
-    CPU; then (18b) phase 13's machinery at mamba2 width with full
-    prefill: 4 ranks, weights by CUDA IPC, tokens against phase 18's
-    replicated run up to a near-tie, a forced migration against the
-    unmoved run bit for bit, moved bytes against the reference's count;
+    CPU; then (18b) at full width with its depth cut to
+    MAMBA_SHARDED_DEPTH, a replicated full run (recorded) and phase 13's
+    machinery with full prefill: 4 ranks, weights by CUDA IPC, tokens
+    against the replicated run up to a near-tie, a forced migration
+    against the unmoved run bit for bit, moved bytes against the
+    reference's count;
 19. serves recurrentgemma-2b at full width and depth (26 layers, 8 of
     them local attention at d = 256 over 10 / 1 heads) with full prefill
     over phase 14's long prompts and a ring of 2,048 (every ring row
@@ -121,7 +123,13 @@ CUDA toolkit's nvcc.  It
     the encoder's (1,500 x 1,500, no mask) and the cross-attention's
     (128 x 1,500 and 1 x 1,500) shapes against its plain version with
     SDPA's time beside it; the SMOKE config's batch API and cheap
-    session, card against CPU;
+    session, card against CPU; then (20b) phase 13's machinery at
+    whisper's full width and depth with the cheap prefill and its
+    decoder context of 448: 4 ranks, tokens against a replicated cheap
+    run up to a near-tie or a step that follows a seating in row 0 (the
+    reference's decode takes row 0's position, and a group's row 0 is
+    not the global one), a forced migration of the self-attention cache
+    and the cross K/V against the unmoved run bit for bit;
 21. serves qwen2-vl-72b at full width (depth cut) with full prefill over
     phase 6's trace (packed refused with the "mrope" message; every flash
     launch bf16 at 64 / 8 heads), then the VLM front end: 4 rows of 256
@@ -129,7 +137,9 @@ CUDA toolkit's nvcc.  It
     against the plain route; the flash kernel at qwen2-vl's shape (64 /
     8 heads, d = 128, causal) at each prompt length of the session,
     against its plain version with SDPA's time beside it; the SMOKE
-    config, card against CPU;
+    config, card against CPU; then (21b) at full width with its depth
+    cut to VLM_SHARDED_DEPTH, a replicated full run (recorded) and phase
+    13's machinery over 4 ranks held against it;
 22. drives the fifth main path, training: llama3-8b at full width (depth
     cut to TRAIN_DEPTH; bf16, remat, the plain attention as in the
     reference) through ``launch.train.train`` on 4 x 2,048-token batches
@@ -145,9 +155,18 @@ CUDA toolkit's nvcc.  It
     config's bf16 gradients through ``_ProductF32`` against float32
     recomputes, and a checkpoint restored and resumed on the card bit for
     bit (22c);
-23. prints the kernel table as one JSON line (with each rank's launches
+23. trains data-parallel: llama3-8b at full width (depth cut to
+    TRAIN_DP_DEPTH) over 4 ranks through ``launch.train.train(...,
+    data=)`` (one row of each global 4 x 2,048 batch a rank, the
+    gradients summed in float32, the AdamW moments sharded ZeRO-style),
+    held against one rank taking the whole batch: step 0's loss, every
+    summed gradient leaf, the parameters after step 0, every rank equal
+    bit for bit after each step; each rank's step split and bytes on the
+    wire; then the SMOKE config in float32, 4 ranks on the card against
+    one, with the ZeRO update bit for bit against one rank's;
+24. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-22 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    14-23 in ``launches_by_path``, the flash kernel's d = 256 reading as
     ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
     and ``at_cross_decode``, and qwen2-vl's as ``at_qwen2_vl``), the
     card's name and power limit, and ``{"ok": true, ...}`` as the last
@@ -1479,6 +1498,12 @@ SMOKE_TRACE = dict(seed=1, vocab=512, prompt_buckets=(8, 16, 32),
                    max_new_cap=16)
 
 
+def top2_margins(logits):
+    """Each row's top-2 logit margin."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
 class Recorder:
     """A session's ``on_logits`` observer: keeps each request's first-token
     logits, the top-2 logit margin of every token it is given, and the
@@ -1491,8 +1516,7 @@ class Recorder:
     def __call__(self, reqs, logits, seg):
         if seg is not None:
             self.packs.append(seg.copy())
-        top = logits.float().topk(2, dim=-1).values
-        marg = (top[:, 0] - top[:, 1]).tolist()
+        marg = top2_margins(logits)
         for i, r in enumerate(reqs):
             if r.rid not in self.first:
                 self.first[r.rid] = logits[i].float().cpu()
@@ -1582,29 +1606,71 @@ def serve_checked(model, cfg, dev, spec_kw, trace, label, **kw):
 def compare_recorded(label, reqs_a, rec_a, reqs_b, rec_b, rel_tol):
     """First-token logits within ``rel_tol`` of the largest |logit|;
     tokens equal up to the first one whose top-2 margin (in either run)
-    is below that tolerance.  Returns the largest first-logit error."""
-    worst, cut = 0.0, []
+    is below that tolerance.  Logs how many tokens were compared.
+    Returns the largest first-logit error."""
+    worst, cut, compared, total = 0.0, [], 0, 0
     for ra, rb in zip(reqs_a, reqs_b):
         check(ra.rid == rb.rid, f"{label}: request order")
+        ma, mb = rec_a.margin[ra.rid], rec_b.margin[rb.rid]
+        check(len(ma) == len(ra.out) and len(mb) == len(rb.out),
+              f"{label}: margins recorded")
         la, lb = rec_a.first[ra.rid], rec_b.first[rb.rid]
         tol = rel_tol * float(lb.abs().max())
         err = float((la - lb).abs().max())
         worst = max(worst, err / float(lb.abs().max()))
-        check(err <= tol, f"{label}: request {ra.rid} first-token logits "
-              f"differ by {err} > {tol}")
-        ma, mb = rec_a.margin[ra.rid], rec_b.margin[rb.rid]
-        check(len(ma) == len(ra.out) and len(mb) == len(rb.out),
-              f"{label}: margins recorded")
+        check(err <= tol, f"{label}: request {ra.rid} first-token "
+              f"logits differ by {err} > {tol}")
+        total += len(ra.out)
         for t, (x, y) in enumerate(zip(ra.out, rb.out)):
             if min(ma[t], mb[t]) < tol:
                 cut.append((ra.rid, t, len(ra.out)))
                 break
             check(x == y, f"{label}: request {ra.rid} token {t}: {x} vs {y} "
                   f"with top-2 margins {ma[t]:.4g} / {mb[t]:.4g} >= {tol:.4g}")
+            compared += 1
     log(f"{label}: {len(reqs_a)} requests, first-token logits within "
-        f"{worst:.3e} of max|logit| (tolerance {rel_tol}); tokens equal "
-        f"except {len(cut)} requests cut short at a near-tie "
-        f"(rid, token, of): {cut}")
+        f"{worst:.3e} of max|logit| (tolerance {rel_tol}); {compared} of "
+        f"{total} tokens compared, equal; {len(cut)} requests cut short at "
+        f"a near-tie (rid, token, of): {cut}")
+    return worst
+
+
+def compare_steps(label, reqs_a, rec_a, reqs_b, rec_b, rel_tol):
+    """Two runs that take the same inputs while their tokens agree (the
+    same requests, schedule and rebalances): each request's logits at
+    every step up to its first token that differs between them, within
+    ``rel_tol`` of that step's largest |logit|; a token may differ only
+    where its top-2 margin (in either run) is below that tolerance, and
+    the request's comparison ends there.  Returns the largest error."""
+    import numpy as np
+    worst, steps, total, parted = 0.0, 0, 0, []
+    for ra, rb in zip(reqs_a, reqs_b):
+        check(ra.rid == rb.rid, f"{label}: request order")
+        la, lb = rec_a.logits[ra.rid], rec_b.logits[rb.rid]
+        ma, mb = rec_a.margin[ra.rid], rec_b.margin[rb.rid]
+        check(len(la) == len(ma) == len(ra.out)
+              and len(lb) == len(mb) == len(rb.out),
+              f"{label}: logits recorded")
+        total += len(ra.out)
+        for t, (x, y) in enumerate(zip(ra.out, rb.out)):
+            a, b = la[t].astype(np.float32), lb[t].astype(np.float32)
+            tol = rel_tol * float(np.abs(b).max())
+            err = float(np.abs(a - b).max())
+            worst = max(worst, err / float(np.abs(b).max()))
+            check(err <= tol, f"{label}: request {ra.rid} token {t}: logits "
+                  f"differ by {err} > {tol}")
+            steps += 1
+            if x != y:
+                check(min(ma[t], mb[t]) < tol, f"{label}: request {ra.rid} "
+                      f"token {t}: {x} vs {y} with top-2 margins "
+                      f"{ma[t]:.4g} / {mb[t]:.4g} >= {tol:.4g}")
+                parted.append((ra.rid, t, len(ra.out)))
+                break
+    log(f"{label}: {len(reqs_a)} requests, logits at {steps} of {total} "
+        f"steps compared (each request's up to its first token that "
+        f"differs), within {worst:.3e} of max|logit| (tolerance {rel_tol});"
+        f" {len(parted)} requests parted at a near-tie (rid, token, of): "
+        f"{parted}")
     return worst
 
 
@@ -1988,19 +2054,22 @@ class RankMargins:
     logit margin of each token this rank computed, by request and token
     index, and the first-token logits as numpy arrays (every rank
     computes each packed admission; a tensor would not outlive the rank's
-    process).  It launches none of the port's kernels."""
+    process); with ``keep``, every token's logits too, in float16.  It
+    launches none of the port's kernels."""
 
-    def __init__(self):
-        self.first, self.margin = {}, {}
+    def __init__(self, keep=False):
+        self.first, self.margin, self.keep, self.logits = {}, {}, keep, {}
 
     def __call__(self, reqs, logits, seg):
-        top = logits.float().topk(2, dim=-1).values
-        marg = (top[:, 0] - top[:, 1]).tolist()
+        marg = top2_margins(logits)
         for i, r in enumerate(reqs):
             t = len(r.out)          # the index of the token these logits give
             if t == 0 and r.rid not in self.first:
                 self.first[r.rid] = logits[i].float().cpu().numpy()
             self.margin.setdefault(r.rid, {})[t] = marg[i]
+            if self.keep:
+                self.logits.setdefault(r.rid, {})[t] = (
+                    logits[i].half().cpu().numpy())
 
 
 def memory(dev):
@@ -2014,15 +2083,17 @@ def memory(dev):
             torch.cuda.max_memory_allocated(dev), free, total)
 
 
-def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
+def sharded_serve_rank(comm, cfg, weights, trace, spec_kw, plain=False):
     """One rank of a sharded serving session (``spec_kw``; main path 4,
-    and phase 18b's mamba2): group r's slots on this rank, the weights
-    wrapped from ``weights`` (on the rank's card: shared with the parent,
-    no copy; else copied there).  Runs a warm-up, then the trace with the
-    launch counts from 0 (each migration timed, the balancer's histogram
-    inputs recorded and held against the plain version afterwards), then
-    a forced migration (under torch.profiler) against the same run
-    without it, then the admission of 8 requests and 8 decode steps, no
+    and phases 18b, 20b and 21b): group r's slots on this rank, the
+    weights wrapped from ``weights`` (on the rank's card: shared with the
+    parent, no copy; else copied there).  Runs a warm-up, then the trace
+    with the launch counts from 0 (each migration timed, the balancer's
+    histogram inputs recorded and held against the plain version
+    afterwards); with ``plain``, the same trace again on the plain route
+    (``use_pallas=False``: no attention kernel), the oracle; then a
+    forced migration (under torch.profiler) against the same run without
+    it, then the admission of 8 requests and 8 decode steps, no
     rebalance, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2037,9 +2108,10 @@ def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
     out = {"layout": "shared" if shared else "copied",
            "mem_weights": memory(dev)[0]}
 
-    def session(spec_kw, **kw):
+    def session(spec_kw, route=cfg, **kw):
         gc.collect()
-        return ServeSession(model, cfg, ServeSpec(**spec_kw), comm=comm, **kw)
+        return ServeSession(model, route, ServeSpec(**spec_kw), comm=comm,
+                            **kw)
 
     def drive(sess, tr):
         reqs, submit = [], sess.submit
@@ -2053,7 +2125,7 @@ def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
         SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))
 
     packed = spec_kw["prefill"] == "packed"
-    rec = RankMargins()
+    rec = RankMargins(keep=plain)
     sess = session(spec_kw, on_logits=rec)
     migrator, moves_timed = sess._migrator, []
 
@@ -2087,12 +2159,29 @@ def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
                migrations=[r.migrations for r in reqs], margin=rec.margin,
                # a packed admission's first tokens are on every rank; a
                # full prefill's on the rank that holds the slot
-               first=rec.first if comm.rank == 0 or not packed else None)
+               first=rec.first if comm.rank == 0 or not packed else None,
+               logits=rec.logits)
     del sess, rec
     out["hist"] = hist_agreement(hist_in)
     del hist_in
+    if plain:
+        rec = RankMargins(keep=True)
+        sess = session(spec_kw, route=cfg.replace(use_pallas=False),
+                       on_logits=rec)
+        before = ops.launch_counts()
+        pm, preqs = drive(sess, trace)
+        sync(dev)
+        out["plain"] = dict(
+            metrics=pm, launches=count_diff(ops.launch_counts(), before),
+            rids=[r.rid for r in preqs], out=[r.out for r in preqs],
+            margin=rec.margin, logits=rec.logits,
+            first=rec.first if comm.rank == 0 or not packed else None)
+        del sess, rec
 
-    forced_spec = dict(spec_kw, prefill="full", rebalance_every=1000)
+    # a packed session's forced pair admits with the full prefill; the
+    # encoder-decoder keeps its cheap one (it has no other)
+    forced_spec = dict(spec_kw, rebalance_every=1000, prefill=(
+        "full" if packed else spec_kw["prefill"]))
     ops.reset_launch_counts()
     forced = {}
     for migrate in (False, True):
@@ -2135,13 +2224,13 @@ def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
         wall = time.perf_counter() - t0
     counts = count_diff(ops.launch_counts(), before)
     check(sess.prefill_stats["calls"] == (1 if packed else 8),
-          "one packed admission, or eight full prefills")
+          "one packed admission, or eight per-request prefills")
     check(not sess.migration_log and counts["ksection_hist"] == 0,
           "the profiled window rebalanced")
     busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
     if comm.rank == 0:
         admitted = ("one packed admission (8 x 128 tokens)" if packed
-                    else "8 full prefills of 128 tokens")
+                    else f"8 {spec_kw['prefill']} prefills of 128 tokens")
         trace_summary(f"rank 0, {admitted} + {PROFILED_DECODE_STEPS} decode "
                       f"steps of the sharded session ({cfg.name}), no "
                       "rebalance", prof, wall, top_host=10, top_dev=8,
@@ -2156,14 +2245,41 @@ def sharded_serve_rank(comm, cfg, weights, trace, spec_kw):
     return out
 
 
+def merged_record(runs):
+    """(requests, recorder) of a sharded run from its ranks' records
+    (``runs``: each rank's dict of ``rids``, ``out``, ``margin`` and
+    ``first``, and ``logits`` if kept), in the form ``compare_recorded``
+    and ``compare_steps`` read."""
+    import types
+    import torch
+    margins, first, logits = {}, {}, {}
+    for o in runs:
+        for rid, by_t in o["margin"].items():
+            margins.setdefault(rid, {}).update(by_t)
+        for rid, by_t in o.get("logits", {}).items():
+            logits.setdefault(rid, {}).update(by_t)
+        first.update(o["first"] or {})
+
+    def in_order(d):
+        return {rid: [by_t[t] for t in sorted(by_t)]
+                for rid, by_t in d.items()}
+    rec = types.SimpleNamespace(first={
+        rid: torch.from_numpy(a) for rid, a in first.items()},
+        margin=in_order(margins), logits=in_order(logits))
+    reqs = [types.SimpleNamespace(rid=rid, out=o)
+            for rid, o in zip(runs[0]["rids"], runs[0]["out"])]
+    return reqs, rec
+
+
 def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
-                    against="phase 6's replicated packed run"):
+                    against="phase 6's replicated packed run", plain=False):
     """Phase 13: the sharded serving session with KV migration at
     llama3-8b width over SHARDED_P ranks (main path 4), checked rank
     against rank, against ``serve``'s recorded replicated run up to the
-    first near-tie, and moved against unmoved (phase 18b: the same at
-    mamba2 width, ``spec_kw`` with full prefill)."""
-    import types
+    first near-tie, and moved against unmoved (phases 18b, 20b and 21b:
+    the same for mamba2, whisper and qwen2-vl, by ``spec_kw``).  With
+    ``plain``, the oracle is the same sharded run on the plain route
+    instead, on the same ranks."""
     import torch
     cfg, trace = serve["cfg"], serve["trace"]
     weights = {k: t.detach() for k, t in serve["model"].state_dict().items()}
@@ -2171,7 +2287,7 @@ def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
     torch.cuda.empty_cache()
     parent_mem = memory("cuda")
     outs, backend = start_world(sharded_serve_rank, cfg, weights, trace,
-                                spec_kw, join_s=900.0)
+                                spec_kw, plain, join_s=900.0)
     r0 = outs[0]
     log(f"memory layout: weights {outs[0]['layout']} "
         f"({'one bf16 copy in this process, handed to the ranks by CUDA '
@@ -2245,21 +2361,28 @@ def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
         f"{len(r0['moves'])} migrations moved {n_moved} slots "
         f"({n_moved * kv} bytes); host-staged bytes per rank in the trace "
         f"{[o['staged'] for o in outs]}")
-    margins = {}
-    for o in outs:
-        for rid, by_t in o["margin"].items():
-            margins.setdefault(rid, {}).update(by_t)
-    first = {}
-    for o in outs:
-        first.update(o["first"] or {})
-    rec = types.SimpleNamespace(first={
-        rid: torch.from_numpy(a) for rid, a in first.items()}, margin={
-        rid: [by_t[t] for t in sorted(by_t)] for rid, by_t in margins.items()})
-    reqs = [types.SimpleNamespace(rid=rid, out=o)
-            for rid, o in zip(r0["rids"], r0["out"])]
-    rp, recp = serve["recorded"]
-    compare_recorded(f"sharded + kv vs {against}", reqs, rec, rp, recp,
-                     BF16_TOL)
+    reqs, rec = merged_record(outs)
+    if plain:
+        runs = [o["plain"] for o in outs]
+        for r, o in enumerate(runs):
+            check(o["out"] == runs[0]["out"]
+                  and o["metrics"]["migration_log"]
+                  == runs[0]["metrics"]["migration_log"],
+                  f"rank {r}: the plain route's tokens or migrations differ "
+                  "from rank 0's")
+            check(o["launches"]["flash_attention"] == 0
+                  and o["launches"]["serve_prefill"] == 0,
+                  f"rank {r}: the plain route launched {o['launches']}")
+        check([e["step"] for e in runs[0]["metrics"]["migration_log"]]
+              == [e["step"] for e in m["migration_log"]],
+              "the plain route rebalanced at other steps")
+        log(f"the oracle, {against}: "
+            f"{runs[0]['metrics']['throughput_tok_s']:.2f} tok/s")
+        compare_steps(f"sharded + kv vs {against}", reqs, rec,
+                      *merged_record(runs), BF16_TOL)
+    else:
+        compare_recorded(f"sharded + kv vs {against}", reqs, rec,
+                         *serve["recorded"], BF16_TOL)
     for r, o in enumerate(outs):
         f = o["forced"]
         check(f[True]["out"] == f[False]["out"] == r0["forced"][False]["out"]
@@ -2272,9 +2395,18 @@ def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
               f"rank {r}: forced migration {f[True]}")
         flash = o["forced_launches"]["flash_attention"]
         attn_layers = 0 if cfg.family == "ssm" else cfg.n_layers
-        check(flash == (2 * attn_layers if r == 0 else 0),
-              f"rank {r}: {flash} flash_attention launches in the forced "
-              "pair (the request's slot is on rank 0 at admission)")
+        if spec_kw["prefill"] == "cheap":
+            # no prompt forward: every rank's decode runs its rows'
+            # cross-attention, a launch a layer a step
+            check(flash > 0 and flash % attn_layers == 0
+                  and flash == r0["forced_launches"]["flash_attention"],
+                  f"rank {r}: {flash} flash_attention launches in the "
+                  "forced pair (a cross-attention a layer a decode step)")
+        else:
+            check(flash == (2 * attn_layers if r == 0 else 0),
+                  f"rank {r}: {flash} flash_attention launches in the "
+                  "forced pair (the request's slot is on rank 0 at "
+                  "admission)")
     log(f"forced migration to group {FORCED_GROUP} after {FORCED_AT} decode "
         f"steps: {FORCED_NEW} tokens equal to the unmoved run bit for bit "
         f"on every rank; flash_attention launches per rank "
@@ -2484,9 +2616,9 @@ def moe_routing(model, cfg, dev, trace):
         session.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
     C = SERVE_SPEC["prefill_capacity"]
     first = model.layers[0].moe
-    keep = lambda moe, x, cfg: (x.detach().clone()           # noqa: E731
-                                if x.shape[:2] == (1, C) or moe is first
-                                else None)
+    keep = lambda moe, x, cfg, **kw: (x.detach().clone()     # noqa: E731
+                                      if x.shape[:2] == (1, C)
+                                      or moe is first else None)
     with recorded_calls(transformer, "moe_apply", keep) as seen:
         session.step()
     torch.cuda.synchronize()
@@ -2682,9 +2814,14 @@ def serve_grok(dev):
 # phases 18-19: the SSM (mamba2) and hybrid (recurrentgemma) families
 # ---------------------------------------------------------------------------
 
-# phase 18b: mamba2 with sharded decode and KV-slot migration, full prefill
-MAMBA_SHARDED_SPEC = dict(SERVE_SPEC, prefill="full", decode="sharded",
-                          rebalance="kv")
+# phases 18b and 21b: sharded decode and KV-slot migration, full prefill
+FULL_SHARDED_SPEC = dict(SERVE_SPEC, prefill="full", decode="sharded",
+                         rebalance="kv")
+# the depth of the model phase 18b shards (of mamba2's 48 layers): each of
+# its migrations ships every rank's slot rows through the host, and a
+# mamba2 row grows with the depth (101,916,676 B at 48 layers); 12 layers
+# keep every path the phase checks and cut its time by three quarters
+MAMBA_SHARDED_DEPTH = 12
 # phase 19's flash reading: recurrentgemma's local attention at the longest
 # prompt of swa_trace (10 query heads over 1 kv head, d = 256, window 2048)
 HYBRID_FLASH_S = 6144
@@ -2699,11 +2836,10 @@ def slot_bytes_of(session):
 
 def serve_mamba2(dev):
     """Phase 18: mamba2-1.3b at full width and depth (48 layers): phase 6's
-    trace with full prefill (recorded: phase 18b's tokens are held to it),
-    then swa_trace's long prompts with max_seq 8192.  The path launches
-    no attention kernel: its kernel is the balancer's histogram, held
-    against its plain version on every input.  Returns phase 18b's
-    inputs and the path's launches."""
+    trace with full prefill, then swa_trace's long prompts with max_seq
+    8192.  The path launches no attention kernel: its kernel is the
+    balancer's histogram, held against its plain version on every input.
+    Returns the path's launches."""
     from repro_torch.serve import bursty_trace
     cfg, model = full_width_model("mamba2_1_3b", dev)
     trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
@@ -2715,9 +2851,9 @@ def serve_mamba2(dev):
     def inspect(session):
         slots["bytes"] = slot_bytes_of(session)
 
-    m, reqs, counts, peak, rec = serve_checked(
+    _, _, counts, _, _ = serve_checked(
         model, cfg, dev, spec, trace, f"{cfg.name}, full prefill (the SSM "
-        "path)", record=True, inspect=inspect)
+        "path)", inspect=inspect)
     log(f"  slot bytes: {slots['bytes'][0]} as built (the reference's "
         f"kv_slot_bytes: float32 state, {cfg.act_dtype} conv windows, "
         f"position), {slots['bytes'][1]} after decode (float32 windows)")
@@ -2728,8 +2864,9 @@ def serve_mamba2(dev):
     _, _, long_counts, _, _ = serve_checked(
         model, cfg, dev, SWA_SPEC, long_trace, f"{cfg.name}, full prefill "
         f"of {SWA_PROMPT[0]}-{SWA_PROMPT[1]} tokens", inspect=inspect)
-    return dict(cfg=cfg, model=model, trace=trace, recorded=(reqs, rec),
-                launches=counts, long_launches=long_counts,
+    del model
+    free_memory()
+    return dict(launches=counts, long_launches=long_counts,
                 slot_bytes=slots["bytes"])
 
 
@@ -2986,7 +3123,6 @@ def serve_whisper(dev):
         f"{slots['bytes'][0]}; cross K/V zero as in the reference; row "
         f"positions reach {slots['max_pos']} (the sinusoid index clamps "
         f"past {spec['max_seq']})")
-    del model
     free_memory()
     rows = {"encoder": compare_flash(dev, F, hq=h, hkv=h, d=hd, b=b,
                                      causal=False),
@@ -2994,7 +3130,8 @@ def serve_whisper(dev):
                                            s_kv=F, causal=False),
             "cross_decode": compare_flash(dev, 1, hq=h, hkv=h, d=hd, b=b,
                                           s_kv=F, causal=False)}
-    return dict(batch_launches=k["counts"], launches=counts, rows=rows)
+    return dict(batch_launches=k["counts"], launches=counts, rows=rows,
+                cfg=cfg, model=model, trace=trace)
 
 
 def encdec_card_vs_cpu(dev):
@@ -3106,6 +3243,81 @@ def serve_qwen2_vl(dev):
     del model
     return dict(launches=counts, batch_launches=k["counts"],
                 flash_rows=flash_rows)
+
+
+# phases 20b and 21b: the encoder-decoder and the VLM served sharded with
+# KV-slot migration over SHARDED_P ranks, phase 13's machinery.  Whisper's
+# rows take its published decoder context of 448 positions (a slot row is
+# then 191.5 MB, 147.5 of them cross K/V), and it rebalances every 16
+# steps: each migration's fixed-capacity exchange ships every row of every
+# rank through the host, ~10 s at 2,048 positions (an H100 80GB HBM3 at
+# 700 W, 4 gloo ranks sharing it)
+WHISPER_MAX_SEQ = 448
+WHISPER_SHARDED_SPEC = dict(SERVE_SPEC, max_seq=WHISPER_MAX_SEQ,
+                            rebalance_every=16, prefill="cheap",
+                            decode="sharded", rebalance="kv")
+# qwen2-vl's depth for 21b: one bf16 copy of the weights is shared by the
+# ranks, but each rank casts its own float32 head (4.98 GB) and keeps its
+# slots; 8 layers keep the phase's trace, migrations and forced pair to
+# about a minute (every layer's work is the same: the depth changes no
+# path the phase checks)
+VLM_SHARDED_DEPTH = 8
+
+
+def serve_whisper_sharded(whisper, dev):
+    """Phase 20b: phase 20's whisper-medium model at full width and depth,
+    phase 13's machinery with WHISPER_SHARDED_SPEC over SHARDED_P ranks
+    over phase 6's trace, held against the same sharded run on the plain
+    route.  Whisper's decode adds the sinusoid of row 0's position to
+    every row (the reference's rule), and row 0 is the group's own in a
+    sharded session, the global one in a replicated session: only a
+    sharded run takes the same inputs at every step."""
+    drop_head_copy(whisper["model"])
+    return sharded_serving(whisper, WHISPER_SHARDED_SPEC, "the same sharded "
+                           "run on the plain route", plain=True)
+
+
+def drop_head_copy(model):
+    """Free the float32 head a session cast (``Embedding.head_f32``): the
+    ranks of a sharded phase cast their own."""
+    model.embed._head_f32, model.embed._head_f32_key = None, None
+    free_memory()
+
+
+def serve_sharded_at_depth(arch, depth, dev):
+    """Phases 18b and 21b: ``arch`` at full width, ``depth`` layers: a
+    replicated 'full' session over phase 6's trace (recorded), then
+    phase 13's machinery with FULL_SHARDED_SPEC over SHARDED_P ranks,
+    held against it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import bursty_trace
+    free_memory()
+    full = get_config(arch)
+    cfg = full.replace(use_pallas=True, n_layers=depth)
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"model {cfg.name}: {cfg.n_layers} of {full.n_layers} layers at "
+        f"full width, {sum(p.numel() for p in model.parameters())} "
+        f"parameters ({memory(dev)[0] / 1e9:.3f} GB); card free "
+        f"{memory(dev)[2] / 1e9:.3f} GB")
+    trace = bursty_trace(32, **dict(SERVE_TRACE, vocab=cfg.vocab))
+    spec = dict(SERVE_SPEC, prefill="full")
+    serve_run(model, cfg, dev, spec, bursty_trace(3, **dict(
+        SERVE_TRACE, seed=5, max_new_cap=4, vocab=cfg.vocab)))   # warm-up
+    _, reqs, counts, _, rec = serve_checked(
+        model, cfg, dev, spec, trace, f"{cfg.name} ({cfg.n_layers} layers), "
+        "full prefill, replicated (recorded: the sharded run's tokens are "
+        "held to it)", record=True)
+    drop_head_copy(model)
+    served = sharded_serving(dict(cfg=cfg, model=model, trace=trace,
+                                  recorded=(reqs, rec)), FULL_SHARDED_SPEC,
+                             f"the replicated full run at {cfg.n_layers} "
+                             "layers")
+    del model
+    free_memory()
+    return served
 
 
 # ---------------------------------------------------------------------------
@@ -3607,6 +3819,373 @@ def train_card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: data-parallel training over SHARDED_P ranks (launch.train.train
+# with data=, the moments sharded ZeRO-style)
+# ---------------------------------------------------------------------------
+
+# depth kept for SHARDED_P ranks on one card: each rank holds the bf16
+# parameters and gradients and a quarter of the float32 moments (~6 B a
+# parameter, 24 B over 4 ranks; the embedding and head are 1.05 B
+# parameters at any depth, a layer 218 M) and its activations at 1 x
+# 2,048 tokens; the deepest that leaves >= 10 GB of the card free with a
+# margin: on an 80 GB H100 (700 W), 6 layers left 11.5 GB with phases 20
+# and 23 run alone but 10.36 GB in the whole script (this process holds
+# more by then), a margin one run's variation may cross; 5 left 16.7 GB
+# alone.  The one-rank oracle runs after the data-parallel run.  The
+# SMOKE variant runs 4 layers, whose moments split by layer.
+TRAIN_DP_DEPTH = 5
+SMOKE_DP_LAYERS = 4
+# the ranks' allocator maps memory as it grows rather than in fixed
+# segments, so four processes on one card do not strand reserved blocks
+RANK_ALLOC_CONF = "expandable_segments:True"
+TRAIN_DP_STEPS = 3
+TRAIN_DP_LOSS_TOL = 1e-3            # step 0's global loss, absolute
+TRAIN_DP_GRAD_TOL = 2.0 ** -5       # a summed bf16 leaf, of its max |g|
+# the SMOKE variant, float32 (23 SMOKE)
+SMOKE_DP_STEPS, SMOKE_DP_BATCH, SMOKE_DP_SEQ = 2, 8, 64
+SMOKE_DP_LOSS_RTOL, SMOKE_DP_GRAD_TOL = 1e-5, 1e-5
+CHUNK = 1 << 24
+
+
+@contextlib.contextmanager
+def rank_env(**env):
+    """Environment variables for the ranks started in the block (a spawned
+    process reads this process's environment when it starts)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def digest(tensors):
+    """An int64 checksum of each tensor's bits: the sum of its 16- or
+    32-bit words times (index mod 65,521) + 1, wrapping.  Equal bits give
+    equal digests; a changed word changes its digest."""
+    import torch
+    out = []
+    for p in tensors:
+        words = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32)
+        total = torch.zeros((), dtype=torch.int64, device=p.device)
+        for c0 in range(0, words.numel(), CHUNK):
+            w = words[c0:c0 + CHUNK].to(torch.int64)
+            idx = torch.arange(c0, c0 + w.numel(), device=p.device)
+            total += (w * (idx % 65521 + 1)).sum()
+        out.append(int(total))
+    return out
+
+
+def leaf_err(got, want):
+    """max |got - want| over max |want| (float32, in slices)."""
+    import torch
+    a, b = got.reshape(-1), want.reshape(-1)
+    diff = ref = 0.0
+    for c0 in range(0, a.numel(), CHUNK):
+        x = a[c0:c0 + CHUNK].float()
+        y = b[c0:c0 + CHUNK].float()
+        diff = max(diff, float((x - y).abs().max()))
+        ref = max(ref, float(y.abs().max()))
+    return diff / max(ref, 1e-30)
+
+
+def step_excess(got, want, lr):
+    """The largest amount by which |got - want| passes 2 lr plus one bf16
+    ulp of ``want`` (AdamW's first step moves a weight by about lr times
+    its gradient's sign, which a gradient near 0 may have either way, and
+    each side rounds to bf16): <= 0 passes."""
+    import torch
+    a, b = got.reshape(-1), want.reshape(-1)
+    worst = -math.inf
+    for c0 in range(0, a.numel(), CHUNK):
+        x = a[c0:c0 + CHUNK].float()
+        y = b[c0:c0 + CHUNK].float()
+        ulp = torch.ldexp(torch.ones_like(y), torch.frexp(y).exponent - 8)
+        worst = max(worst, float(((x - y).abs() - 2 * lr - ulp).max()))
+    return worst
+
+
+def train_dp_rank(comm, cfg):
+    """One rank of phase 23: ``launch.train.train`` with ``data=comm`` on
+    its row of each global batch of TRAIN_BATCH x TRAIN_SEQ tokens packed
+    on the card (every rank packs the same batch), TRAIN_DP_STEPS steps;
+    each step's parameter digests (and step 0's summed gradients') go back
+    for the rank-against-rank check, and each prefix_scan input is held
+    against the plain version.  Rank 0 keeps step 0's summed gradients and
+    the parameters after it in host memory; once every rank has freed its
+    state, it runs the oracle -- one rank taking the whole batch at the
+    same depth, the card to itself -- and holds them against the
+    oracle's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    dev = torch.device(comm.device)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = {"digests": [], "free": []}
+    kept = {}
+
+    def on_step(step, model, grads, metr):
+        if step == 0:
+            res["grad_digests"] = digest(grads.values())
+            if comm.rank == 0:
+                kept["grads"] = {n: g.cpu() for n, g in grads.items()}
+                kept["params"] = {n: p.detach().cpu()
+                                  for n, p in model.named_parameters()}
+            comm.barrier()      # rank 0's copies stay out of the timed spans
+        res["digests"].append(digest(model.parameters()))
+        res["free"].append(torch.cuda.mem_get_info(dev)[0])
+
+    ops.reset_launch_counts()
+    with recorded_calls(ops, "exclusive_scan_op",
+                        lambda x, **kw: x.detach().clone()) as scans:
+        out = train(cfg, steps=TRAIN_DP_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, ckpt=None, device=dev,
+                    data=comm, on_step=on_step,
+                    log=log if comm.rank == 0 else (lambda *a: None))
+    counts = ops.launch_counts()
+    res.update(history=out["history"], launches=counts,
+               peak=torch.cuda.max_memory_allocated(dev),
+               local_moments=sum(t.numel() for t in out["opt"].m.values()),
+               n_params=sum(p.numel() for p in out["model"].parameters()))
+    del out
+    check_scan_agreement(scans, counts["prefix_scan"],
+                         f"phase 23, rank {comm.rank}")
+    del scans
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier()              # every rank's state is freed
+    if comm.rank == 0:
+        res["oracle"] = train_dp_oracle(cfg, dev, kept)
+    return res
+
+
+def train_dp_oracle(cfg, dev, kept):
+    """Phase 23's oracle: one rank taking the whole batch at ``cfg``'s
+    depth, TRAIN_DP_STEPS steps; its step-0 gradients and the parameters
+    after step 0 against ``kept`` (the data-parallel run's, in host
+    memory), leaf by leaf on the card."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    out = {}
+
+    def compare(step, model, grads, metr):
+        if step != 0:
+            return
+        out["grad_err"] = {n: leaf_err(kept["grads"].pop(n).to(dev), g)
+                           for n, g in grads.items()}
+        out["param_excess"] = {
+            n: step_excess(kept["params"].pop(n).to(dev), p.detach(),
+                           TRAIN_LR)
+            for n, p in model.named_parameters()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    one = train(cfg, steps=TRAIN_DP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, ckpt=None, device=dev, on_step=compare,
+                log=lambda *a: None)
+    out.update(wall=time.perf_counter() - t0, history=one["history"],
+               peak=torch.cuda.max_memory_allocated(dev),
+               launches=ops.launch_counts())
+    return out
+
+
+def train_data_parallel(dev):
+    """Phase 23: llama3-8b at full width, TRAIN_DP_DEPTH layers, bf16,
+    remat, data-parallel over SHARDED_P ranks on the card: a global batch
+    of TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic corpus, one row a
+    rank, TRAIN_DP_STEPS steps; then, in rank 0 with the card to itself,
+    the oracle: one rank taking the whole batch at the same depth
+    (``train_dp_oracle``).  Checks: step 0's loss within
+    TRAIN_DP_LOSS_TOL, each summed gradient leaf within TRAIN_DP_GRAD_TOL
+    of its max |g|, the parameters after step 0 within 2 lr plus one bf16
+    ulp, every rank's summed gradients and parameters equal bit for bit
+    after each step, >= 10 GB of the card free.  Prints each rank's step
+    split (packing, forward + backward, all-reduce, update, all-gather),
+    its bytes on the wire and its peak memory."""
+    import statistics
+    from repro_torch.configs import get_config
+    free_memory()
+    full = get_config("llama3_8b")
+    cfg = full.replace(n_layers=TRAIN_DP_DEPTH)
+    held = memory(dev)
+    log(f"phase 23: this process holds {held[0] / 1e9:.3f} GB; card free "
+        f"{held[2] / 1e9:.3f} GB before the ranks start")
+    t0 = time.perf_counter()
+    with rank_env(PYTORCH_CUDA_ALLOC_CONF=RANK_ALLOC_CONF):
+        outs, backend = start_world(train_dp_rank, cfg, join_s=900.0)
+    world_wall = time.perf_counter() - t0
+    free_memory()
+    r0 = outs[0]
+    oracle = r0["oracle"]
+    one_hist = oracle["history"]
+    n = r0["n_params"]
+    log(f"phase 23 oracle (rank 0, after the data-parallel run): one rank, "
+        f"the whole batch: {TRAIN_DP_STEPS} steps in {oracle['wall']:.2f} s,"
+        f" peak {oracle['peak'] / 1e9:.3f} GB, losses "
+        f"{[r['loss'] for r in one_hist]}; launches {oracle['launches']}")
+    g_worst = max(oracle["grad_err"].items(), key=lambda kv: kv[1])
+    p_worst = max(oracle["param_excess"].items(), key=lambda kv: kv[1])
+    check(len(oracle["grad_err"]) == len(oracle["param_excess"]) == len(
+        r0["digests"][0]), "phase 23: the oracle compared every leaf")
+    check(g_worst[1] <= TRAIN_DP_GRAD_TOL,
+          f"summed gradient {g_worst[0]} off by {g_worst[1]:.3e} of its max "
+          f"|g| (limit {TRAIN_DP_GRAD_TOL})")
+    check(p_worst[1] <= 0, f"{p_worst[0]} after step 0 passes 2 lr + 1 ulp "
+          f"by {p_worst[1]:.3e}")
+    log(f"  worst summed gradient leaf {g_worst[0]} {g_worst[1]:.4e} of max "
+        f"|g| (limit {TRAIN_DP_GRAD_TOL}); parameters after step 0 within "
+        f"2 lr + 1 ulp (worst margin {p_worst[1]:.3e}, {p_worst[0]})")
+    for r, o in enumerate(outs):
+        check(o["digests"] == r0["digests"]
+              and o["grad_digests"] == r0["grad_digests"],
+              f"rank {r}: parameters or step 0's summed gradients differ "
+              "from rank 0's")
+        check([h["loss"] for h in o["history"]]
+              == [h["loss"] for h in r0["history"]],
+              f"rank {r}: losses differ from rank 0's")
+        check(o["launches"]["prefix_scan"] >= TRAIN_DP_STEPS,
+              f"rank {r}: prefix_scan launched {o['launches']['prefix_scan']}"
+              f" times for {TRAIN_DP_STEPS} packed batches")
+        check(o["launches"]["flash_attention"] == 0
+              and o["launches"]["serve_prefill"] == 0,
+              f"rank {r}: an attention kernel ran on the training path")
+        log(f"  rank {r}: peak {o['peak'] / 1e9:.3f} GB; moments held "
+            f"{o['local_moments']} of {n} ({o['local_moments'] / n:.4f}); "
+            f"launches {o['launches']}")
+    loss0 = r0["history"][0]["loss"]
+    check(abs(loss0 - one_hist[0]["loss"]) <= TRAIN_DP_LOSS_TOL,
+          f"step 0 loss {loss0} against the oracle's {one_hist[0]['loss']}")
+    keys = ("t_pack", "t_grad", "t_reduce", "t_update", "t_gather")
+    for h in r0["history"]:
+        log(f"  rank 0 step {h['step']}: loss {h['loss']:.6f} (oracle "
+            f"{one_hist[h['step']]['loss']:.6f}) gnorm {h['gnorm']:.4f}; "
+            + ", ".join(f"{k[2:]} {h[k]:.4f}" for k in keys)
+            + f" s (update includes the all-gather); bytes on the wire: "
+            f"all-reduce {h['reduce_bytes']}, all-gather {h['gather_bytes']}")
+    steady = r0["history"][1:]
+    med = {k: statistics.median(h[k] for h in steady) for k in keys}
+    t_step = med["t_pack"] + med["t_grad"] + med["t_reduce"] + med["t_update"]
+    one_step = statistics.median(h["t_pack"] + h["t_grad"] + h["t_update"]
+                                 for h in one_hist[1:])
+    min_free = min(f for o in outs for f in o["free"])
+    check(min_free >= 10e9, f"the ranks left {min_free / 1e9:.3f} GB of the "
+          "card free, under 10 GB")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 23: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+        f"{n} parameters, {SHARDED_P} ranks over {backend} on one card, "
+        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}: world and oracle "
+        f"{world_wall:.2f} s;"
+        f" rank 0 steps 1-{TRAIN_DP_STEPS - 1} median "
+        + ", ".join(f"{k[2:]} {med[k]:.4f}" for k in keys)
+        + f" s; step {t_step:.4f} s ({tokens / t_step:.1f} tokens/s; one rank"
+        f" {one_step:.4f} s, {tokens / one_step:.1f} tokens/s); peak per "
+        f"rank {[round(o['peak'] / 1e9, 3) for o in outs]} GB; card free at "
+        f"least {min_free / 1e9:.3f} GB; losses {[h['loss'] for h in r0['history']]}")
+    return dict(launches=[o["launches"] for o in outs], t_step=t_step,
+                one_step=one_step, min_free=min_free)
+
+
+def train_dp_smoke_rank(comm, cfg):
+    """One rank of phase 23's SMOKE variant: ``train`` with ``data=comm``
+    for SMOKE_DP_STEPS steps on batches packed on the card; each step's
+    summed gradients and parameters as numpy."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    seen = []
+
+    def on_step(step, model, grads, metr):
+        seen.append(dict(
+            grads={n: g.cpu().numpy().copy() for n, g in grads.items()},
+            params={n: p.detach().cpu().numpy().copy()
+                    for n, p in model.named_parameters()}))
+
+    ops.reset_launch_counts()
+    out = train(cfg, steps=SMOKE_DP_STEPS, batch=SMOKE_DP_BATCH,
+                seq=SMOKE_DP_SEQ, lr=SMOKE_TRAIN_LR, ckpt=None,
+                device=torch.device(comm.device), data=comm, on_step=on_step,
+                log=lambda *a: None)
+    return dict(history=out["history"], steps=seen,
+                launches=ops.launch_counts())
+
+
+def train_dp_smoke(dev):
+    """Phase 23 SMOKE: llama SMOKE (SMOKE_DP_LAYERS layers: the ZeRO rule
+    splits their moments by layer) in float32, SHARDED_P ranks on the card
+    against one rank on the card taking the whole batch: step 0's loss
+    within SMOKE_DP_LOSS_RTOL relative, its summed gradients within
+    SMOKE_DP_GRAD_TOL of each leaf's max |g|, parameters after step 0
+    within 2 lr + 1e-5; the ranks' parameters equal bit for bit; and one
+    rank's ``adamw_update`` on the card, given rank 0's summed gradients,
+    gives the ranks' parameters bit for bit (the ZeRO update)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, adamw_update, init_opt_state
+    cfg = get_smoke("llama3_8b").replace(n_layers=SMOKE_DP_LAYERS)
+    one = []
+    hist = train(cfg, steps=SMOKE_DP_STEPS, batch=SMOKE_DP_BATCH,
+                 seq=SMOKE_DP_SEQ, lr=SMOKE_TRAIN_LR, ckpt=None, device=dev,
+                 on_step=lambda step, model, grads, metr: one.append(dict(
+                     grads={n: g.cpu().numpy().copy()
+                            for n, g in grads.items()},
+                     params={n: p.detach().cpu().numpy().copy()
+                             for n, p in model.named_parameters()})),
+                 log=lambda *a: None)["history"]
+    outs, _ = start_world(train_dp_smoke_rank, cfg, join_s=300.0)
+    r0 = outs[0]
+    names = list(r0["steps"][0]["params"])
+    for r, o in enumerate(outs):
+        check(all(np.array_equal(o["steps"][i]["params"][n],
+                                 r0["steps"][i]["params"][n])
+                  for i in range(SMOKE_DP_STEPS) for n in names),
+              f"smoke data-parallel: rank {r}'s parameters differ")
+        check(o["launches"]["prefix_scan"] >= SMOKE_DP_STEPS,
+              f"smoke data-parallel: rank {r} launched {o['launches']}")
+    rel = abs(r0["history"][0]["loss"] - hist[0]["loss"]) / hist[0]["loss"]
+    g = max(float(np.max(np.abs(r0["steps"][0]["grads"][n] - w))
+                  / max(float(np.max(np.abs(w))), 1e-30))
+            for n, w in one[0]["grads"].items())
+    moved = max(float(np.max(np.abs(r0["steps"][0]["params"][n] - w)))
+                for n, w in one[0]["params"].items())
+    check(rel <= SMOKE_DP_LOSS_RTOL, f"smoke data-parallel: loss off by "
+          f"{rel:.3e}")
+    check(g <= SMOKE_DP_GRAD_TOL, f"smoke data-parallel: a summed gradient "
+          f"off by {g:.3e} of its max |g|")
+    check(moved <= 2 * SMOKE_TRAIN_LR + 1e-5, f"smoke data-parallel: "
+          f"parameters after step 0 off by {moved:.3e}")
+    ocfg = AdamWConfig(lr=SMOKE_TRAIN_LR, warmup=max(SMOKE_DP_STEPS // 10, 1),
+                       total_steps=SMOKE_DP_STEPS)
+    model = init_model(cfg, seed=0, device=dev)
+    opt = init_opt_state(model, ocfg)
+    for i, st in enumerate(r0["steps"]):
+        opt, _ = adamw_update(model, {n: torch.as_tensor(a, device=dev)
+                                      for n, a in st["grads"].items()},
+                              opt, ocfg)
+        check(all(np.array_equal(p.detach().cpu().numpy(), st["params"][n])
+                  for n, p in model.named_parameters()),
+              f"smoke data-parallel: the ZeRO update at step {i} differs "
+              "from one rank's given the same gradients")
+    log(f"smoke data-parallel training (float32, {SHARDED_P} ranks on the "
+        f"card against one rank on the card): loss at step 0 within "
+        f"{rel:.3e} relative (limit {SMOKE_DP_LOSS_RTOL}), summed gradients "
+        f"within {g:.3e} of max |g| (limit {SMOKE_DP_GRAD_TOL}), parameters "
+        f"after step 0 within {moved:.3e} (limit "
+        f"{2 * SMOKE_TRAIN_LR + 1e-5:.3e}); the ZeRO update equal bit for "
+        f"bit to one rank's given the same gradients; ranks equal bit for "
+        f"bit; launches per rank {[o['launches'] for o in outs]}")
+
+
+# ---------------------------------------------------------------------------
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
 SRC = "src/repro_torch/kernels/csrc/"
@@ -3767,14 +4346,10 @@ def main():
                   "path, full prefill)", serve_mamba2, dev)
     phase("phase 18 SMOKE: mamba2 full, card against CPU",
           serve_card_vs_cpu, dev, "mamba2_1_3b", "full")
-    mamba_sharded = None
-    if mamba is not None:
-        mamba_sharded = phase(
-            "phase 18b: mamba2-1.3b sharded with KV-slot migration over 4 "
-            "ranks", sharded_serving, mamba, MAMBA_SHARDED_SPEC,
-            "phase 18's replicated full run")
-        mamba.pop("model")
-        free_memory()
+    mamba_sharded = phase(
+        f"phase 18b: mamba2-1.3b at full width ({MAMBA_SHARDED_DEPTH} layers)"
+        " sharded with KV-slot migration over 4 ranks",
+        serve_sharded_at_depth, "mamba2_1_3b", MAMBA_SHARDED_DEPTH, dev)
     hybrid = phase("phase 19: recurrentgemma-2b at full width and depth "
                    "(full prefill over a ring of 2048, flash at d = 256)",
                    serve_hybrid, dev)
@@ -3791,11 +4366,23 @@ def main():
           encdec_card_vs_cpu, dev)
     phase("phase 20c: whisper SMOKE cheap, card against CPU",
           serve_card_vs_cpu, dev, "whisper_medium", "cheap")
+    whisper_sharded = None
+    if whisper is not None:
+        whisper_sharded = phase(
+            "phase 20b: whisper-medium sharded with KV-slot migration over 4 "
+            "ranks (cheap prefill; cross K/V on slot axis 1)",
+            serve_whisper_sharded, whisper, dev)
+        whisper.pop("model")
+        free_memory()
     vlm = phase("phase 21: qwen2-vl-72b at full width (M-RoPE, full "
                 "prefill; the VLM front end)", serve_qwen2_vl, dev)
     free_memory()
     phase("phase 21c: qwen2-vl SMOKE full, card against CPU",
           serve_card_vs_cpu, dev, "qwen2_vl_72b", "full")
+    vlm_sharded = phase(
+        f"phase 21b: qwen2-vl-72b at full width ({VLM_SHARDED_DEPTH} layers) "
+        "sharded with KV-slot migration over 4 ranks",
+        serve_sharded_at_depth, "qwen2_vl_72b", VLM_SHARDED_DEPTH, dev)
     log(f"phases 20-21: {time.perf_counter() - t_new:.1f} s; command time "
         f"so far: {time.perf_counter() - t_start:.1f} s")
     t_new = time.perf_counter()
@@ -3808,10 +4395,19 @@ def main():
           "CPU; checkpoint and resume on the card", train_card_vs_cpu, dev)
     log(f"phase 22: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    dp = phase(f"phase 23: data-parallel training at llama3-8b width "
+               f"({TRAIN_DP_DEPTH} layers) over 4 ranks, ZeRO moments",
+               train_data_parallel, dev)
+    phase("phase 23 SMOKE: data-parallel training, 4 ranks on the card "
+          "against one", train_dp_smoke, dev)
+    log(f"phase 23: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
-                        whisper, vlm, training, packing)
+                        whisper, whisper_sharded, vlm, vlm_sharded, training,
+                        packing, dp)
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -3829,7 +4425,8 @@ def main():
              "grok_1_314b packed": grok["launches"]["packed"],
              "mamba2_1_3b full": mamba["launches"],
              "mamba2_1_3b full, prompts of 4608-6144": mamba["long_launches"],
-             "mamba2_1_3b sharded (per rank)": mamba_sharded["launches"],
+             f"mamba2_1_3b sharded ({MAMBA_SHARDED_DEPTH} layers, per rank)":
+                 mamba_sharded["launches"],
              "recurrentgemma_2b full (window 2048)": hybrid["launches"],
              "recurrentgemma_2b full (phase 6's trace)":
                  hybrid["short_launches"],
@@ -3839,6 +4436,13 @@ def main():
              "qwen2_vl_72b full (phase 6's trace)": vlm["launches"],
              "qwen2_vl_72b batch API (4 x 256 patches, 8 steps)":
                  vlm["batch_launches"],
+             "whisper_medium sharded cheap (per rank)":
+                 whisper_sharded["launches"],
+             f"qwen2_vl_72b sharded full ({VLM_SHARDED_DEPTH} layers, per "
+             f"rank)": vlm_sharded["launches"],
+             f"llama3_8b data-parallel train ({TRAIN_DP_DEPTH} layers, "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ} over {SHARDED_P} ranks, "
+             f"{TRAIN_DP_STEPS} steps, per rank)": dp["launches"],
              f"llama3_8b train ({TRAIN_DEPTH} layers, {TRAIN_BATCH} x "
              f"{TRAIN_SEQ}, {training['steps']} steps)": training["launches"],
              f"training packer, corpus pass ({packing['batches']} batches)":

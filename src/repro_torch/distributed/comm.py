@@ -13,7 +13,8 @@ migration executor and the halo exchange need, tiled along dim 0 as
   psum/pmin/pmax  elementwise all-reduce
   all_to_all      (p*C, ...) -> (p*C, ...): block d of rank s lands as
                   block s of rank d (and an async form)
-  broadcast       rank 0's tensor on every rank
+  broadcast       one rank's tensor on every rank
+  barrier         every rank has reached it
 
 The caller picks the group's backend.  ``"nccl"`` runs the collectives
 on the card (one card per rank).  ``"gloo"`` runs them in host memory:
@@ -98,12 +99,18 @@ class Comm:
         return self._all_reduce(t, dist.ReduceOp.MAX)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """``src``'s tensor on every rank (same shape and type on all)."""
+        """The tensor of this group's rank ``src`` on every rank (same
+        shape and type on all)."""
         t = t.contiguous()
         x = self._stage(t)
         x = x.clone() if x is t else x
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
         dist.broadcast(x, src=src, group=self.group)
         return self._unstage(x, t)
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """(p*C, ...) -> (p*C, ...), tiled along dim 0: rows

@@ -9,16 +9,30 @@ balanced-packed batches of a synthetic corpus (``SyntheticCorpus(vocab,
 seed=1).documents(2048)`` through ``pack_batches``, whose balancer runs
 on the training device), with an async checkpoint every
 ``--ckpt-every`` steps and resume from the newest step under ``--ckpt``.
-Runs on CUDA unless ``--device cpu``.  One device only: ``--mesh``
-takes ``1x1`` (data-parallel and sharded training are ROADMAP.md's
-multi-rank training item, queue 1, item 14).
+Runs on CUDA unless ``--device cpu``.
 
-``train(cfg, ...)`` is the loop; ``main`` parses the arguments and calls
-it, and ``chip_smoke.py`` calls it with a config whose depth is cut.
+``--mesh Dx1`` trains data-parallel over D ranks (``distributed.run_world``,
+gloo; on the card every rank shares cuda:0, on the CPU each is a CPU
+process), as the reference's launcher does on a ``(D, 1)`` mesh: every
+rank packs the same global batch of ``--batch`` rows and takes its D-th
+of them, the gradients are summed over the ranks, the AdamW moments are
+sharded ZeRO-style over them (``train.zero_shards`` under
+``launch.mesh.train_rules``), and checkpoints keep the one-rank layout,
+so a run resumes onto any D.  A model axis wider than 1 (``--mesh DxM``,
+M > 1: tensor and expert parallelism) raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \\
+        --smoke --device cpu --mesh 4x1 --steps 8 --batch 8 --seq 128
+
+``train(cfg, ...)`` is the loop (``data=`` a rank's ``Comm`` of the data
+group); ``main`` parses the arguments and calls it, or starts the ranks
+that do, and ``chip_smoke.py`` calls it with a config whose depth is cut.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Callable, Dict, Iterator, Optional
 
 import torch
@@ -27,13 +41,15 @@ from ..configs import get_config, get_smoke
 from ..data import SyntheticCorpus, pack_batches
 from ..device import resolve_device
 from ..models import ModelConfig, init_model
-from ..train import (AdamWConfig, AsyncCheckpointer, init_opt_state,
-                     latest_step, make_train_step, restore)
+from ..train import (AdamWConfig, AsyncCheckpointer, Shard, init_opt_state,
+                     latest_step, make_train_step, restore, restore_sharded,
+                     save_sharded, zero_shards)
 from ..train.train_step import device_clock
+from .mesh import TENSOR_PARALLEL, make_mesh, train_rules
 
-MULTI_RANK = ("only --mesh 1x1 runs: data-parallel and sharded training "
-              "are the multi-rank training item of ROADMAP.md (queue 1, "
-              "item 14)")
+#: seconds a data-parallel world of ``main`` may run before its ranks are
+#: stopped (a collective that hangs fails after its own 600 s timeout)
+WORLD_S = 86400.0
 
 
 def corpus_stream(cfg: ModelConfig, batch: int, seq: int, device
@@ -46,31 +62,77 @@ def corpus_stream(cfg: ModelConfig, batch: int, seq: int, device
                                 device=device)
 
 
+def data_shards(cfg: ModelConfig, model: torch.nn.Module, data
+                ) -> Optional[Dict[str, Shard]]:
+    """``zero_shards`` of this rank of the data group ``data`` under the
+    launcher's rules (``train_rules``, model axis 1); None without a data
+    group."""
+    if data is None:
+        return None
+    return zero_shards(cfg, model, train_rules(cfg), data.size, data.rank)
+
+
+def rows_of(hb: Dict, data) -> Dict:
+    """This rank's contiguous rows ``[r B/D, (r+1) B/D)`` of a global
+    batch (the reference's ``P("data", None)``); the whole batch without
+    a data group."""
+    if data is None:
+        return hb
+    b = next(iter(hb.values())).shape[0]
+    if b % data.size:
+        raise ValueError(f"a global batch of {b} rows does not split over "
+                         f"{data.size} data ranks")
+    per = b // data.size
+    return {k: v[data.rank * per:(data.rank + 1) * per]
+            for k, v in hb.items()}
+
+
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
           seq: int = 256, lr: float = 3e-4,
           ckpt: Optional[str] = "ckpts_launch", ckpt_every: int = 10,
           device=None, batches: Optional[Iterator] = None,
-          log: Callable = print) -> Dict:
+          log: Callable = print, data=None,
+          on_step: Optional[Callable] = None) -> Dict:
     """Train ``cfg`` for ``steps`` steps (from the newest checkpoint under
     ``ckpt``, if any; ``ckpt=None`` neither reads nor writes any).
     ``batches`` replaces the corpus stream (an iterator of dicts of
-    numpy arrays).  Returns ``{"model", "opt", "start", "history"}``:
-    ``history`` holds a dict a step taken -- ``step``, ``loss``,
-    ``gnorm``, ``lr`` and the seconds of packing (``t_pack``: the next
-    batch packed and copied to the device), forward + backward
-    (``t_grad``) and update (``t_update``), each with the device
-    synchronized."""
+    numpy arrays: global batches).  Returns ``{"model", "opt", "start",
+    "history"}``: ``history`` holds a dict a step taken -- ``step``,
+    ``loss``, ``gnorm``, ``lr`` and the seconds of packing (``t_pack``:
+    the next batch packed and this rank's rows copied to the device),
+    forward + backward (``t_grad``) and update (``t_update``), each with
+    the device synchronized.
+
+    With ``data`` (this rank's ``Comm`` of the data group), each rank
+    takes its rows of every global batch of ``batch`` rows, and trains
+    with the moments sharded (``opt`` holds this rank's parts); the
+    history adds the gradient all-reduce (``t_reduce``), the parameters'
+    all-gather within the update (``t_gather``) and the bytes this rank
+    handed to each (``reduce_bytes``, ``gather_bytes``).  Checkpoints
+    are written in the one-rank layout by rank 0.  ``on_step(step,
+    model, grads, metrics)``, if given, sees each step's summed
+    gradients (before the update consumed them) and the updated
+    model."""
     dev = resolve_device(device)
     ocfg = AdamWConfig(lr=lr, warmup=max(steps // 10, 1), total_steps=steps)
-    log(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M device={dev}")
+    rank = 0 if data is None else data.rank
+    if rank == 0:
+        log(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
+            f"device={dev} data ranks={1 if data is None else data.size}")
     model = init_model(cfg, seed=0, device=dev)
-    opt = init_opt_state(model, ocfg)
+    shards = data_shards(cfg, model, data)
+    opt = init_opt_state(model, ocfg, shards, rank)
     start = 0
     if ckpt and latest_step(ckpt) is not None:
-        start, state = restore(ckpt, template={"params": model, "opt": opt})
-        opt = state["opt"]
-        log(f"resumed from step {start}")
-    step_fn = make_train_step(cfg, ocfg)
+        if data is None:
+            start, state = restore(ckpt,
+                                   template={"params": model, "opt": opt})
+            opt = state["opt"]
+        else:
+            start, opt = restore_sharded(ckpt, model, ocfg, shards, rank)
+        if rank == 0:
+            log(f"resumed from step {start}")
+    step_fn = make_train_step(cfg, ocfg, data=data, shards=shards)
     # as in the reference, a resumed run packs from the first document
     # again, not from the batch the interrupted run stopped at
     stream = batches if batches is not None else corpus_stream(
@@ -79,24 +141,45 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
     history = []
     for step in range(start, steps):
         t0 = device_clock(dev)
-        hb = next(stream)
+        hb = rows_of(next(stream), data)
         tensors = {k: torch.as_tensor(v, device=dev) for k, v in hb.items()}
         t_pack = device_clock(dev) - t0
         times: Dict[str, float] = {}
-        model, opt, metr = step_fn(model, opt, tensors, times=times)
+        grads: Optional[Dict] = {} if on_step is not None else None
+        model, opt, metr = step_fn(model, opt, tensors, times=times,
+                                   grads_out=grads)
         rec = dict(step=step, loss=float(metr["loss"]),
                    gnorm=float(metr["gnorm"]), lr=float(metr["lr"]),
                    t_pack=t_pack, t_grad=times["grad"],
                    t_update=times["update"])
+        if data is not None:
+            rec.update(t_reduce=times["reduce"], t_gather=times["gather"],
+                       reduce_bytes=metr["reduce_bytes"],
+                       gather_bytes=metr["gather_bytes"])
         history.append(rec)
-        if step % 5 == 0 or step == steps - 1:
+        if on_step is not None:
+            on_step(step, model, grads, metr)
+        del grads
+        if rank == 0 and (step % 5 == 0 or step == steps - 1):
             log(f"step {step:4d} loss={rec['loss']:.4f} "
                 f"gnorm={rec['gnorm']:.2f}")
         if ckpt and (step + 1) % ckpt_every == 0:
-            ck.save_async(ckpt, step + 1, {"params": model, "opt": opt})
+            if data is None:
+                ck.save_async(ckpt, step + 1, {"params": model, "opt": opt})
+            else:
+                save_sharded(ckpt, step + 1, model, opt, ocfg, shards, data)
     ck.wait()
-    log("done")
+    if rank == 0:
+        log("done")
     return {"model": model, "opt": opt, "start": start, "history": history}
+
+
+def _train_rank(comm, arch: str, smoke: bool, kw: Dict) -> list:
+    """One rank of ``main``'s data-parallel world: ``train`` on its rows;
+    returns its history."""
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    data = make_mesh(comm, comm.size, 1)
+    return train(cfg, data=data, device=comm.device, **kw)["history"]
 
 
 def main(argv=None):
@@ -104,7 +187,8 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
-    ap.add_argument("--mesh", default="1x1", help="DxM data x model (1x1)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM data x model (M = 1: D data-parallel ranks)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -114,12 +198,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        raise ValueError(f"--mesh {args.mesh}: {MULTI_RANK}")
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                 lr=args.lr, ckpt=args.ckpt, ckpt_every=args.ckpt_every,
-                 device=args.device)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    if m != 1:
+        raise ValueError(f"--mesh {args.mesh}: {TENSOR_PARALLEL}")
+    kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+              ckpt=args.ckpt, ckpt_every=args.ckpt_every)
+    if d == 1:
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        return train(cfg, device=args.device, **kw)
+    from ..distributed import run_world
+    dev = resolve_device(args.device)
+    devices = ([str(dev)] * d if dev.type == "cpu" else ["cuda:0"] * d)
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_world(_train_rank, d, args.arch, args.smoke, kw,
+                         init_file=os.path.join(tmp, "rendezvous"),
+                         devices=devices, timeout_s=600.0,
+                         join_s=WORLD_S)
 
 
 if __name__ == "__main__":

@@ -43,19 +43,22 @@ def model_from_tensors(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
     return model
 
 
-def loss_fn(model: torch.nn.Module, batch: Dict, cfg: ModelConfig
-            ) -> torch.Tensor:
+def loss_fn(model: torch.nn.Module, batch: Dict, cfg: ModelConfig, *,
+            data=None) -> torch.Tensor:
     """The training loss of ``batch`` (``tokens``, ``labels`` (-1 = not
     scored) and, by family, ``frames`` / ``patch_embeds`` / ``pos3``): a
-    float32 scalar."""
+    float32 scalar.  With ``data`` (the data group's ``Comm``), ``batch``
+    is this rank's rows of the global batch and the value is this rank's
+    term: the ranks' terms, and their gradients, sum to those of the
+    global batch (``data=None``: one device, the whole batch)."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return T.decoder_loss(model, batch, cfg)
+        return T.decoder_loss(model, batch, cfg, data)
     if cfg.family == "encdec":
-        return T.encdec_loss(model, batch, cfg)
+        return T.encdec_loss(model, batch, cfg, data)
     if cfg.family == "hybrid":
-        return T.hybrid_loss(model, batch, cfg)
+        return T.hybrid_loss(model, batch, cfg, data)
     if cfg.family == "ssm":
-        return T.ssm_loss(model, batch, cfg)
+        return T.ssm_loss(model, batch, cfg, data)
     raise ValueError(cfg.family)
 
 

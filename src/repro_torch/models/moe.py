@@ -136,11 +136,18 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int,
     return slot, slot < capacity
 
 
-def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig):
+def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig, data=None):
     """Router math: (gate_vals (b, s, k) float32, expert_idx (b, s, k),
     aux).  The top k come from a stable descending sort of the float32
     probabilities, so on a tie the lower expert id comes first, as
-    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order)."""
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order).
+
+    ``aux = e * sum_e f_e p_e`` over every token of the batch.  With a
+    data group ``data``, ``x`` is this rank's rows of the global batch:
+    ``f_e`` (which carries no gradient) comes from the expert counts and
+    token count all-reduced over ``data``, and this rank's ``aux`` uses
+    its own probability sums over the global token count, so the ranks'
+    terms and their gradients sum to the global aux's."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(matmul_f32(x.to(F32), moe.router), dim=-1)
@@ -152,10 +159,17 @@ def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig):
     # come from a sum of ones (exact in any order), since bincount would
     # read its input's maximum back to the host
     flat = expert_idx.reshape(-1)
-    f_e = torch.zeros(e, dtype=F32, device=x.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=F32, device=x.device)) \
-        / (b * s * k)
-    p_e = probs.mean(dim=(0, 1))
+    counts = torch.zeros(e, dtype=F32, device=x.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=F32, device=x.device))
+    if data is None:
+        f_e = counts / (b * s * k)
+        p_e = probs.mean(dim=(0, 1))
+    else:
+        # the counts and this rank's token count, summed over the ranks
+        # in one all-reduce (integers: exact in float32)
+        tot = data.psum(torch.cat([counts, counts.new_full((1,), b * s)]))
+        f_e = tot[:e] / (tot[e] * k)
+        p_e = probs.sum(dim=(0, 1)) / tot[e]
     aux = e * torch.sum(f_e * p_e)
     return gate_vals, expert_idx, aux
 
@@ -207,8 +221,10 @@ def _moe_dense(moe: MoE, x: torch.Tensor, gate_vals: torch.Tensor,
     return gathered.reshape(b, s, k, d).sum(dim=2).to(act)
 
 
-def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig
+def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *, data=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (out, aux_loss).  Groups = batch rows."""
-    gate_vals, expert_idx, aux = _route(moe, x, cfg)
+    """x: (b, s, d) -> (out, aux_loss).  Groups = batch rows (capacity is
+    per row, so splitting a batch by rows over ``data`` changes no
+    dispatch); ``data``: this rank's term of the aux (``_route``)."""
+    gate_vals, expert_idx, aux = _route(moe, x, cfg, data)
     return _moe_dense(moe, x, gate_vals, expert_idx, cfg), aux

@@ -23,7 +23,11 @@ Training: ``decoder_loss``, ``encdec_loss``, ``hybrid_loss`` and
 ``ssm_loss`` score each family's hidden states (``decoder_hidden``,
 ``encdec_hidden``, ``hybrid_hidden``, ``ssm_hidden``) with the
 sequence-chunked masked cross-entropy ``_masked_ce``; the decoder adds
-0.01 of the MoE aux loss.  Where the reference wraps a layer body in
+0.01 of the MoE aux loss.  Under data parallelism each rank scores its
+rows of the global batch and passes its data group as ``data``: the
+ranks' losses then sum to the loss of the whole batch (``_masked_ce``
+divides by the global count of labels, ``moe._route`` weighs by the
+global expert counts), and so do their gradients.  Where the reference wraps a layer body in
 ``jax.checkpoint`` under ``cfg.remat`` (decoder, encoder, decoder of the
 encoder-decoder, SSM), ``remat`` runs it through
 ``torch.utils.checkpoint`` while grad is enabled.
@@ -64,15 +68,15 @@ class Block(nn.Module):
 
 
 def block_ffn(block: Block, x: torch.Tensor, cfg: ModelConfig, *,
-              with_aux: bool = False):
+              with_aux: bool = False, data=None):
     """``x`` plus the block's MLP, or MoE, of ``rmsnorm(x)``: the second
     half of every block, for prefill, decode, packed prefill and training
     alike.  The MoE's aux loss is a training term: ``with_aux=True``
-    returns it too (a float32 zero for an MLP block), else it is
-    dropped."""
+    returns it too (a float32 zero for an MLP block; this rank's term
+    over ``data``), else it is dropped."""
     h = rmsnorm(x, block.ln_mlp)
     if hasattr(block, "moe"):
-        y, aux = moe_apply(block.moe, h, cfg)
+        y, aux = moe_apply(block.moe, h, cfg, data=data)
     else:
         y = mlp_apply(block.mlp, h, cfg)
         aux = torch.zeros((), dtype=F32, device=x.device)
@@ -118,42 +122,48 @@ def decoder_inputs(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def block_apply(layer: Block, x: torch.Tensor, cfg: ModelConfig,
-                pos: torch.Tensor, pos3: Optional[torch.Tensor]
+                pos: torch.Tensor, pos3: Optional[torch.Tensor], data=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One causal decoder block over the whole sequence: (x, aux)."""
     h = rmsnorm(x, layer.ln_attn)
     x = x + attention_apply(layer.attn, h, cfg, pos=pos, pos3=pos3,
                             causal=True)
-    return block_ffn(layer, x, cfg, with_aux=True)
+    return block_ffn(layer, x, cfg, with_aux=True, data=data)
 
 
 def decoder_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
                    *, pos3: Optional[torch.Tensor] = None,
                    patch_embeds: Optional[torch.Tensor] = None,
-                   with_aux: bool = False):
+                   with_aux: bool = False, data=None):
     """The final hidden state (b, s, d) of a causal forward over
     ``patch_embeds`` and ``tokens``; ``pos3`` replaces the M-RoPE streams
     ``decoder_inputs`` builds (distinct (t, h, w) ids of image patches).
     ``with_aux=True`` returns (hidden, aux): the MoE's aux loss summed
     over the layers (float32; 0 without experts), as the reference's
-    ``decoder_hidden`` does; else the aux is dropped."""
+    ``decoder_hidden`` does -- with a data group ``data``, this rank's
+    term of it; else the aux is dropped.  (Under ``cfg.remat`` a layer's
+    forward runs again in the backward pass, and with it the MoE's
+    all-reduce of the expert counts: every rank recomputes the layers
+    in the same order, so the all-reduces pair up.)"""
     x, pos, own3 = decoder_inputs(model, tokens, cfg, patch_embeds)
     pos3 = own3 if pos3 is None else pos3
     aux = torch.zeros((), dtype=F32, device=x.device)
     for layer in model.layers:
-        x, a = remat(cfg, block_apply, layer, x, cfg, pos, pos3)
+        x, a = remat(cfg, block_apply, layer, x, cfg, pos, pos3, data)
         aux = aux + a
     x = rmsnorm(x, model.ln_f)
     return (x, aux) if with_aux else x
 
 
 def _masked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, data=None) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, in
     ``nc = max(s // loss_chunk, 1)`` sequence chunks of ``cs = s // nc``
     positions (the (b, s, vocab) logits never exist at once).  As in the
     reference, positions past ``nc * cs`` are not scored: s = 200 with
-    chunks of 64 scores 198."""
+    chunks of 64 scores 198.  With a data group ``data``, this rank's sum
+    over the count of scored labels of every rank (one all-reduce): the
+    ranks' values sum to the mean over the global batch."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     b, s, _ = x.shape
@@ -161,17 +171,20 @@ def _masked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     cs = s // nc
     num = torch.zeros((), dtype=F32, device=x.device)
     den = torch.zeros((), dtype=F32, device=x.device)
+    if data is not None:
+        den = data.psum(torch.sum(mask[:, :nc * cs]).to(F32))
     for ci in range(nc):
         sl = slice(ci * cs, (ci + 1) * cs)
         logits = matmul_f32(x[:, sl], head)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, safe[:, sl, None])[..., 0]
         num = num + torch.sum(torch.where(mask[:, sl], logz - gold, 0.0))
-        den = den + torch.sum(mask[:, sl])
+        if data is None:
+            den = den + torch.sum(mask[:, sl])
     return num / torch.clamp(den, min=1.0)
 
 
-def decoder_loss(model: DecoderLM, batch: Dict, cfg: ModelConfig
+def decoder_loss(model: DecoderLM, batch: Dict, cfg: ModelConfig, data=None
                  ) -> torch.Tensor:
     """``_masked_ce`` of ``batch['labels']`` plus 0.01 times the MoE aux
     loss.  The VLM's patch positions carry no label: -1 is prepended
@@ -179,13 +192,13 @@ def decoder_loss(model: DecoderLM, batch: Dict, cfg: ModelConfig
     patches = batch.get("patch_embeds")
     x, aux = decoder_hidden(model, batch["tokens"], cfg,
                             pos3=batch.get("pos3"), patch_embeds=patches,
-                            with_aux=True)
+                            with_aux=True, data=data)
     labels = batch["labels"]
     if patches is not None:
         pad = torch.full((labels.shape[0], patches.shape[1]), -1,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    return _masked_ce(model.embed.head, x, labels, cfg) + 0.01 * aux
+    return _masked_ce(model.embed.head, x, labels, cfg, data) + 0.01 * aux
 
 
 class SSMBlock(nn.Module):
@@ -353,10 +366,10 @@ def encdec_hidden(model: EncDecLM, frames: torch.Tensor,
     return rmsnorm(x, model.ln_f)
 
 
-def encdec_loss(model: EncDecLM, batch: Dict, cfg: ModelConfig
+def encdec_loss(model: EncDecLM, batch: Dict, cfg: ModelConfig, data=None
                 ) -> torch.Tensor:
     x = encdec_hidden(model, batch["frames"], batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)
 
 
 def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig
@@ -377,10 +390,10 @@ def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig
     return rmsnorm(x, model.ln_f)
 
 
-def hybrid_loss(model: HybridLM, batch: Dict, cfg: ModelConfig
+def hybrid_loss(model: HybridLM, batch: Dict, cfg: ModelConfig, data=None
                 ) -> torch.Tensor:
     x = hybrid_hidden(model, batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)
 
 
 def _ssm_block(layer: SSMBlock, x: torch.Tensor, cfg: ModelConfig
@@ -396,6 +409,7 @@ def ssm_hidden(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig
     return rmsnorm(x, model.ln_f)
 
 
-def ssm_loss(model: SSMLM, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
+def ssm_loss(model: SSMLM, batch: Dict, cfg: ModelConfig, data=None
+             ) -> torch.Tensor:
     x = ssm_hidden(model, batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg)
+    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)

@@ -11,6 +11,13 @@
 Keys are the leaves' paths joined by '/': dict keys, tuple indices (an
 ``OptState`` is ``0`` step, ``1`` m, ``2`` v, as in the JAX package's
 tree) and, under a model, its parameter names (``layers.0.attn.wq``).
+
+A data-parallel run whose moments are sharded ZeRO-style
+(``optimizer.zero_shards``) writes the same full layout
+(``save_sharded``: each moment gathered leaf by leaf, rank 0 writes,
+then a barrier), so any run can resume it; ``restore_sharded`` reads a
+checkpoint onto a rank of a data group of any size, re-slicing the
+moments (the reference's elastic restart onto another mesh).
 The port's leaves carry no logical axes (``"axes": null``).  bfloat16
 arrays are written as the JAX package writes them -- raw 2-byte words
 with descr ``'<V2'`` -- and read back by the manifest's dtype, so no
@@ -25,6 +32,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .optimizer import (AdamWConfig, OptState, Shard, _local, gather_moment,
+                        named)
 
 _SEP = "/"
 _BF16 = "bfloat16"
@@ -194,3 +204,50 @@ def restore(path: str, step: Optional[int] = None, template=None
         return arrays[prefix].numpy()
 
     return step, fill("", template)
+
+
+def save_sharded(path: str, step: int, model: torch.nn.Module,
+                 opt: OptState, ocfg: AdamWConfig, shards: Dict[str, Shard],
+                 data, extra: Optional[Dict] = None) -> None:
+    """Checkpoint a data-parallel run as ``save(path, step, {"params":
+    model, "opt": opt})`` of one rank would: each moment gathered whole,
+    one leaf at a time (so no rank holds every whole moment on its
+    device), rank 0 writes, then a barrier.  Every rank of ``data`` calls
+    it."""
+    dt = getattr(torch, ocfg.adam_dtype)
+    params = named(model)
+    lead = data.rank == 0
+    flat: Dict[str, Any] = {}
+    for n, p in params.items():
+        if lead:
+            flat[f"params{_SEP}{n}"] = _host(p)
+    flat[f"opt{_SEP}0"] = _host(opt.step)
+    for i, d in ((1, opt.m), (2, opt.v)):
+        for n, p in params.items():
+            whole = gather_moment(d.get(n), p, shards[n], data, dt)
+            if lead:
+                flat[f"opt{_SEP}{i}{_SEP}{n}"] = _host(whole)
+            del whole
+    if lead:
+        _write(path, step, flat, extra)
+    data.barrier()
+
+
+def restore_sharded(path: str, model: torch.nn.Module, ocfg: AdamWConfig,
+                    shards: Dict[str, Shard], rank: int,
+                    step: Optional[int] = None) -> Tuple[int, OptState]:
+    """Load a checkpoint in the full layout onto data rank ``rank``: the
+    model's parameters whole (in place), and this rank's part of each
+    moment (``shards``, of any data group's size), cut on the host.
+    Returns (step, this rank's ``OptState``)."""
+    step, arrays = read_checkpoint(path, step)
+    dt = getattr(torch, ocfg.adam_dtype)
+    params = named(model)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(arrays[f"params{_SEP}{n}"])
+    parts = [{n: _local(arrays[f"opt{_SEP}{i}{_SEP}{n}"], shards[n]).to(
+                  p.device, dt).contiguous()
+              for n, p in params.items() if shards[n].mine(rank)}
+             for i in (1, 2)]
+    return step, OptState(int(arrays[f"opt{_SEP}0"]), *parts)

@@ -1,26 +1,56 @@
 """Train-step factory: loss -> grads -> (optionally compressed) -> AdamW.
-Counterpart of ``repro/train/train_step.py``."""
+Counterpart of ``repro/train/train_step.py``.
+
+Data parallelism follows the reference's semantics: one packed global
+batch, of which each rank of the data group takes its contiguous rows
+(``P("data", None)``); each rank's loss term (``loss_fn(..., data=)``)
+gives gradients that sum to the global batch's; the step sums them over
+the group (as GSPMD sums them), applies the error feedback to the sum
+when ``compress`` (the same on every rank), and updates with the moments
+sharded ZeRO-style (``optimizer.zero_shards``)."""
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import torch
 
 from ..models import ModelConfig, loss_fn
 from .compress import CompressState, ef_compress_grads
-from .optimizer import AdamWConfig, OptState, adamw_update
+from .optimizer import (F32, AdamWConfig, OptState, Shard, _chunks,
+                        adamw_update, device_clock)
+
+__all__ = ["device_clock", "gather_bytes", "make_train_step", "sum_grads"]
 
 
-def device_clock(device: torch.device) -> float:
-    """``time.perf_counter()`` once ``device``'s queued work is done."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
+def sum_grads(grads: Dict[str, torch.Tensor], data) -> int:
+    """Sum each gradient over the data group in float32 and round once to
+    its dtype, in place, a slice of at most ``UPDATE_CHUNK`` elements at
+    a time (a llama3-8b gradient in float32 is ~9 GB a rank); returns the
+    bytes this rank handed to the all-reduces."""
+    sent = 0
+    for g in grads.values():
+        for gc in _chunks(g):
+            gc.copy_(data.psum(gc.to(F32)))
+            sent += gc.numel() * 4
+    return sent
+
+
+def gather_bytes(params: Dict[str, torch.Tensor], shards, rank: int) -> int:
+    """The bytes of the parameters' parts this rank hands to the update's
+    all-gathers and broadcasts."""
+    total = 0
+    for n, p in params.items():
+        sh = shards[n]
+        if sh.dim is not None:
+            total += p.numel() // p.shape[sh.dim] * sh.size * p.element_size()
+        elif sh.owner == rank:
+            total += p.numel() * p.element_size()
+    return total
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    compress: bool = False) -> Callable:
+                    compress: bool = False, data=None,
+                    shards: Optional[Dict[str, Shard]] = None) -> Callable:
     """Returns ``train_step(model, opt_state, batch[, comp_state],
     times=None)``: the loss of ``batch`` under ``loss_fn``, its gradients
     with respect to every parameter (``torch.autograd.grad``; the step
@@ -29,32 +59,65 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     stacked layers share them), then one ``adamw_update``, which
     writes the model's parameters in place.  Returns ``(model,
     opt_state[, comp_state], metrics)`` with ``metrics`` = ``{"loss",
-    "gnorm", "lr"}`` (float32 scalars), as the reference does.  A dict
-    passed as ``times`` receives the seconds of the forward + backward
-    (``"grad"``) and of the compression and update (``"update"``),
-    measured with the device synchronized."""
+    "gnorm", "lr"}`` (float32 scalars), as the reference does.
+
+    With ``data`` (the data group's ``Comm``) and ``shards`` (this rank's
+    ``zero_shards``, which the launcher builds from its rules), ``batch``
+    is this rank's rows of the global batch, ``opt_state`` holds this
+    rank's parts of the moments (``init_opt_state(model, ocfg, shards,
+    data.rank)``), the gradients are summed over the group before the
+    compression and the update (``sum_grads``), and ``loss`` is the
+    global batch's (the ranks' terms summed); metrics add the bytes this
+    rank handed to the gradient all-reduces (``"reduce_bytes"``) and to
+    the parameters' all-gathers and broadcasts (``"gather_bytes"``).
+
+    A dict passed as ``times`` receives the seconds of the forward +
+    backward (``"grad"``), the gradient all-reduce (``"reduce"``, 0
+    without ``data``), the compression and update (``"update"``) and,
+    with ``data``, the parameters' all-gather within it (``"gather"``),
+    each measured with the device synchronized.  ``grads_out``, a dict,
+    receives the gradients the update consumed (summed, before any
+    compression), by name."""
+    if (data is None) != (shards is None):
+        raise ValueError("data and shards come together: a data group's "
+                         "step updates this rank's shards of the moments")
 
     def train_step(model: torch.nn.Module, opt_state: OptState, batch: Dict,
                    comp_state: Optional[CompressState] = None, *,
-                   times: Optional[Dict[str, float]] = None):
+                   times: Optional[Dict[str, float]] = None,
+                   grads_out: Optional[Dict[str, torch.Tensor]] = None):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
         dev = next(iter(params.values())).device
         t0 = device_clock(dev) if times is not None else 0.0
         with torch.enable_grad():
-            loss = loss_fn(model, batch, cfg)
+            loss = loss_fn(model, batch, cfg, data=data)
             grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
+        grads = {n: g.contiguous() for n, g in zip(params, grads)}
+        loss = loss.detach()
         if times is not None:
             t1 = device_clock(dev)
             times["grad"] = t1 - t0
+        wire = 0
+        if data is not None:
+            wire = sum_grads(grads, data)
+            loss = data.psum(loss)
+        if times is not None:
+            t2 = device_clock(dev)
+            times["reduce"] = t2 - t1
+        if grads_out is not None:
+            grads_out.update(grads)
         if compress:
             grads, comp_state = ef_compress_grads(grads, comp_state, cfg)
-        opt_state, info = adamw_update(params, grads, opt_state, opt_cfg)
+        opt_state, info = adamw_update(params, grads, opt_state, opt_cfg,
+                                       shards=shards, data=data, times=times)
         del grads
         if times is not None:
-            times["update"] = device_clock(dev) - t1
-        metrics = {"loss": loss.detach(), **info}
+            times["update"] = device_clock(dev) - t2
+        metrics = {"loss": loss, **info}
+        if data is not None:
+            metrics["reduce_bytes"] = wire
+            metrics["gather_bytes"] = gather_bytes(params, shards, data.rank)
         if compress:
             return model, opt_state, comp_state, metrics
         return model, opt_state, metrics

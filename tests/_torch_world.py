@@ -1,6 +1,7 @@
 """Rank bodies for the multi-rank tests of the port (``tests/test_torch_
 distributed.py``, ``tests/test_torch_halo.py``,
-``tests/test_torch_serve_sharded.py``).
+``tests/test_torch_serve_sharded.py``, ``tests/test_torch_train.py``,
+``tests/test_torch_train_dp.py``).
 
 Each function runs on every rank of a gloo world of CPU processes started
 by ``repro_torch.distributed.run_world``, takes the shared numpy inputs,
@@ -436,16 +437,20 @@ def recurrent_scenarios(make, Request, prompts):
 
 
 def recurrent_migrations(comm, cfg, arrays, moves):
-    """``SlotMigrator`` on this rank's rows of a global SSM / hybrid state
-    (``arrays``: its leaves in order), whole and one layer a chunk."""
-    from repro_torch.serve import SlotMigrator, init_serve_state, slot_axes
+    """``SlotMigrator`` on this rank's rows of a global SSM / hybrid /
+    encoder-decoder / VLM state (``arrays``: its leaves in order), whole
+    and one layer a chunk.  The rows start from the family's empty state
+    (the dry-run state for the encoder-decoder, which has no empty one)."""
+    from repro_torch.serve import SlotMigrator, slot_axes
+    from repro_torch.serve.decode import init_decode_state, init_serve_state
     from repro_torch.serve.slots import _leaves
     axes = _leaves(slot_axes(cfg))
     spg = arrays[0].shape[axes[0]] // comm.size
     mine = slice(comm.rank * spg, (comm.rank + 1) * spg)
+    init = init_decode_state if cfg.family == "encdec" else init_serve_state
     out = {}
     for name, chunk in (("whole", 1 << 62), ("chunked", 1)):
-        state = init_serve_state(cfg, spg, 64, device="cpu")
+        state = init(cfg, spg, 64, device="cpu")
         for leaf, ax, a in zip(_leaves(state), axes, arrays):
             leaf.copy_(torch.as_tensor(a[(slice(None),) * ax + (mine,)]))
         mig = SlotMigrator(cfg, comm, slot_axes(cfg), state,
@@ -458,30 +463,61 @@ def recurrent_migrations(comm, cfg, arrays, moves):
     return out
 
 
-def recurrent_world(comm, arch, weights, prompts, arrays, moves):
-    """A recurrent family's sharded scenarios and its slot migrator."""
+# the session spec of each family's sharded case: whisper is served with
+# the cheap prefill (the reference's only engine path for it), qwen2-vl
+# with the full prefill (packed is refused for M-RoPE)
+FAMILY_SPEC = {"whisper_medium": dict(RECURRENT_SPEC, prefill="cheap"),
+               "qwen2_vl_72b": RECURRENT_SPEC}
+
+
+def _family_world(comm, arch, weights, prompts, arrays, moves):
+    """A family's sharded scenarios and its slot migrator at SMOKE."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import model_from_tensors
     from repro_torch.serve import Request, ServeSession, ServeSpec
     cfg = get_smoke(arch)
     model = model_from_tensors(cfg, {k: torch.as_tensor(v)
                                      for k, v in weights.items()})
+    base = FAMILY_SPEC.get(arch, RECURRENT_SPEC)
 
     def make(**kw):
-        spec = ServeSpec(**{**RECURRENT_SPEC, **kw})
+        spec = ServeSpec(**{**base, **kw})
         return ServeSession(model, cfg, spec, comm=comm)
 
     return {"scenarios": recurrent_scenarios(make, Request, prompts),
             "migration": recurrent_migrations(comm, cfg, arrays, moves)}
 
 
+def recurrent_world(comm, arch, weights, prompts, arrays, moves):
+    """A recurrent family's (mamba2, recurrentgemma) sharded scenarios and
+    its slot migrator."""
+    return _family_world(comm, arch, weights, prompts, arrays, moves)
+
+
+def encdec_world(comm, weights, prompts, arrays, moves):
+    """whisper-medium SMOKE: sharded decode after the cheap prefill (zero
+    cross K/V), KV rebalancing, a forced migration; the migrator ships
+    the self-attention cache and ``cross_k`` / ``cross_v`` on slot axis
+    1."""
+    return _family_world(comm, "whisper_medium", weights, prompts, arrays,
+                         moves)
+
+
+def vlm_world(comm, weights, prompts, arrays, moves):
+    """qwen2-vl-72b SMOKE: sharded decode after the full prefill (M-RoPE
+    over text positions), KV rebalancing, a forced migration."""
+    return _family_world(comm, "qwen2_vl_72b", weights, prompts, arrays,
+                         moves)
+
+
 def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None,
-                recurrent=()):
+                recurrent=(), encdec=None, vlm=None):
     """Every scenario of this world's group count on the port's sharded
     session, then (at 4 groups) the slot migrator alone and, with
     ``moe_case`` = (cfg, weights, prompts), an MoE model's session; then
     each case of ``recurrent`` (``recurrent_world``'s arguments), by
-    architecture."""
+    architecture, and the ``encdec`` and ``vlm`` cases (the arguments of
+    ``encdec_world`` and ``vlm_world``)."""
     from repro_torch.models import model_from_tensors
     from repro_torch.serve import Request, ServeSession, ServeSpec
     model = model_from_tensors(cfg, {k: torch.as_tensor(v)
@@ -502,6 +538,10 @@ def serve_world(comm, cfg, weights, prompts, migration_case, moe_case=None,
         out["moe"] = _run_all(sess, moe_requests(Request, mprompts), 128)
     out["recurrent"] = {case[0]: recurrent_world(comm, *case)
                         for case in recurrent}
+    if encdec is not None:
+        out["encdec"] = encdec_world(comm, *encdec)
+    if vlm is not None:
+        out["vlm"] = vlm_world(comm, *vlm)
     return out
 
 
@@ -515,3 +555,189 @@ def compressed_sums(comm, xs):
     from repro_torch.train import compressed_psum
     return [compressed_psum(torch.as_tensor(x[comm.rank]), comm).numpy()
             for x in xs]
+
+
+# ---------------------------------------------------------------------------
+# test_torch_train_dp.py
+# ---------------------------------------------------------------------------
+
+DP_OPT = dict(lr=1e-3, warmup=1, total_steps=10)
+
+
+def _np_dict(d):
+    return {k: v.detach().numpy().copy() for k, v in d.items()}
+
+
+def _gather_moments(state, model, ocfg, shards, data):
+    """Whole moments on every rank from each rank's part (a collective:
+    every rank of ``data`` calls it)."""
+    from repro_torch.train import OptState
+    from repro_torch.train.optimizer import gather_moment
+    dt = getattr(torch, ocfg.adam_dtype)
+    return OptState(state.step, *(
+        {n: gather_moment(d.get(n), p, shards[n], data, dt)
+         for n, p in model.named_parameters()} for d in (state.m, state.v)))
+
+
+def _shard_moments(full, shards, rank):
+    """This rank's part of whole moments (copies)."""
+    from repro_torch.train import OptState
+    from repro_torch.train.optimizer import _local
+
+    def part(d):
+        return {n: _local(t, shards[n]).clone() for n, t in d.items()
+                if shards[n].mine(rank)}
+    return OptState(full.step, part(full.m), part(full.v))
+
+
+def model_from_numpy(cfg, weights):
+    """A CPU model of ``cfg`` holding copies of ``weights`` (numpy, by
+    parameter name)."""
+    from repro_torch.models import init_model
+    model = init_model(cfg, seed=None, device="cpu")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.as_tensor(weights[n]))
+    return model
+
+
+def _dp_case(comm, arch, overrides, batches, weights):
+    """One SMOKE config trained data-parallel on this rank's rows of each
+    global batch of ``batches``: the losses and summed gradients of the
+    first step's forward, then two steps of the ZeRO update, then two
+    with ``compress=True``, each from ``weights``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import data_shards, rows_of
+    from repro_torch.models import loss_fn
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.train_step import sum_grads
+    cfg = get_smoke(arch).replace(**overrides)
+    ocfg = AdamWConfig(**DP_OPT)
+    model = model_from_numpy(cfg, weights)
+    first = {k: torch.as_tensor(v) for k, v in rows_of(batches[0],
+                                                         comm).items()}
+    model.requires_grad_(True)
+    names, params = zip(*model.named_parameters())
+    term = loss_fn(model, first, cfg, data=comm)
+    grads = dict(zip(names, torch.autograd.grad(term, params)))
+    sum_grads(grads, comm)
+    term = term.detach()
+    out = {"term": float(term), "loss": float(comm.psum(term)),
+           "grads": _np_dict(grads)}
+    for compress in (False, True):
+        model = model_from_numpy(cfg, weights)
+        shards = data_shards(cfg, model, comm)
+        opt = init_opt_state(model, ocfg, shards, comm.rank)
+        step = make_train_step(cfg, ocfg, compress=compress, data=comm,
+                               shards=shards)
+        comp, steps = None, []
+        for hb in batches[:2]:
+            tb = {k: torch.as_tensor(v) for k, v in rows_of(hb, comm).items()}
+            used = {}
+            if compress:
+                model, opt, comp, m = step(model, opt, tb, comp,
+                                           grads_out=used)
+            else:
+                model, opt, m = step(model, opt, tb, grads_out=used)
+            steps.append({"grads": _np_dict(used),
+                          "params": _np_dict(dict(model.named_parameters())),
+                          "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                          "reduce_bytes": m["reduce_bytes"],
+                          "gather_bytes": m["gather_bytes"]})
+        whole = _gather_moments(opt, model, ocfg, shards, comm)
+        out["compress" if compress else "zero"] = {
+            "steps": steps, "m": _np_dict(whole.m), "v": _np_dict(whole.v),
+            "local_m": {n: tuple(t.shape) for n, t in opt.m.items()},
+            "shards": {n: (s.dim, s.start, s.size, s.owner)
+                       for n, s in shards.items()}}
+    return out
+
+
+def _continue(cfg, ocfg, state, batches, data):
+    """Two steps from a whole state held in memory (``state``: params,
+    m, v as numpy, and the step), data-parallel over ``data`` (None: one
+    rank): the continuation a resumed run must reproduce."""
+    from repro_torch.launch.train import data_shards, rows_of
+    from repro_torch.train import OptState, make_train_step
+    model = model_from_numpy(cfg, state["params"])
+    full = OptState(state["step"],
+                    {n: torch.as_tensor(a).clone() for n, a in
+                     state["m"].items()},
+                    {n: torch.as_tensor(a).clone() for n, a in
+                     state["v"].items()})
+    shards = data_shards(cfg, model, data)
+    opt = full if data is None else _shard_moments(full, shards, data.rank)
+    step = make_train_step(cfg, ocfg, data=data, shards=shards)
+    used = []
+    for hb in batches[:2]:
+        g = {}
+        model, opt, _ = step(model, opt, {k: torch.as_tensor(v) for k, v in
+                                          rows_of(hb, data).items()},
+                             grads_out=g)
+        used.append(_np_dict(g))
+    return _np_dict(dict(model.named_parameters())), used
+
+
+def _elastic(comm, batches, ckpt):
+    """Train llama SMOKE at D = 4 for 2 steps with a checkpoint after the
+    second; resume it at D = 1 (rank 0) and at D = 2 (ranks 0 and 1) for
+    2 more steps, beside the same 2 steps from the D = 4 run's own state
+    held in memory."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import Comm
+    from repro_torch.launch.train import data_shards, train
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, restore_sharded
+    cfg = get_smoke("llama3_8b")
+    kw = dict(seq=64, batch=8, lr=1e-3, device="cpu", log=lambda *a: None)
+    first = train(cfg, steps=2, ckpt=os.path.join(ckpt, "d4"), ckpt_every=2,
+                  batches=iter(batches), data=comm, **kw)
+    whole = _gather_moments(first["opt"], first["model"],
+                           AdamWConfig(**DP_OPT),
+                           data_shards(cfg, first["model"], comm), comm)
+    saved = {"params": _np_dict(dict(first["model"].named_parameters())),
+             "m": _np_dict(whole.m), "v": _np_dict(whole.v), "step": 2}
+    ocfg = AdamWConfig(lr=1e-3, warmup=1, total_steps=4)
+    group = dist.new_group([0, 1])               # every rank calls it
+    pair = Comm(group=group, device="cpu") if comm.rank < 2 else None
+    out = {"saved": saved}
+    for d, sub in ((1, None), (2, pair)):
+        if comm.rank >= d:
+            continue
+        dst = os.path.join(ckpt, f"d{d}")
+        if comm.rank == 0:
+            shutil.copytree(os.path.join(ckpt, "d4"), dst)
+        res = {}
+        if sub is not None:
+            sub.barrier()
+            # the moments as this rank of 2 restores them
+            model = init_model(cfg, seed=None, device="cpu")
+            _, opt = restore_sharded(dst, model, ocfg,
+                                     data_shards(cfg, model, sub), sub.rank)
+            res["restored_m"] = _np_dict(opt.m)
+            res["shards"] = {n: (s.dim, s.start, s.size, s.owner) for n, s in
+                             data_shards(cfg, model, sub).items()}
+        resumed = train(cfg, steps=4, ckpt=dst, ckpt_every=100,
+                        batches=iter(batches), data=sub, **kw)
+        params, used = _continue(cfg, ocfg, saved, batches, sub)
+        res.update(start=resumed["start"],
+                   params=_np_dict(dict(resumed["model"].named_parameters())),
+                   memory_params=params, memory_grads=used)
+        out[d] = res
+    comm.barrier()
+    return out
+
+
+def dp_world(comm, cases, elastic_batches, ckpt):
+    """The data-parallel training cases (``(arch, overrides, global
+    batches, weights)`` each) and the elastic checkpoint (llama SMOKE)."""
+    out = {arch: _dp_case(comm, arch, overrides, batches, weights)
+           for arch, overrides, batches, weights in cases}
+    out["elastic"] = _elastic(comm, elastic_batches, ckpt)
+    return out

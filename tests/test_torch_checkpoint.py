@@ -125,8 +125,8 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert again["opt"].step == 6 and latest_step(ck) == 6
     text = capsys.readouterr().out
     assert "resumed from step 4" in text and "step    5 loss=" in text
-    with pytest.raises(ValueError, match="multi-rank training"):
-        launch.main(argv + ["--mesh", "2x1"])
+    with pytest.raises(ValueError, match="item 10"):
+        launch.main(argv + ["--mesh", "2x2"])
 
 
 def test_resume_continues_like_an_unbroken_run(tmp_path):

@@ -1179,8 +1179,12 @@ def _sharded_serve_rank(comm, cfg, weights, spec_kw, n_requests):
     launches = ops.launch_counts()
     forced = []
     for migrate in (False, True):
+        # a packed session's forced pair admits with the full prefill; the
+        # encoder-decoder keeps its cheap one
+        prefill = "full" if spec_kw["prefill"] == "packed" \
+            else spec_kw["prefill"]
         s = ServeSession(model, cfg, ServeSpec(**dict(
-            spec_kw, prefill="full", rebalance_every=1000)), comm=comm)
+            spec_kw, prefill=prefill, rebalance_every=1000)), comm=comm)
         r = Request(rid=0, prompt=trace[0].prompt, max_new=10)
         s.submit(r)
         for i in range(14):
@@ -1219,6 +1223,38 @@ def test_sharded_serving_on_card_matches_cpu_ranks(cuda, tmp_path):
         (ref, _, _), (moved, group, migrations) = card[rank][3]
         assert moved == ref == cpu[rank][3][0][0]
         assert group == 2 and migrations == 1
+    assert sum(e["n_moved"] for e in card[0][1]) >= 1
+
+
+@pytest.mark.parametrize("arch,prefill", [("whisper_medium", "cheap"),
+                                          ("qwen2_vl_72b", "full")])
+def test_sharded_encdec_and_vlm_on_card_match_cpu_ranks(cuda, tmp_path, arch,
+                                                        prefill):
+    """Smoke size in float32, the encoder-decoder (cheap prefill; the
+    migrator ships cross K/V) and the VLM (full prefill): the card's ranks
+    give the CPU ranks' tokens and migration log, every rank the same,
+    with the flash kernel launched on the card and KV migrated; a forced
+    migration leaves the tokens bit for bit."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import run_world
+    from repro_torch.models import init_model
+    cfg = get_smoke(arch).replace(use_pallas=True)
+    weights = {k: v.numpy() for k, v in
+               init_model(cfg, seed=0, device="cpu").state_dict().items()}
+    spec = dict(SHARDED_SERVE, prefill=prefill)
+    runs = {}
+    for name, devices in (("card", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        runs[name] = run_world(_sharded_serve_rank, 4, cfg, weights, spec,
+                               16, init_file=str(tmp_path / f"rdv-{name}"),
+                               devices=devices, timeout_s=120.0, join_s=300.0)
+    card, cpu = runs["card"], runs["cpu"]
+    for rank in range(4):
+        assert card[rank][0] == card[0][0] == cpu[rank][0]
+        assert card[rank][1] == card[0][1] == cpu[rank][1]
+        (ref, _, _), (moved, group, migrations) = card[rank][3]
+        assert moved == ref == cpu[rank][3][0][0]
+        assert group == 2 and migrations == 1
+    assert sum(c[2]["flash_attention"] for c in card) > 0
     assert sum(e["n_moved"] for e in card[0][1]) >= 1
 
 
@@ -1319,3 +1355,12 @@ def test_balanced_pack_on_card_equals_cpu(cuda, method):
     for a, b in zip(card, cpu):
         assert np.array_equal(a["tokens"], b["tokens"])
         assert np.array_equal(a["labels"], b["labels"])
+
+
+def test_data_parallel_training_on_card_matches_one_rank(cuda):
+    """Four ranks on the card train llama SMOKE in float32 (one quarter of
+    each global batch a rank, the gradients summed, the moments sharded)
+    like one rank on the card taking the whole batch, and the ZeRO update
+    equals one rank's bit for bit given the same gradients
+    (``chip_smoke.train_dp_smoke``, phase 23 SMOKE)."""
+    _chip_smoke().train_dp_smoke(cuda)

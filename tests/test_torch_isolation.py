@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.fem, "
             "repro_torch.kernels, repro_torch.interop, repro_torch.telemetry, "
             "repro_torch.configs, repro_torch.data, repro_torch.models, "
-            "repro_torch.serve, repro_torch.train, repro_torch.launch.train; "
+            "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.distributed.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -129,6 +130,29 @@ def test_training_stands_alone_and_defaults_to_cuda(tmp_path):
     out = train(cfg, steps=1, batch=2, seq=64, ckpt=str(tmp_path / "ck"),
                 device="cpu", log=lambda *a: None)
     assert out["model"].ln_f.device.type == "cpu"
+
+
+def test_data_parallel_training_stands_alone_and_defaults_to_cuda(tmp_path):
+    """The sharding rules and the mesh are among the files checked above;
+    ``--mesh Dx1`` trains D ranks on the card unless asked for the CPU,
+    and a model axis wider than 1 names ROADMAP's item 10."""
+    from repro_torch.launch import train as launch
+    assert {"sharding.py", "mesh.py"} <= {p.name for p in PORT_FILES}
+    argv = ["--arch", "llama3_8b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "64", "--ckpt", str(tmp_path / "ck")]
+    with pytest.raises(ValueError, match="item 10"):
+        launch.main(argv + ["--mesh", "2x2", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch.main(argv + ["--mesh", "2x1"])
+    ranks = launch.main(argv + ["--mesh", "2x1", "--device", "cpu"])
+    keys = ("step", "loss", "gnorm", "lr", "reduce_bytes", "gather_bytes")
+    assert len(ranks) == 2
+    assert [[{k: r[k] for k in keys} for r in h] for h in ranks[1:]] == [
+        [{k: r[k] for k in keys} for r in ranks[0]]]
+    assert [r["step"] for r in ranks[0]] == [0, 1]
+    assert all(r["reduce_bytes"] > 0 and r["gather_bytes"] > 0
+               for r in ranks[0])
 
 
 def test_sharded_session_names_the_roadmap_item():

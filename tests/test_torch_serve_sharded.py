@@ -90,49 +90,76 @@ RECURRENT = ("mamba2_1_3b", "recurrentgemma_2b")
 RECURRENT_MOVES = [(1, 6), (6, 2), (4, 0), (7, 5)]
 
 
-@pytest.fixture(scope="module")
-def recurrent():
+# the encoder-decoder and the VLM, served sharded like the recurrent ones
+FAMILIES = ("whisper_medium", "qwen2_vl_72b")
+
+
+def _family_cases(archs, seed):
     """Per architecture: the JAX SMOKE params and config, the port
     weights, the prompts, a random global state of 8 slots (its leaves)
-    for the migrator."""
+    for the migrator, shaped like the family's serving state (the
+    encoder-decoder's dry-run state: it has no empty one)."""
     out = {}
-    for i, arch in enumerate(RECURRENT):
+    for i, arch in enumerate(archs):
         jcfg = jconfigs.get_smoke(arch)
         params = j_init_model(jcfg, jax.random.PRNGKey(0))
         model = params_from_jax(params, configs.get_smoke(arch),
                                 device="cpu")
         weights = {k: v.numpy() for k, v in model.state_dict().items()}
-        rng = np.random.default_rng(30 + i)
-        template = JD.init_serve_state(jcfg, 8, 64)
+        rng = np.random.default_rng(seed + i)
+        init = (JD.init_decode_state if jcfg.family == "encdec"
+                else JD.init_serve_state)
+        template = init(jcfg, 8, 64)
         arrays = [rng.integers(-1, 64, x.shape).astype(np.int32)
                   if x.dtype == jnp.int32 else
                   rng.standard_normal(x.shape).astype(np.float32)
                   for x in jax.tree.leaves(template)]
         out[arch] = dict(jcfg=jcfg, params=params, weights=weights,
-                         prompts=W.recurrent_prompts(jcfg.vocab, 40 + i),
+                         prompts=W.recurrent_prompts(jcfg.vocab,
+                                                     seed + 10 + i),
                          arrays=arrays, template=template)
     return out
 
 
-def _port_worlds(cfg, weights, moe_case, recurrent, tmp_path_factory):
+@pytest.fixture(scope="module")
+def recurrent():
+    return _family_cases(RECURRENT, 30)
+
+
+@pytest.fixture(scope="module")
+def families():
+    return _family_cases(FAMILIES, 60)
+
+
+def _port_worlds(cfg, weights, moe_case, recurrent, families,
+                 tmp_path_factory):
     """{groups: [rank 0's results, rank 1's, ...]} from one world each."""
     prompts = _prompts(cfg.vocab)
-    rec = [(arch, r["weights"], r["prompts"], r["arrays"], RECURRENT_MOVES)
-           for arch, r in recurrent.items()]
+
+    def case(r, *arch):
+        return (*arch, r["weights"], r["prompts"], r["arrays"],
+                RECURRENT_MOVES)
+
+    rec = [case(r, arch) for arch, r in recurrent.items()]
+    fam = {a: case(families[a]) for a in FAMILIES}
     return {p: W.world(W.serve_world, cfg, weights, prompts,
                        _migration_case(cfg) if p == 4 else None,
                        moe_case[:3] if p == 4 else None,
                        rec if p == 4 else (),
+                       fam["whisper_medium"] if p == 4 else None,
+                       fam["qwen2_vl_72b"] if p == 4 else None,
                        tmp_path=tmp_path_factory.mktemp(f"serve{p}"), p=p)
             for p in (4, 2)}
 
 
-def _j_recurrent(r):
-    """The JAX package's recurrent scenarios and migrator on 4 groups."""
+def _j_recurrent(r, arch=None):
+    """The JAX package's scenarios and migrator of a recurrent, encdec or
+    VLM case on 4 groups, under the case's spec."""
     jcfg, params = r["jcfg"], r["params"]
+    base = W.FAMILY_SPEC.get(arch, W.RECURRENT_SPEC)
 
     def make(**kw):
-        return JSession(params, jcfg, JSpec(**{**W.RECURRENT_SPEC, **kw}))
+        return JSession(params, jcfg, JSpec(**{**base, **kw}))
 
     state = jax.tree.unflatten(jax.tree.structure(r["template"]),
                                [jnp.asarray(a) for a in r["arrays"]])
@@ -144,7 +171,7 @@ def _j_recurrent(r):
 
 
 @pytest.fixture(scope="module")
-def runs(tiny, moe_case, recurrent, tmp_path_factory):
+def runs(tiny, moe_case, recurrent, families, tmp_path_factory):
     """The port's worlds (in a thread: the ranks are processes) while the
     JAX package runs the same scenarios here."""
     jcfg, cfg, params, _, weights = tiny
@@ -155,11 +182,13 @@ def runs(tiny, moe_case, recurrent, tmp_path_factory):
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         worlds = pool.submit(_port_worlds, cfg, weights, moe_case, recurrent,
-                             tmp_path_factory)
+                             families, tmp_path_factory)
         reference = {p: W.serve_scenarios(make, JRequest, prompts, p)
                      for p in (4, 2)}
         reference["recurrent"] = {arch: _j_recurrent(r)
                                   for arch, r in recurrent.items()}
+        reference["families"] = {arch: _j_recurrent(r, arch)
+                                 for arch, r in families.items()}
         return worlds.result(), reference
 
 
@@ -378,3 +407,63 @@ def test_recurrent_slot_migrator_matches_reference(port, reference,
     whole, chunked = ranks[0]["whole"], ranks[0]["chunked"]
     assert chunked["wire_bytes"] - whole["wire_bytes"] == (
         8 * 8 * (n_layers - 1))
+
+
+# --- the encoder-decoder and the VLM -------------------------------------------
+
+_FAMILY_KEY = {"whisper_medium": "encdec", "qwen2_vl_72b": "vlm"}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("name", ["migration_parity", "kv_rebalance"])
+def test_family_sharded_session_matches_reference(port, reference, arch,
+                                                  name):
+    """whisper (cheap prefill, zero cross K/V) and qwen2-vl (full
+    prefill) with sharded decode and KV rebalancing: tokens, groups,
+    slots, the migration log and prefill_stats equal the JAX sharded
+    session's on every rank."""
+    want = _plain(reference["families"][arch]["scenarios"][name])
+    for rank, res in enumerate(port[4]):
+        assert _plain(res[_FAMILY_KEY[arch]]["scenarios"][name]) == want, \
+            rank
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forced_migration_changes_no_token(port, arch):
+    res = port[4][0][_FAMILY_KEY[arch]]["scenarios"]
+    ref, mig = res["migration_parity"]["ref"], res["migration_parity"]["mig"]
+    assert ref["done"] == mig["done"] == [True]
+    assert mig["migrations"] == [1] and mig["group"] == [2]
+    assert ref["out"] == mig["out"]
+    assert mig["stats"]["moved_kv_bytes"] == mig["kv_slot_bytes"]
+    assert mig["stats"]["moved_bytes"] == mig["kv_slot_bytes"]
+    kv = res["kv_rebalance"]
+    assert all(kv["done"]) and sum(kv["migrations"]) >= 1
+    assert sum(e["moved_kv_bytes"] for e in kv["log"]) == (
+        sum(kv["migrations"]) * kv["kv_slot_bytes"])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_slot_migrator_matches_reference(port, reference, families,
+                                                arch):
+    """The VLM's KV cache and the encoder-decoder's self-attention cache,
+    ``cross_k`` / ``cross_v`` (slot axis 1) and positions, shipped whole
+    and one layer a chunk: the ranks' rows in rank order equal the JAX
+    migrator's global state, with the same stats."""
+    from repro_torch.serve import slot_axes
+    from repro_torch.serve.slots import _leaves
+    cfg = configs.get_smoke(arch)
+    want, jstats, jbytes = reference["families"][arch]["migration"]
+    axes = _leaves(slot_axes(cfg))
+    if cfg.family == "encdec":
+        assert axes == [1, 1, 0, 0, 1, 1, 0]
+    ranks = [r[_FAMILY_KEY[arch]]["migration"] for r in port[4]]
+    for name in ("whole", "chunked"):
+        got = [np.concatenate([r[name]["state"][i] for r in ranks], axis=ax)
+               for i, ax in enumerate(axes)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for r in ranks:
+            assert r[name]["stats"] == jstats
+    assert jstats["moved_bytes"] == len(RECURRENT_MOVES) * jbytes
