@@ -124,12 +124,13 @@ CUDA toolkit's nvcc.  It
     (128 x 1,500 and 1 x 1,500) shapes against its plain version with
     SDPA's time beside it; the SMOKE config's batch API and cheap
     session, card against CPU; then (20b) phase 13's machinery at
-    whisper's full width and depth with the cheap prefill and its
-    decoder context of 448: 4 ranks, tokens against a replicated cheap
-    run up to a near-tie or a step that follows a seating in row 0 (the
-    reference's decode takes row 0's position, and a group's row 0 is
-    not the global one), a forced migration of the self-attention cache
-    and the cross K/V against the unmoved run bit for bit;
+    whisper's full width (depth cut to WHISPER_SHARDED_DEPTH encoder and
+    decoder layers) with the cheap prefill and its decoder context of
+    448: 4 ranks, held against the same sharded run on the plain route
+    (the reference's decode takes row 0's position, and a group's row 0
+    is not the global one), logits at every step up to a request's first
+    differing token, a forced migration of the self-attention cache and
+    the cross K/V against the unmoved run bit for bit;
 21. serves qwen2-vl-72b at full width (depth cut) with full prefill over
     phase 6's trace (packed refused with the "mrope" message; every flash
     launch bf16 at 64 / 8 heads), then the VLM front end: 4 rows of 256
@@ -164,9 +165,21 @@ CUDA toolkit's nvcc.  It
     bit for bit after each step; each rank's step split and bytes on the
     wire; then the SMOKE config in float32, 4 ranks on the card against
     one, with the ZeRO update bit for bit against one rank's;
-24. prints the kernel table as one JSON line (with each rank's launches
+24. trains on a model axis, with phase 23's oracle and checks (the
+    gradients gathered into the one-rank layout; replicated leaves equal
+    on every rank, each slice on every rank of its model index): 24a
+    llama3-8b at full width (depth TRAIN_TP_DEPTH) on a 2x2 mesh -- heads,
+    MLP width and vocab halved over the model groups, the moments ZeRO'd
+    over the data groups -- and 24b phi3.5-moe at full width (depth
+    TRAIN_EP_DEPTH) on a 1x4 mesh, 4 experts a rank, with each layer's
+    routed items a rank; each rank's step split with the model group's
+    all-reduces and its bytes to each group; then the SMOKE configs in
+    float32 on meshes of the card's ranks (llama 2x2 with ``tp_shardmap``
+    False and True, phi3.5-moe 1x4, qwen2-vl and whisper 1x2) against one
+    rank on the card;
+25. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-23 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    14-24 in ``launches_by_path``, the flash kernel's d = 256 reading as
     ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
     and ``at_cross_decode``, and qwen2-vl's as ``at_qwen2_vl``), the
     card's name and power limit, and ``{"ok": true, ...}`` as the last
@@ -2433,9 +2446,12 @@ def sharded_serving(serve, spec_kw=SHARDED_SERVE_SPEC,
 
 # depth kept on one 80 GB card (published widths; every other field as
 # published): the deepest that leaves >= 10 GB free with the float32 head,
-# the KV cache of SERVE_SPEC and the packed prefill's activations
-DEPTH = {"command_r_plus_104b": 14, "phi35_moe_42b": 24, "grok_1_314b": 6,
-         "qwen2_vl_72b": 33}
+# the KV cache of SERVE_SPEC and the packed prefill's activations (14, 24,
+# 6 and 33 layers), then halved or more where the script's time limit
+# needs it (every layer's work is the same: the depth changes no path the
+# phases check)
+DEPTH = {"command_r_plus_104b": 7, "phi35_moe_42b": 8, "grok_1_314b": 6,
+         "qwen2_vl_72b": 16}
 # phase 14: sliding window 4096 over a ring of S = 4096 positions; every
 # prompt passes the window, so every decode reads a wrapped ring
 SWA_SPEC = dict(slots=8, groups=4, max_seq=8192, prefill="full",
@@ -2819,9 +2835,10 @@ FULL_SHARDED_SPEC = dict(SERVE_SPEC, prefill="full", decode="sharded",
                          rebalance="kv")
 # the depth of the model phase 18b shards (of mamba2's 48 layers): each of
 # its migrations ships every rank's slot rows through the host, and a
-# mamba2 row grows with the depth (101,916,676 B at 48 layers); 12 layers
-# keep every path the phase checks and cut its time by three quarters
-MAMBA_SHARDED_DEPTH = 12
+# mamba2 row grows with the depth (101,916,676 B at 48 layers); 3 layers
+# keep every path the phase checks and cut its time (the script's time
+# limit)
+MAMBA_SHARDED_DEPTH = 3
 # phase 19's flash reading: recurrentgemma's local attention at the longest
 # prompt of swa_trace (10 query heads over 1 kv head, d = 256, window 2048)
 HYBRID_FLASH_S = 6144
@@ -3251,30 +3268,44 @@ def serve_qwen2_vl(dev):
 # then 191.5 MB, 147.5 of them cross K/V), and it rebalances every 16
 # steps: each migration's fixed-capacity exchange ships every row of every
 # rank through the host, ~10 s at 2,048 positions (an H100 80GB HBM3 at
-# 700 W, 4 gloo ranks sharing it)
+# 700 W, 4 gloo ranks sharing it); the depth of the model 20b shards (of
+# whisper's 24 + 24 layers), which a slot row grows with: 4 + 4 keep every
+# path the phase checks and cut its migrations to a sixth (the script's
+# time limit)
 WHISPER_MAX_SEQ = 448
+WHISPER_SHARDED_DEPTH = 4
 WHISPER_SHARDED_SPEC = dict(SERVE_SPEC, max_seq=WHISPER_MAX_SEQ,
                             rebalance_every=16, prefill="cheap",
                             decode="sharded", rebalance="kv")
 # qwen2-vl's depth for 21b: one bf16 copy of the weights is shared by the
 # ranks, but each rank casts its own float32 head (4.98 GB) and keeps its
-# slots; 8 layers keep the phase's trace, migrations and forced pair to
-# about a minute (every layer's work is the same: the depth changes no
-# path the phase checks)
-VLM_SHARDED_DEPTH = 8
+# slots; 2 layers keep the phase's trace, migrations and forced pair to
+# about half a minute (every layer's work is the same: the depth changes
+# no path the phase checks)
+VLM_SHARDED_DEPTH = 2
 
 
 def serve_whisper_sharded(whisper, dev):
-    """Phase 20b: phase 20's whisper-medium model at full width and depth,
-    phase 13's machinery with WHISPER_SHARDED_SPEC over SHARDED_P ranks
-    over phase 6's trace, held against the same sharded run on the plain
-    route.  Whisper's decode adds the sinusoid of row 0's position to
-    every row (the reference's rule), and row 0 is the group's own in a
-    sharded session, the global one in a replicated session: only a
-    sharded run takes the same inputs at every step."""
-    drop_head_copy(whisper["model"])
-    return sharded_serving(whisper, WHISPER_SHARDED_SPEC, "the same sharded "
-                           "run on the plain route", plain=True)
+    """Phase 20b: whisper-medium at full width, WHISPER_SHARDED_DEPTH
+    encoder and decoder layers, phase 13's machinery with
+    WHISPER_SHARDED_SPEC over SHARDED_P ranks over phase 6's trace
+    (phase 20's), held against the same sharded run on the plain route.
+    Whisper's decode adds the sinusoid of row 0's position to every row
+    (the reference's rule), and row 0 is the group's own in a sharded
+    session, the global one in a replicated session: only a sharded run
+    takes the same inputs at every step."""
+    from repro_torch.models import init_model
+    free_memory()
+    cfg = whisper["cfg"].replace(n_layers=WHISPER_SHARDED_DEPTH,
+                                 enc_layers=WHISPER_SHARDED_DEPTH)
+    model = init_model(cfg, seed=0, device=dev)
+    served = sharded_serving(dict(cfg=cfg, model=model,
+                                  trace=whisper["trace"]),
+                             WHISPER_SHARDED_SPEC, "the same sharded run on "
+                             "the plain route", plain=True)
+    del model
+    free_memory()
+    return served
 
 
 def drop_head_copy(model):
@@ -3329,7 +3360,8 @@ def serve_sharded_at_depth(arch, depth, dev):
 # >= 10 GB free with bf16 parameters and gradients, float32 AdamW moments,
 # the update's float32 temporaries (slices of optimizer.UPDATE_CHUNK), the
 # remat-saved layer inputs, one layer's recompute and the loss's logits
-TRAIN_DEPTH = 20
+# is 20; half of it keeps the script inside its time limit
+TRAIN_DEPTH = 10
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_STREAM, TRAIN_REPEAT = 5, 5    # steps on the stream, then one batch
 TRAIN_LR = 1e-4
@@ -3831,14 +3863,16 @@ def train_card_vs_cpu(dev):
 # margin: on an 80 GB H100 (700 W), 6 layers left 11.5 GB with phases 20
 # and 23 run alone but 10.36 GB in the whole script (this process holds
 # more by then), a margin one run's variation may cross; 5 left 16.7 GB
-# alone.  The one-rank oracle runs after the data-parallel run.  The
-# SMOKE variant runs 4 layers, whose moments split by layer.
-TRAIN_DP_DEPTH = 5
+# alone.  3 layers and 2 steps since the model axis's phases joined the
+# script (its time limit).  The one-rank oracle runs after the
+# data-parallel run.  The SMOKE variant runs 4 layers, whose moments split
+# by layer.
+TRAIN_DP_DEPTH = 3
 SMOKE_DP_LAYERS = 4
 # the ranks' allocator maps memory as it grows rather than in fixed
 # segments, so four processes on one card do not strand reserved blocks
 RANK_ALLOC_CONF = "expandable_segments:True"
-TRAIN_DP_STEPS = 3
+TRAIN_DP_STEPS = 2
 TRAIN_DP_LOSS_TOL = 1e-3            # step 0's global loss, absolute
 TRAIN_DP_GRAD_TOL = 2.0 ** -5       # a summed bf16 leaf, of its max |g|
 # the SMOKE variant, float32 (23 SMOKE)
@@ -3910,69 +3944,135 @@ def step_excess(got, want, lr):
     return worst
 
 
-def train_dp_rank(comm, cfg):
-    """One rank of phase 23: ``launch.train.train`` with ``data=comm`` on
-    its row of each global batch of TRAIN_BATCH x TRAIN_SEQ tokens packed
-    on the card (every rank packs the same batch), TRAIN_DP_STEPS steps;
-    each step's parameter digests (and step 0's summed gradients') go back
-    for the rank-against-rank check, and each prefix_scan input is held
-    against the plain version.  Rank 0 keeps step 0's summed gradients and
-    the parameters after it in host memory; once every rank has freed its
-    state, it runs the oracle -- one rank taking the whole batch at the
-    same depth, the card to itself -- and holds them against the
-    oracle's."""
+def train_dp_rank(comm, cfg, d, m, steps, routing=False):
+    """One rank of phases 23 and 24a-b: ``launch.train.train`` on a (d, m)
+    mesh (``data=`` and ``model=`` from ``make_mesh``; this rank's slices
+    of the leaves the rules put on "model") on its data index's rows of
+    each global batch of TRAIN_BATCH x TRAIN_SEQ tokens packed on the card
+    (every rank packs the same batch), ``steps`` steps; each step's
+    parameter digests (and step 0's summed gradients') go back for the
+    rank-against-rank checks, and each prefix_scan input is held against
+    the plain version.  The model group of data index 0 gathers step 0's
+    summed gradients and the parameters after it into the one-rank
+    layout, leaf by leaf, and rank 0 keeps them in host memory; once
+    every rank has freed its state, rank 0 runs the oracle -- one rank
+    taking the whole batch at the same depth, the card to itself -- and
+    holds them against the oracle's.  ``routing`` (a mesh of one data
+    index): rank 0 also records the MoE routing of step 0's forward --
+    each layer's experts, which the oracle's step 0 then takes, and each
+    model rank's share of the routed items (``moe.dispatch_quality``
+    over the ranks' blocks of experts)."""
     import torch
+    from repro_torch.distributed.sharding import model_slices, unslice
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, train_rules
     from repro_torch.launch.train import train
+    from repro_torch.models import moe as moe_mod
+    if routing and d != 1:
+        raise ValueError("the oracle takes rank 0's routing: one data index")
     dev = torch.device(comm.device)
     torch.cuda.reset_peak_memory_stats(dev)
-    res = {"digests": [], "free": []}
-    kept = {}
+    mesh = make_mesh(comm, d, m)
+    slices = ({} if mesh.model is None else
+              model_slices(cfg, train_rules(cfg, m), m, mesh.model.rank))
+    gathers = mesh.data is None or mesh.data.rank == 0
+    res = {"digests": [], "free": [], "shares": [],
+           "sliced": sorted(n for n, sl in slices.items() if sl is not None)}
+    kept = {"grads": {}, "params": {}}
 
     def on_step(step, model, grads, metr):
         if step == 0:
+            res["names"] = list(grads)
             res["grad_digests"] = digest(grads.values())
-            if comm.rank == 0:
-                kept["grads"] = {n: g.cpu() for n, g in grads.items()}
-                kept["params"] = {n: p.detach().cpu()
-                                  for n, p in model.named_parameters()}
+            params = dict(model.named_parameters())
+            for n in res["names"] if gathers else ():
+                g = unslice(grads[n], slices.get(n), mesh.model)
+                p = unslice(params[n].detach(), slices.get(n), mesh.model)
+                if comm.rank == 0:
+                    kept["grads"][n] = g.to("cpu", copy=True)
+                    kept["params"][n] = p.to("cpu", copy=True)
+                del g, p
             comm.barrier()      # rank 0's copies stay out of the timed spans
         res["digests"].append(digest(model.parameters()))
         res["free"].append(torch.cuda.mem_get_info(dev)[0])
 
+    route = moe_mod._route
+
+    def recorded_route(*args, **kw):
+        gate, idx, aux = route(*args, **kw)
+        if (routing and comm.rank == 0 and not res["digests"]
+                and len(res["shares"]) < cfg.n_layers):
+            q = moe_mod.dispatch_quality(idx // (cfg.n_experts // m), m)
+            res["shares"].append((q.part_weights.tolist(),
+                                  float(q.imbalance)))
+            kept.setdefault("routes", []).append(idx.to("cpu", copy=True))
+        return gate, idx, aux
+
     ops.reset_launch_counts()
-    with recorded_calls(ops, "exclusive_scan_op",
-                        lambda x, **kw: x.detach().clone()) as scans:
-        out = train(cfg, steps=TRAIN_DP_STEPS, batch=TRAIN_BATCH,
-                    seq=TRAIN_SEQ, lr=TRAIN_LR, ckpt=None, device=dev,
-                    data=comm, on_step=on_step,
-                    log=log if comm.rank == 0 else (lambda *a: None))
+    moe_mod._route = recorded_route
+    try:
+        with recorded_calls(ops, "exclusive_scan_op",
+                            lambda x, **kw: x.detach().clone()) as scans:
+            out = train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        lr=TRAIN_LR, ckpt=None, device=dev, data=mesh.data,
+                        model=mesh.model, on_step=on_step,
+                        log=log if comm.rank == 0 else (lambda *a: None))
+    finally:
+        moe_mod._route = route
     counts = ops.launch_counts()
     res.update(history=out["history"], launches=counts,
                peak=torch.cuda.max_memory_allocated(dev),
                local_moments=sum(t.numel() for t in out["opt"].m.values()),
-               n_params=sum(p.numel() for p in out["model"].parameters()))
+               local_params=sum(p.numel() for p in out["model"].parameters()))
     del out
     check_scan_agreement(scans, counts["prefix_scan"],
-                         f"phase 23, rank {comm.rank}")
+                         f"{d}x{m} mesh, rank {comm.rank}")
     del scans
     gc.collect()
     torch.cuda.empty_cache()
     comm.barrier()              # every rank's state is freed
     if comm.rank == 0:
-        res["oracle"] = train_dp_oracle(cfg, dev, kept)
+        res["oracle"] = train_dp_oracle(cfg, dev, kept, steps)
     return res
 
 
-def train_dp_oracle(cfg, dev, kept):
-    """Phase 23's oracle: one rank taking the whole batch at ``cfg``'s
-    depth, TRAIN_DP_STEPS steps; its step-0 gradients and the parameters
-    after step 0 against ``kept`` (the data-parallel run's, in host
-    memory), leaf by leaf on the card."""
+def train_dp_oracle(cfg, dev, kept, steps):
+    """The oracle of phases 23 and 24a-b: one rank taking the whole batch
+    at ``cfg``'s depth, ``steps`` steps; its step-0 gradients and the
+    parameters after step 0 against ``kept`` (the mesh's, in the one-rank
+    layout in host memory), leaf by leaf on the card.  With the mesh's
+    MoE routing of step 0 in ``kept["routes"]`` (a layer each), step 0
+    routes each token to the mesh's experts (``moe._route(...,
+    expert_idx=)``): in bf16 the mesh's row-parallel sums round a hidden
+    state apart from one rank's here and there, and at a near-tie of two
+    router probabilities that sends a token to another expert (and can
+    move the capacity cut), which changes those experts' gradients by
+    far more than the arithmetic does.  ``out["flips"]`` counts, a
+    layer, the tokens whose own top k differ from the mesh's, with the
+    largest gap between their k-th and (k+1)-th probabilities."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
-    out = {}
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import matmul_f32
+    out = {"flips": []}
+    routes, route, layer_of = kept.pop("routes", None), moe_mod._route, {}
+
+    def mesh_routing(moe, x, cfg_, data=None):
+        if "grad_err" in out:           # after step 0: its own routing
+            return route(moe, x, cfg_, data)
+        li = layer_of.setdefault(id(moe), len(layer_of))
+        want = routes[li].to(x.device)
+        if len(out["flips"]) < len(routes):       # the forward, not remat
+            with torch.no_grad():
+                own = route(moe, x, cfg_, data)[1]
+                flip = (own.sort(-1)[0] != want.sort(-1)[0]).any(-1)
+                probs = torch.softmax(matmul_f32(x.float(), moe.router), -1)
+                top = probs.sort(-1, descending=True)[0]
+                gap = (top[..., cfg_.top_k - 1] - top[..., cfg_.top_k])[flip]
+            out["flips"].append((int(flip.sum()), int(flip.numel()),
+                                 float(gap.max()) if gap.numel() else 0.0))
+        return route(moe, x, cfg_, data, expert_idx=want)
 
     def compare(step, model, grads, metr):
         if step != 0:
@@ -3986,54 +4086,71 @@ def train_dp_oracle(cfg, dev, kept):
 
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
+    if routes:
+        moe_mod._route = mesh_routing
     t0 = time.perf_counter()
-    one = train(cfg, steps=TRAIN_DP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                lr=TRAIN_LR, ckpt=None, device=dev, on_step=compare,
-                log=lambda *a: None)
+    try:
+        one = train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, ckpt=None, device=dev, on_step=compare,
+                    log=lambda *a: None)
+    finally:
+        moe_mod._route = route
     out.update(wall=time.perf_counter() - t0, history=one["history"],
                peak=torch.cuda.max_memory_allocated(dev),
                launches=ops.launch_counts())
     return out
 
 
-def train_data_parallel(dev):
-    """Phase 23: llama3-8b at full width, TRAIN_DP_DEPTH layers, bf16,
-    remat, data-parallel over SHARDED_P ranks on the card: a global batch
-    of TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic corpus, one row a
-    rank, TRAIN_DP_STEPS steps; then, in rank 0 with the card to itself,
-    the oracle: one rank taking the whole batch at the same depth
-    (``train_dp_oracle``).  Checks: step 0's loss within
-    TRAIN_DP_LOSS_TOL, each summed gradient leaf within TRAIN_DP_GRAD_TOL
-    of its max |g|, the parameters after step 0 within 2 lr plus one bf16
-    ulp, every rank's summed gradients and parameters equal bit for bit
-    after each step, >= 10 GB of the card free.  Prints each rank's step
-    split (packing, forward + backward, all-reduce, update, all-gather),
-    its bytes on the wire and its peak memory."""
+#: a step's split, in the history's names (model: the model group's
+#: all-reduces, within grad and update; gather within update)
+STEP_KEYS = ("t_pack", "t_grad", "t_model", "t_reduce", "t_update",
+             "t_gather")
+BYTE_KEYS = ("model_bytes", "reduce_bytes", "gather_bytes")
+
+
+def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False):
+    """Phases 23 and 24a-b: ``arch`` at full width, ``depth`` layers,
+    bf16, remat, on a (d, m) mesh of SHARDED_P ranks on the card: a
+    global batch of TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic
+    corpus, each data index its rows, ``steps`` steps; then, in rank 0
+    with the card to itself, the oracle: one rank taking the whole batch
+    at the same depth (``train_dp_oracle``).  Checks: step 0's loss
+    within TRAIN_DP_LOSS_TOL, each summed gradient leaf (in the one-rank
+    layout) within TRAIN_DP_GRAD_TOL of its max |g|, the parameters
+    after step 0 within 2 lr plus one bf16 ulp; after each step the
+    replicated leaves equal bit for bit on every rank and each slice on
+    every rank of its model index (so are step 0's summed gradients);
+    >= 10 GB of the card free.  Prints each rank's step split (packing,
+    forward + backward, the model group's all-reduces, the data group's
+    all-reduce, update, all-gather), its bytes to each group and its
+    peak memory; with ``routing``, each layer's routed items a model rank
+    and their imbalance."""
     import statistics
     from repro_torch.configs import get_config
     free_memory()
-    full = get_config("llama3_8b")
-    cfg = full.replace(n_layers=TRAIN_DP_DEPTH)
+    full = get_config(arch)
+    cfg = full.replace(n_layers=depth)
     held = memory(dev)
-    log(f"phase 23: this process holds {held[0] / 1e9:.3f} GB; card free "
+    log(f"{label}: this process holds {held[0] / 1e9:.3f} GB; card free "
         f"{held[2] / 1e9:.3f} GB before the ranks start")
     t0 = time.perf_counter()
     with rank_env(PYTORCH_CUDA_ALLOC_CONF=RANK_ALLOC_CONF):
-        outs, backend = start_world(train_dp_rank, cfg, join_s=900.0)
+        outs, backend = start_world(train_dp_rank, cfg, d, m, steps, routing,
+                                    join_s=900.0)
     world_wall = time.perf_counter() - t0
     free_memory()
     r0 = outs[0]
     oracle = r0["oracle"]
     one_hist = oracle["history"]
-    n = r0["n_params"]
-    log(f"phase 23 oracle (rank 0, after the data-parallel run): one rank, "
-        f"the whole batch: {TRAIN_DP_STEPS} steps in {oracle['wall']:.2f} s,"
-        f" peak {oracle['peak'] / 1e9:.3f} GB, losses "
+    names, sliced = r0["names"], set(r0["sliced"])
+    log(f"{label} oracle (rank 0, after the mesh's run): one rank, the "
+        f"whole batch: {steps} steps in {oracle['wall']:.2f} s, peak "
+        f"{oracle['peak'] / 1e9:.3f} GB, losses "
         f"{[r['loss'] for r in one_hist]}; launches {oracle['launches']}")
     g_worst = max(oracle["grad_err"].items(), key=lambda kv: kv[1])
     p_worst = max(oracle["param_excess"].items(), key=lambda kv: kv[1])
-    check(len(oracle["grad_err"]) == len(oracle["param_excess"]) == len(
-        r0["digests"][0]), "phase 23: the oracle compared every leaf")
+    check(len(oracle["grad_err"]) == len(oracle["param_excess"])
+          == len(names), f"{label}: the oracle compared every leaf")
     check(g_worst[1] <= TRAIN_DP_GRAD_TOL,
           f"summed gradient {g_worst[0]} off by {g_worst[1]:.3e} of its max "
           f"|g| (limit {TRAIN_DP_GRAD_TOL})")
@@ -4042,47 +4159,62 @@ def train_data_parallel(dev):
     log(f"  worst summed gradient leaf {g_worst[0]} {g_worst[1]:.4e} of max "
         f"|g| (limit {TRAIN_DP_GRAD_TOL}); parameters after step 0 within "
         f"2 lr + 1 ulp (worst margin {p_worst[1]:.3e}, {p_worst[0]})")
+    check(m == 1 or len(sliced) > 0, f"{label}: no leaf sliced on the model "
+          "axis")
     for r, o in enumerate(outs):
-        check(o["digests"] == r0["digests"]
-              and o["grad_digests"] == r0["grad_digests"],
-              f"rank {r}: parameters or step 0's summed gradients differ "
-              "from rank 0's")
+        for k, n in enumerate(names):
+            twin = r % m if n in sliced else 0
+            check(all(a[k] == b[k] for a, b in zip(o["digests"],
+                                                   outs[twin]["digests"]))
+                  and o["grad_digests"][k] == outs[twin]["grad_digests"][k],
+                  f"rank {r}: {n} (or its step 0 gradient) differs from "
+                  f"rank {twin}'s")
         check([h["loss"] for h in o["history"]]
               == [h["loss"] for h in r0["history"]],
               f"rank {r}: losses differ from rank 0's")
-        check(o["launches"]["prefix_scan"] >= TRAIN_DP_STEPS,
+        check(o["launches"]["prefix_scan"] >= steps,
               f"rank {r}: prefix_scan launched {o['launches']['prefix_scan']}"
-              f" times for {TRAIN_DP_STEPS} packed batches")
+              f" times for {steps} packed batches")
         check(o["launches"]["flash_attention"] == 0
               and o["launches"]["serve_prefill"] == 0,
               f"rank {r}: an attention kernel ran on the training path")
-        log(f"  rank {r}: peak {o['peak'] / 1e9:.3f} GB; moments held "
-            f"{o['local_moments']} of {n} ({o['local_moments'] / n:.4f}); "
-            f"launches {o['launches']}")
+        log(f"  rank {r}: peak {o['peak'] / 1e9:.3f} GB; parameters held "
+            f"{o['local_params']}, moments {o['local_moments']}; launches "
+            f"{o['launches']}")
     loss0 = r0["history"][0]["loss"]
     check(abs(loss0 - one_hist[0]["loss"]) <= TRAIN_DP_LOSS_TOL,
           f"step 0 loss {loss0} against the oracle's {one_hist[0]['loss']}")
-    keys = ("t_pack", "t_grad", "t_reduce", "t_update", "t_gather")
+    keys = [k for k in STEP_KEYS if k in r0["history"][0]]
+    wire = [k for k in BYTE_KEYS if k in r0["history"][0]]
     for h in r0["history"]:
         log(f"  rank 0 step {h['step']}: loss {h['loss']:.6f} (oracle "
             f"{one_hist[h['step']]['loss']:.6f}) gnorm {h['gnorm']:.4f}; "
             + ", ".join(f"{k[2:]} {h[k]:.4f}" for k in keys)
-            + f" s (update includes the all-gather); bytes on the wire: "
-            f"all-reduce {h['reduce_bytes']}, all-gather {h['gather_bytes']}")
+            + " s; bytes handed over: "
+            + ", ".join(f"{k[:-6]} {h[k]}" for k in wire))
+    for li, (share, imb) in enumerate(r0["shares"]):
+        flips, tokens, gap = oracle["flips"][li]
+        log(f"  layer {li}: routed items a model rank {share}, imbalance "
+            f"{imb:.4f} (step 0); the oracle's own top {cfg.top_k} differ "
+            f"from the mesh's for {flips} of {tokens} tokens (largest "
+            f"k-th to next probability gap among them {gap:.3e}), and its "
+            "step 0 takes the mesh's")
+    check(len(oracle["flips"]) == len(r0["shares"]),
+          f"{label}: the oracle took the mesh's routing in every layer")
     steady = r0["history"][1:]
     med = {k: statistics.median(h[k] for h in steady) for k in keys}
-    t_step = med["t_pack"] + med["t_grad"] + med["t_reduce"] + med["t_update"]
+    t_step = sum(med.get(k, 0.0) for k in ("t_pack", "t_grad", "t_reduce",
+                                            "t_update"))
     one_step = statistics.median(h["t_pack"] + h["t_grad"] + h["t_update"]
                                  for h in one_hist[1:])
     min_free = min(f for o in outs for f in o["free"])
     check(min_free >= 10e9, f"the ranks left {min_free / 1e9:.3f} GB of the "
           "card free, under 10 GB")
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"phase 23: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
-        f"{n} parameters, {SHARDED_P} ranks over {backend} on one card, "
-        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}: world and oracle "
-        f"{world_wall:.2f} s;"
-        f" rank 0 steps 1-{TRAIN_DP_STEPS - 1} median "
+    log(f"{label}: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, "
+        f"{len(names)} leaves, mesh {d}x{m} of {SHARDED_P} ranks "
+        f"over {backend}, global batch {TRAIN_BATCH} x {TRAIN_SEQ}: world "
+        f"and oracle {world_wall:.2f} s; rank 0 steps 1-{steps - 1} median "
         + ", ".join(f"{k[2:]} {med[k]:.4f}" for k in keys)
         + f" s; step {t_step:.4f} s ({tokens / t_step:.1f} tokens/s; one rank"
         f" {one_step:.4f} s, {tokens / one_step:.1f} tokens/s); peak per "
@@ -4090,6 +4222,14 @@ def train_data_parallel(dev):
         f"least {min_free / 1e9:.3f} GB; losses {[h['loss'] for h in r0['history']]}")
     return dict(launches=[o["launches"] for o in outs], t_step=t_step,
                 one_step=one_step, min_free=min_free)
+
+
+def train_data_parallel(dev):
+    """Phase 23: llama3-8b at full width, TRAIN_DP_DEPTH layers,
+    data-parallel over SHARDED_P ranks (a (4, 1) mesh; ``train_on_mesh``),
+    TRAIN_DP_STEPS steps, the moments ZeRO'd over the ranks."""
+    return train_on_mesh(dev, "phase 23", "llama3_8b", TRAIN_DP_DEPTH,
+                         SHARDED_P, 1, TRAIN_DP_STEPS)
 
 
 def train_dp_smoke_rank(comm, cfg):
@@ -4183,6 +4323,131 @@ def train_dp_smoke(dev):
         f"{2 * SMOKE_TRAIN_LR + 1e-5:.3e}); the ZeRO update equal bit for "
         f"bit to one rank's given the same gradients; ranks equal bit for "
         f"bit; launches per rank {[o['launches'] for o in outs]}")
+
+
+# phases 24a-b: the model axis, at full width (the oracle and checks are
+# phase 23's)
+TRAIN_TP_MESH, TRAIN_TP_DEPTH, TRAIN_TP_STEPS = (2, 2), 4, 3    # llama3-8b
+TRAIN_EP_MESH, TRAIN_EP_DEPTH, TRAIN_EP_STEPS = (1, 4), 2, 2    # phi3.5-moe
+# phase 24 SMOKE: float32, the card's mesh against one rank on the card
+SMOKE_MESH_CASES = (("llama3_8b", {}, 2, 2),
+                    ("llama3_8b", {"tp_shardmap": True}, 2, 2),
+                    ("phi35_moe_42b", {}, 1, 4),
+                    ("qwen2_vl_72b", {}, 1, 2),
+                    ("whisper_medium", {}, 1, 2))
+SMOKE_MESH_BATCH, SMOKE_MESH_SEQ = 4, 64
+
+
+def train_tensor_parallel(dev):
+    """Phase 24a: llama3-8b at full width on a 2x2 mesh: heads, MLP width
+    and vocab halved over the model groups, the moments ZeRO'd over the
+    data groups (``train_on_mesh``)."""
+    return train_on_mesh(dev, "phase 24a", "llama3_8b", TRAIN_TP_DEPTH,
+                         *TRAIN_TP_MESH, TRAIN_TP_STEPS)
+
+
+def train_expert_parallel(dev):
+    """Phase 24b: phi3.5-moe at full width on a 1x4 mesh: 4 experts a
+    rank (``ep_shards`` 0), heads and vocab on the model axis too; each
+    layer's routed items a rank (``train_on_mesh``)."""
+    return train_on_mesh(dev, "phase 24b", "phi35_moe_42b", TRAIN_EP_DEPTH,
+                         *TRAIN_EP_MESH, TRAIN_EP_STEPS, routing=True)
+
+
+def sub_world(comm, size):
+    """A ``Comm`` of this rank's block of ``size`` consecutive ranks (every
+    rank creates every block's group, in order)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import Comm
+    if size == comm.size:
+        return comm
+    mine = None
+    for first in range(0, comm.size, size):
+        g = dist.new_group(list(range(first, first + size)))
+        if first <= comm.rank < first + size:
+            mine = g
+    return Comm(mine, device=comm.device)
+
+
+def smoke_mesh_grads(cfg, batch, dev, mesh=None):
+    """(loss, gradients in the one-rank layout as numpy) of ``cfg``'s
+    seed-0 model on ``batch``: on one rank, or on ``mesh`` (this rank's
+    slices, its data index's rows; the gradients summed over the data
+    group and gathered over the model group)."""
+    import torch
+    from repro_torch.distributed.sharding import model_slices, unslice
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.launch.train import rows_of
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.train.train_step import sum_grads
+    data = None if mesh is None else mesh.data
+    model = None if mesh is None else mesh.model
+    m = 1 if model is None else model.size
+    slices = (model_slices(cfg, train_rules(cfg, m), m, model.rank)
+              if model is not None else {})
+    lm = init_model(cfg, seed=0, device=dev, slices=slices or None)
+    lm.requires_grad_(True)
+    names, params = zip(*lm.named_parameters())
+    tb = {k: torch.as_tensor(v, device=dev)
+          for k, v in rows_of(batch, data).items()}
+    loss = loss_fn(lm, tb, cfg, data=data, model=model)
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    loss = loss.detach()
+    if data is not None:
+        sum_grads(grads, data)
+        loss = data.psum(loss)
+    return float(loss), {n: unslice(g, slices.get(n), model).cpu().numpy()
+                         for n, g in grads.items()}
+
+
+def smoke_mesh_rank(comm, cases):
+    """One rank of phase 24 SMOKE: each case on its (d, m) mesh of the
+    world's blocks of d m ranks (``smoke_mesh_grads``); the results of
+    rank 0."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    out = []
+    for arch, over, d, m, batch in cases:
+        cfg = get_smoke(arch).replace(**over)
+        mesh = make_mesh(sub_world(comm, d * m), d, m)
+        got = smoke_mesh_grads(cfg, batch, torch.device(comm.device), mesh)
+        out.append(got if comm.rank == 0 else None)
+    return out
+
+
+def train_mesh_smoke(dev):
+    """Phase 24 SMOKE: the SMOKE configs in float32 on their meshes of
+    the card's ranks (llama at 2x2 with ``tp_shardmap`` False and True,
+    phi3.5-moe at 1x4, qwen2-vl and whisper at 1x2) against one rank on
+    the card, from the same seed-0 weights (each rank draws every leaf
+    and keeps its slice) and ``random_batch(cfg, 4, 64, seed=0)``: the
+    loss within SMOKE_DP_LOSS_RTOL relative, every gradient leaf within
+    SMOKE_DP_GRAD_TOL of its max |g|."""
+    import numpy as np
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import random_batch
+    cases = [(arch, over, d, m,
+              random_batch(get_smoke(arch).replace(**over),
+                           b=SMOKE_MESH_BATCH, s=SMOKE_MESH_SEQ, seed=0))
+             for arch, over, d, m in SMOKE_MESH_CASES]
+    outs, _ = start_world(smoke_mesh_rank, cases, join_s=300.0)
+    for (arch, over, d, m, batch), got in zip(cases, outs[0]):
+        cfg = get_smoke(arch).replace(**over)
+        loss, want = smoke_mesh_grads(cfg, batch, dev)
+        rel = abs(got[0] - loss) / abs(loss)
+        g = max(float(np.max(np.abs(got[1][n] - w))
+                      / max(float(np.max(np.abs(w))), 1e-30))
+                for n, w in want.items())
+        label = f"{arch} {over or ''} at {d}x{m}"
+        check(set(got[1]) == set(want), f"{label}: leaves differ")
+        check(rel <= SMOKE_DP_LOSS_RTOL, f"{label}: loss off by {rel:.3e}")
+        check(g <= SMOKE_DP_GRAD_TOL, f"{label}: a gradient off by {g:.3e} "
+              "of its max |g|")
+        log(f"  {label} (float32, mesh on the card against one rank on the "
+            f"card): loss within {rel:.3e} relative (limit "
+            f"{SMOKE_DP_LOSS_RTOL}), gradients within {g:.3e} of max |g| "
+            f"(limit {SMOKE_DP_GRAD_TOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -4368,12 +4633,12 @@ def main():
           serve_card_vs_cpu, dev, "whisper_medium", "cheap")
     whisper_sharded = None
     if whisper is not None:
-        whisper_sharded = phase(
-            "phase 20b: whisper-medium sharded with KV-slot migration over 4 "
-            "ranks (cheap prefill; cross K/V on slot axis 1)",
-            serve_whisper_sharded, whisper, dev)
         whisper.pop("model")
-        free_memory()
+        whisper_sharded = phase(
+            f"phase 20b: whisper-medium at full width ({WHISPER_SHARDED_DEPTH}"
+            f" + {WHISPER_SHARDED_DEPTH} layers) sharded with KV-slot "
+            "migration over 4 ranks (cheap prefill; cross K/V on slot axis 1)",
+            serve_whisper_sharded, whisper, dev)
     vlm = phase("phase 21: qwen2-vl-72b at full width (M-RoPE, full "
                 "prefill; the VLM front end)", serve_qwen2_vl, dev)
     free_memory()
@@ -4403,11 +4668,22 @@ def main():
           "against one", train_dp_smoke, dev)
     log(f"phase 23: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    tp = phase(f"phase 24a: llama3-8b at full width ({TRAIN_TP_DEPTH} layers)"
+               " on a 2x2 mesh: heads, MLP and vocab on the model axis",
+               train_tensor_parallel, dev)
+    ep = phase(f"phase 24b: phi3.5-moe at full width ({TRAIN_EP_DEPTH} "
+               "layers) on a 1x4 mesh: 4 experts a rank", train_expert_parallel,
+               dev)
+    phase("phase 24 SMOKE: the model axis in float32, the card's meshes "
+          "against one rank", train_mesh_smoke, dev)
+    log(f"phase 24: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
                         whisper, whisper_sharded, vlm, vlm_sharded, training,
-                        packing, dp)
+                        packing, dp, tp, ep)
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -4436,13 +4712,20 @@ def main():
              "qwen2_vl_72b full (phase 6's trace)": vlm["launches"],
              "qwen2_vl_72b batch API (4 x 256 patches, 8 steps)":
                  vlm["batch_launches"],
-             "whisper_medium sharded cheap (per rank)":
+             f"whisper_medium sharded cheap ({WHISPER_SHARDED_DEPTH} + "
+             f"{WHISPER_SHARDED_DEPTH} layers, per rank)":
                  whisper_sharded["launches"],
              f"qwen2_vl_72b sharded full ({VLM_SHARDED_DEPTH} layers, per "
              f"rank)": vlm_sharded["launches"],
              f"llama3_8b data-parallel train ({TRAIN_DP_DEPTH} layers, "
              f"{TRAIN_BATCH} x {TRAIN_SEQ} over {SHARDED_P} ranks, "
              f"{TRAIN_DP_STEPS} steps, per rank)": dp["launches"],
+             f"llama3_8b train on a 2x2 mesh ({TRAIN_TP_DEPTH} layers, "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_TP_STEPS} steps, per rank)":
+                 tp["launches"],
+             f"phi35_moe_42b train on a 1x4 mesh ({TRAIN_EP_DEPTH} layers, "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_EP_STEPS} steps, per rank)":
+                 ep["launches"],
              f"llama3_8b train ({TRAIN_DEPTH} layers, {TRAIN_BATCH} x "
              f"{TRAIN_SEQ}, {training['steps']} steps)": training["launches"],
              f"training packer, corpus pass ({packing['batches']} batches)":

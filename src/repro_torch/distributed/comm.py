@@ -22,8 +22,11 @@ on CPU tensors directly, and for CUDA tensors (ranks sharing one card)
 each payload is copied to the host and back explicitly, and the bytes
 so copied are counted in ``staged_bytes``.  ``all_to_all_bytes`` counts
 the send buffers a rank hands to ``all_to_all`` (its own block
-included), on either backend.  Compute stays on the rank's device either
-way.  Nothing switches backend when something fails.
+included), on either backend; ``reduce_bytes`` and ``reduce_s`` count
+the tensors a rank hands to the all-reduces (``psum`` / ``pmin`` /
+``pmax``) and the host seconds spent in them (a gloo collective returns
+when it is done, so those are its seconds; under nccl, the time to
+enqueue it).  Compute stays on the rank's device either way.  Nothing switches backend when something fails.
 """
 from __future__ import annotations
 
@@ -57,6 +60,8 @@ class Comm:
         self.device = resolve_device(device)
         self.staged_bytes = 0          # host round trips of the gloo route
         self.all_to_all_bytes = 0      # send buffers handed to all_to_all
+        self.reduce_bytes = 0          # tensors handed to the all-reduces
+        self.reduce_s = 0.0            # host seconds in the all-reduces
 
     # -- staging ---------------------------------------------------------------
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
@@ -83,11 +88,15 @@ class Comm:
         return self._unstage(torch.cat(bufs), t)
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        t0 = time.perf_counter()
         t = torch.as_tensor(t).contiguous()
+        self.reduce_bytes += t.numel() * t.element_size()
         x = self._stage(t)
         x = x.clone() if x is t else x
         dist.all_reduce(x, op=op, group=self.group)
-        return self._unstage(x, t)
+        out = self._unstage(x, t)
+        self.reduce_s += time.perf_counter() - t0
+        return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(t, dist.ReduceOp.SUM)

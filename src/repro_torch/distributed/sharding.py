@@ -17,10 +17,16 @@ every family but the hybrid on a leading ``"layers"`` axis, and the
 port keeps one tensor a layer (``layers.3.attn.wq``), so such a name's
 axes begin with ``"layers"`` and have one entry more than its tensor
 has dims; ``stacked(cfg, name)`` says which stack and layer it is.
+
+On a model axis of ``m`` ranks, ``model_slices`` gives each parameter's
+part on one model rank: the dim its rules put on "model" and rank
+``i``'s block ``[i n/m, (i+1) n/m)`` of it (None: replicated), from which
+the model is built (``models.init_model(..., slices=)``) and which every
+model-parallel layer reads back from its weights' shapes.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 from ..models.config import ModelConfig
 
@@ -130,3 +136,59 @@ def leaf_shape(cfg: ModelConfig, name: str, shape: Sequence[int]
     ``shape``: the stack's layer count first where it is stacked."""
     st = stacked(cfg, name)
     return ((stack_size(cfg, st[0]),) if st else ()) + tuple(shape)
+
+
+class Slice(NamedTuple):
+    """Rows ``[start, start + size)`` of a tensor's dim ``dim``: the
+    arguments of ``Tensor.narrow``."""
+    dim: int
+    start: int
+    size: int
+
+
+def narrow(t, sl: Optional[Slice]):
+    """The part of ``t`` a ``Slice`` covers (a view); ``t`` for None."""
+    return t if sl is None else t.narrow(*sl)
+
+
+def unslice(t, sl: Optional[Slice], model):
+    """The one-rank tensor of which ``t`` is this model rank's slice
+    ``sl``: every rank's slice all-gathered over the model group
+    ``model`` in rank order (a collective); ``t`` itself for None."""
+    if sl is None:
+        return t
+    parts = model.all_gather(t.movedim(sl.dim, 0).contiguous())
+    return parts.movedim(0, sl.dim)
+
+
+def model_slices(cfg: ModelConfig, rules: dict, m: int, i: int,
+                 shapes: Optional[Dict[str, Sequence[int]]] = None
+                 ) -> Dict[str, Optional[Slice]]:
+    """Each parameter's part on model rank ``i`` of ``m`` under ``rules``
+    by name: the block ``[i n/m, (i+1) n/m)`` of the one dim whose axis
+    the rules map to "model" (n that dim's size in the one-rank model),
+    None for a parameter with no such dim or for ``m = 1``.  ``shapes``
+    gives the one-rank shapes by name (default those of
+    ``init_model(cfg)``).  A dim on "model" that ``m`` does not divide
+    raises ``ValueError``."""
+    if shapes is None:
+        from ..models import init_model
+        shapes = {n: tuple(p.shape) for n, p in
+                  init_model(cfg, seed=None, device="meta").named_parameters()}
+    axes = param_axes(cfg, list(shapes))
+    out: Dict[str, Optional[Slice]] = {}
+    for name, shape in shapes.items():
+        spec = spec_for(axes[name], rules)
+        dims = [d for d, a in enumerate(spec) if a == "model"]
+        if m == 1 or not dims:
+            out[name] = None
+            continue
+        if len(dims) > 1:
+            raise ValueError(f"{name}: more than one dim on 'model' {spec}")
+        dim = dims[0] - (1 if stacked(cfg, name) else 0)
+        n = shape[dim]
+        if n % m:
+            raise ValueError(f"{name}: dim {dim} of {n} does not split over "
+                             f"{m} model ranks")
+        out[name] = Slice(dim, i * (n // m), n // m)
+    return out

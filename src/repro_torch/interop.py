@@ -25,6 +25,7 @@ import torch
 
 from .core.rtree import RefinementForest
 from .device import resolve_device
+from .distributed.sharding import narrow
 from .fem.halo import HaloPlan
 from .fem.mesh import Mesh
 from .fem.parallel import ShardedElements
@@ -150,8 +151,8 @@ def _layer_tensors(layers, n: int, dev) -> list:
     return [{k: w[li] for k, w in stacked.items()} for li in range(n)]
 
 
-def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
-                    ) -> torch.nn.Module:
+def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None,
+                    slices: Optional[Dict] = None) -> torch.nn.Module:
     """A port model holding copies of the JAX package's parameters
     (``repro.models.init_model``'s tree: ``embed`` {tok, head}, the layers
     and ``ln_f``).  The layers are, by family:
@@ -173,9 +174,12 @@ def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
     Leaves may be ``Boxed`` or bare arrays; the layouts are the same in
     both packages, so nothing is transposed.  Every block must have
     exactly its JAX layer's parameter names, and the layer exactly the
-    block's."""
-    model = init_model(cfg, seed=None, device=device)
-    tensors = tensors_from_jax(params, cfg, device=model.ln_f.device)
+    block's.  ``slices`` (a model rank's
+    ``distributed.sharding.model_slices``) builds that rank's model: each
+    leaf is read on the host and only its slice reaches ``device``."""
+    model = init_model(cfg, seed=None, device=device, slices=slices)
+    tensors = tensors_from_jax(
+        params, cfg, device="cpu" if slices else model.ln_f.device)
     own = dict(model.named_parameters())
     if set(own) != set(tensors):
         raise ValueError(
@@ -184,7 +188,7 @@ def params_from_jax(params: Dict, cfg: ModelConfig, *, device=None
             f"{sorted(set(tensors) - set(own))[:6]}")
     with torch.no_grad():
         for name, w in tensors.items():
-            own[name].copy_(w)
+            own[name].copy_(narrow(w, (slices or {}).get(name)))
     return model
 
 

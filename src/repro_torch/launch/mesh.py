@@ -2,23 +2,28 @@
 ``repro/launch/mesh.py``, plus the training launcher's adaptation of the
 rules to a small mesh (``adapt_rules``, the reference's
 ``launch/train.py`` lines 64-71) and ``make_mesh``, the counterpart of
-``jax.make_mesh((d, m), ("data", "model"))`` over a ``Comm``.
+``jax.make_mesh((d, m), ("data", "model"))`` over a ``Comm``: each
+rank's data group and model group.
 
 The rules are plain dicts from logical axis names to mesh axis names
-(``distributed.sharding``): nothing here touches a device.
+(``distributed.sharding``): nothing here touches a device.  On a model
+axis wider than 1, the dense, MoE, VLM and encoder-decoder families
+train tensor- and expert-parallel (``models.layers``, ``models.moe``);
+the SSM and hybrid families, and a ``head_dim`` rule on "model", are
+refused (``train_rules``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 from ..models.config import ModelConfig
 
 MODEL_AXIS_SIZE = 16
 
-#: what a model axis wider than 1 waits for
-TENSOR_PARALLEL = ("a model axis wider than 1 (tensor and expert "
-                   "parallelism) is item 10's rest in ROADMAP.md (queue 1): "
-                   "only --mesh Dx1 runs")
+#: what the SSM and hybrid families wait for on a model axis
+MODEL_AXIS_LATER = ("the SSM and hybrid families (and a head_dim rule on "
+                    "'model') on a model axis wider than 1 are item 15 in "
+                    "ROADMAP.md (queue 1)")
 
 
 def batch_axes(multi_pod: bool) -> Tuple[str, ...]:
@@ -87,19 +92,65 @@ def adapt_rules(rules: Dict, cfg: ModelConfig, m: int) -> Dict:
 
 def train_rules(cfg: ModelConfig, m: int = 1) -> Dict:
     """The rules the training launcher runs ``cfg`` with on a ``(d, m)``
-    mesh: ``arch_rules`` of one pod, adapted to ``m``."""
-    return adapt_rules(arch_rules(cfg.name, cfg), cfg, m)
+    mesh: ``arch_rules`` of one pod, adapted to ``m``.
+
+    For ``m > 1`` the SSM and hybrid families raise ``ValueError``
+    (``MODEL_AXIS_LATER``).  Where the adapted rules put head_dim on
+    "model" -- heads that the production axis of 16 does not divide, as
+    every SMOKE config's 8 -- the port shards the heads instead, where
+    ``m`` divides them (the same function in another layout; the
+    head_dim layout, whose RoPE pairs straddle the ranks, waits with
+    ``MODEL_AXIS_LATER``), and raises where it does not."""
+    rules = adapt_rules(arch_rules(cfg.name, cfg), cfg, m)
+    if m == 1:
+        return rules
+    if cfg.family in ("ssm", "hybrid") or (rules.get("head_dim") == "model"
+                                           and cfg.n_heads % m):
+        raise ValueError(f"{cfg.name} on a model axis of {m}: "
+                         f"{MODEL_AXIS_LATER}")
+    if rules.get("head_dim") == "model":
+        rules.update(heads="model", head_dim=None)
+    return rules
 
 
-def make_mesh(comm, d: int, m: int):
+class Mesh(NamedTuple):
+    """One rank's groups of a ``(d, m)`` mesh: its ``Comm`` over the
+    ranks that share its model index (``data``) and over those that share
+    its data index (``model``); None for an axis of one rank."""
+    data: Optional[object]
+    model: Optional[object]
+
+
+def make_mesh(comm, d: int, m: int) -> Mesh:
     """The counterpart of ``jax.make_mesh((d, m), ("data", "model"))``
-    over ``comm``'s ranks: this rank's data group (a ``Comm``), None for
-    one rank.  Only ``m == 1`` runs, where the data group is ``comm``
-    itself (``d`` ranks; ``comm=None`` for one) and there is no model
-    group."""
-    if m != 1:
-        raise ValueError(f"mesh {d}x{m}: {TENSOR_PARALLEL}")
+    over ``comm``'s ranks (None: one rank): rank ``r`` sits at data index
+    ``r // m`` and model index ``r % m``, the device order of
+    ``jax.make_mesh``.  Its data group is the ranks ``{j m + r % m}``
+    (data rank ``r // m``), its model group the ranks ``{(r // m) m +
+    j}`` (model rank ``r % m``).  A group of the whole world is ``comm``
+    itself; the others are new process groups, which every rank creates,
+    all of them, in the same order (``new_group`` is collective over the
+    world even for the ranks outside the group)."""
     size = 1 if comm is None else comm.size
-    if d != size:
+    if d < 1 or m < 1 or d * m != size:
         raise ValueError(f"mesh {d}x{m} needs {d * m} ranks, have {size}")
-    return comm if d > 1 else None
+    if size == 1:
+        return Mesh(None, None)
+    if m == 1:
+        return Mesh(comm, None)
+    if d == 1:
+        return Mesh(None, comm)
+    import torch.distributed as dist
+    from ..distributed import Comm
+    r = comm.rank
+    mine = {}
+    for j in range(m):                  # the data groups, by model index
+        g = dist.new_group([i * m + j for i in range(d)])
+        if j == r % m:
+            mine["data"] = g
+    for i in range(d):                  # the model groups, by data index
+        g = dist.new_group([i * m + j for j in range(m)])
+        if i == r // m:
+            mine["model"] = g
+    return Mesh(Comm(mine["data"], device=comm.device),
+                Comm(mine["model"], device=comm.device))

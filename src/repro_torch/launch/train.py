@@ -11,22 +11,28 @@ on the training device), with an async checkpoint every
 ``--ckpt-every`` steps and resume from the newest step under ``--ckpt``.
 Runs on CUDA unless ``--device cpu``.
 
-``--mesh Dx1`` trains data-parallel over D ranks (``distributed.run_world``,
-gloo; on the card every rank shares cuda:0, on the CPU each is a CPU
-process), as the reference's launcher does on a ``(D, 1)`` mesh: every
-rank packs the same global batch of ``--batch`` rows and takes its D-th
-of them, the gradients are summed over the ranks, the AdamW moments are
-sharded ZeRO-style over them (``train.zero_shards`` under
-``launch.mesh.train_rules``), and checkpoints keep the one-rank layout,
-so a run resumes onto any D.  A model axis wider than 1 (``--mesh DxM``,
-M > 1: tensor and expert parallelism) raises.
+``--mesh DxM`` trains on D x M ranks (``distributed.run_world``, gloo;
+on the card every rank shares cuda:0, on the CPU each is a CPU
+process), as the reference's launcher does on a ``(D, M)`` mesh
+(``launch.mesh.make_mesh``; rank r at data index r // M, model index
+r % M).  Every rank packs the same global batch of ``--batch`` rows and
+each data index takes its D-th of them.  On the model axis the rules
+(``launch.mesh.train_rules``) put heads, MLP width, vocab and experts,
+where M divides them: each rank holds its slices of those leaves
+(``distributed.sharding.model_slices``) and runs its part of every
+layer (tensor- and expert-parallel, ``models.layers``,
+``models.moe``).  The gradients are summed over the data group, the
+AdamW moments of each rank's slices are sharded ZeRO-style over it
+(``train.zero_shards``), and checkpoints keep the one-rank layout, so a
+run resumes onto any mesh.  The SSM and hybrid families refuse M > 1.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \\
-        --smoke --device cpu --mesh 4x1 --steps 8 --batch 8 --seq 128
+        --smoke --device cpu --mesh 2x2 --steps 8 --batch 8 --seq 128
 
-``train(cfg, ...)`` is the loop (``data=`` a rank's ``Comm`` of the data
-group); ``main`` parses the arguments and calls it, or starts the ranks
-that do, and ``chip_smoke.py`` calls it with a config whose depth is cut.
+``train(cfg, ...)`` is the loop (``data=`` and ``model=``, a rank's
+``Comm`` of its data and model group); ``main`` parses the arguments and
+calls it, or starts the ranks that do, and ``chip_smoke.py`` calls it
+with a config whose depth is cut.
 """
 from __future__ import annotations
 
@@ -40,12 +46,13 @@ import torch
 from ..configs import get_config, get_smoke
 from ..data import SyntheticCorpus, pack_batches
 from ..device import resolve_device
+from ..distributed.sharding import model_slices
 from ..models import ModelConfig, init_model
 from ..train import (AdamWConfig, AsyncCheckpointer, Shard, init_opt_state,
                      latest_step, make_train_step, restore, restore_sharded,
                      save_sharded, zero_shards)
 from ..train.train_step import device_clock
-from .mesh import TENSOR_PARALLEL, make_mesh, train_rules
+from .mesh import make_mesh, train_rules
 
 #: seconds a data-parallel world of ``main`` may run before its ranks are
 #: stopped (a collective that hangs fails after its own 600 s timeout)
@@ -62,14 +69,15 @@ def corpus_stream(cfg: ModelConfig, batch: int, seq: int, device
                                 device=device)
 
 
-def data_shards(cfg: ModelConfig, model: torch.nn.Module, data
+def data_shards(cfg: ModelConfig, lm: torch.nn.Module, data, m: int = 1
                 ) -> Optional[Dict[str, Shard]]:
     """``zero_shards`` of this rank of the data group ``data`` under the
-    launcher's rules (``train_rules``, model axis 1); None without a data
+    launcher's rules on a model axis of ``m`` (``train_rules``), of the
+    parameters ``lm`` holds (a model rank's slices); None without a data
     group."""
     if data is None:
         return None
-    return zero_shards(cfg, model, train_rules(cfg), data.size, data.rank)
+    return zero_shards(cfg, lm, train_rules(cfg, m), data.size, data.rank)
 
 
 def rows_of(hb: Dict, data) -> Dict:
@@ -91,7 +99,7 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
           seq: int = 256, lr: float = 3e-4,
           ckpt: Optional[str] = "ckpts_launch", ckpt_every: int = 10,
           device=None, batches: Optional[Iterator] = None,
-          log: Callable = print, data=None,
+          log: Callable = print, data=None, model=None,
           on_step: Optional[Callable] = None) -> Dict:
     """Train ``cfg`` for ``steps`` steps (from the newest checkpoint under
     ``ckpt``, if any; ``ckpt=None`` neither reads nor writes any).
@@ -109,30 +117,43 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
     history adds the gradient all-reduce (``t_reduce``), the parameters'
     all-gather within the update (``t_gather``) and the bytes this rank
     handed to each (``reduce_bytes``, ``gather_bytes``).  Checkpoints
-    are written in the one-rank layout by rank 0.  ``on_step(step,
-    model, grads, metrics)``, if given, sees each step's summed
-    gradients (before the update consumed them) and the updated
-    model."""
+    are written in the one-rank layout by rank 0.
+
+    With ``model`` (this rank's ``Comm`` of the model group), the model
+    holds this rank's slices under ``train_rules(cfg, model.size)`` (the
+    ``"model"`` of the result too), and the history adds the host
+    seconds of the model group's all-reduces (``t_model``, within
+    ``t_grad`` and ``t_update``) and the bytes this rank handed to them
+    (``model_bytes``).  ``on_step(step, model, grads, metrics)``, if
+    given, sees each step's summed gradients (before the update consumed
+    them) and the updated model."""
     dev = resolve_device(device)
     ocfg = AdamWConfig(lr=lr, warmup=max(steps // 10, 1), total_steps=steps)
     rank = 0 if data is None else data.rank
-    if rank == 0:
+    m = 1 if model is None else model.size
+    lead = rank == 0 and (model is None or model.rank == 0)
+    if lead:
         log(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
-            f"device={dev} data ranks={1 if data is None else data.size}")
-    model = init_model(cfg, seed=0, device=dev)
-    shards = data_shards(cfg, model, data)
-    opt = init_opt_state(model, ocfg, shards, rank)
+            f"device={dev} mesh={1 if data is None else data.size}x{m}")
+    rules = train_rules(cfg, m)
+    slices = (None if model is None
+              else model_slices(cfg, rules, m, model.rank))
+    net = init_model(cfg, seed=0, device=dev, slices=slices)
+    shards = data_shards(cfg, net, data, m)
+    opt = init_opt_state(net, ocfg, shards, rank)
+    whole = data is None and model is None
     start = 0
     if ckpt and latest_step(ckpt) is not None:
-        if data is None:
-            start, state = restore(ckpt,
-                                   template={"params": model, "opt": opt})
+        if whole:
+            start, state = restore(ckpt, template={"params": net, "opt": opt})
             opt = state["opt"]
         else:
-            start, opt = restore_sharded(ckpt, model, ocfg, shards, rank)
-        if rank == 0:
+            start, opt = restore_sharded(ckpt, net, ocfg, shards, rank,
+                                         slices=slices)
+        if lead:
             log(f"resumed from step {start}")
-    step_fn = make_train_step(cfg, ocfg, data=data, shards=shards)
+    step_fn = make_train_step(cfg, ocfg, data=data, shards=shards,
+                              model=model, slices=slices)
     # as in the reference, a resumed run packs from the first document
     # again, not from the batch the interrupted run stopped at
     stream = batches if batches is not None else corpus_stream(
@@ -146,8 +167,8 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
         t_pack = device_clock(dev) - t0
         times: Dict[str, float] = {}
         grads: Optional[Dict] = {} if on_step is not None else None
-        model, opt, metr = step_fn(model, opt, tensors, times=times,
-                                   grads_out=grads)
+        net, opt, metr = step_fn(net, opt, tensors, times=times,
+                                 grads_out=grads)
         rec = dict(step=step, loss=float(metr["loss"]),
                    gnorm=float(metr["gnorm"]), lr=float(metr["lr"]),
                    t_pack=t_pack, t_grad=times["grad"],
@@ -156,30 +177,36 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
             rec.update(t_reduce=times["reduce"], t_gather=times["gather"],
                        reduce_bytes=metr["reduce_bytes"],
                        gather_bytes=metr["gather_bytes"])
+        if model is not None:
+            rec.update(t_model=times["model"],
+                       model_bytes=metr["model_bytes"])
         history.append(rec)
         if on_step is not None:
-            on_step(step, model, grads, metr)
+            on_step(step, net, grads, metr)
         del grads
-        if rank == 0 and (step % 5 == 0 or step == steps - 1):
+        if lead and (step % 5 == 0 or step == steps - 1):
             log(f"step {step:4d} loss={rec['loss']:.4f} "
                 f"gnorm={rec['gnorm']:.2f}")
         if ckpt and (step + 1) % ckpt_every == 0:
-            if data is None:
-                ck.save_async(ckpt, step + 1, {"params": model, "opt": opt})
+            if whole:
+                ck.save_async(ckpt, step + 1, {"params": net, "opt": opt})
             else:
-                save_sharded(ckpt, step + 1, model, opt, ocfg, shards, data)
+                save_sharded(ckpt, step + 1, net, opt, ocfg, shards, data,
+                             model=model, slices=slices)
     ck.wait()
-    if rank == 0:
+    if lead:
         log("done")
-    return {"model": model, "opt": opt, "start": start, "history": history}
+    return {"model": net, "opt": opt, "start": start, "history": history}
 
 
-def _train_rank(comm, arch: str, smoke: bool, kw: Dict) -> list:
-    """One rank of ``main``'s data-parallel world: ``train`` on its rows;
-    returns its history."""
+def _train_rank(comm, arch: str, smoke: bool, d: int, m: int, kw: Dict
+                ) -> list:
+    """One rank of ``main``'s world of ``d x m`` ranks: ``train`` on its
+    data index's rows with its slices; returns its history."""
     cfg = get_smoke(arch) if smoke else get_config(arch)
-    data = make_mesh(comm, comm.size, 1)
-    return train(cfg, data=data, device=comm.device, **kw)["history"]
+    mesh = make_mesh(comm, d, m)
+    return train(cfg, data=mesh.data, model=mesh.model, device=comm.device,
+                 **kw)["history"]
 
 
 def main(argv=None):
@@ -199,18 +226,18 @@ def main(argv=None):
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
-    if m != 1:
-        raise ValueError(f"--mesh {args.mesh}: {TENSOR_PARALLEL}")
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    train_rules(cfg, m)                 # refuses a family before any rank
     kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
               ckpt=args.ckpt, ckpt_every=args.ckpt_every)
-    if d == 1:
-        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if d * m == 1:
         return train(cfg, device=args.device, **kw)
     from ..distributed import run_world
     dev = resolve_device(args.device)
-    devices = ([str(dev)] * d if dev.type == "cpu" else ["cuda:0"] * d)
+    devices = ([str(dev)] * d * m if dev.type == "cpu"
+               else ["cuda:0"] * d * m)
     with tempfile.TemporaryDirectory() as tmp:
-        return run_world(_train_rank, d, args.arch, args.smoke, kw,
+        return run_world(_train_rank, d * m, args.arch, args.smoke, d, m, kw,
                          init_file=os.path.join(tmp, "rendezvous"),
                          devices=devices, timeout_s=600.0,
                          join_s=WORLD_S)

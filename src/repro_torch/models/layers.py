@@ -23,12 +23,39 @@ Full-sequence attention has the reference's three strategies: chunked
 flash kernel (``cfg.use_pallas``; plain ``mha_ref`` on CPU tensors), which
 also takes the encoder-decoder's cross-attention (K/V of another length
 than Q, no mask).  The kernel has no backward pass: training runs the
-plain strategies, as the reference does.  The reference's
-tensor-parallel ``shard_map`` branch is not ported (ROADMAP.md, queue 1,
-item 10).
+plain strategies, as the reference does.
+
+On a model axis (``model=``, the model group's ``Comm``) a layer whose
+weights are this rank's slices (``models.init_model(..., slices=)``)
+runs tensor-parallel, Megatron style: the attention on its query heads
+(``wq`` / ``wo`` sliced by heads; ``wk`` / ``wv`` replicated, each rank
+reading the K/V heads its query heads read), the MLP on its columns of
+``wi`` / ``wg`` and rows of ``wo``, the embedding on its vocab rows and
+the loss on its vocab columns of the head (a vocab-parallel logsumexp).
+A layer finds its slice from its weights' shapes against ``cfg``.  The
+two row-parallel products (attention and MLP out) have the reference's
+two semantics: ``cfg.tp_shardmap=False`` (GSPMD's) sums the float32
+partials over the model group and rounds once, which is the one-rank
+product up to summation order; ``True`` (the reference's ``_local_out``
+/ ``_local_down`` under ``shard_map``) rounds each partial to
+``act_dtype`` and sums those (gloo and nccl sum bf16 in bf16).
+
+The collectives are autograd functions: ``copy_to_model`` (identity;
+the backward sums the cotangent over the group) where a replicated
+tensor enters a rank's part of the work, ``reduce_from_model`` (sums;
+the backward is the identity) where the parts meet.  So
+``torch.autograd.grad`` gives each rank the gradient of its slices, and
+of every replicated leaf the whole gradient once: a replicated leaf
+used inside a rank's part (``wk``, ``wv``: their K/V heads reach the
+ranks through ``copy_to_model``) is summed over the group, one that
+every rank uses alike (the norms, the router, an unsliced embedding) is
+not.  Under ``cfg.remat`` the forward's sums run again in the backward
+pass, in the same order on every rank of the group.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple
 
@@ -44,6 +71,32 @@ F32 = torch.float32
 GATED_ACTS = ("silu", "gelu")
 
 
+#: what ``kept`` makes of a new parameter's tensor while ``building`` is
+#: active (None: a frozen parameter of it)
+_BUILD: contextvars.ContextVar = contextvars.ContextVar("build",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def building(make):
+    """Within the block, each parameter built (``dense_param``,
+    ``ones_param``, ``moe``'s expert weights) is ``make(w)`` of its
+    drawn tensor ``w``, in the order they are built: ``models.init_model``
+    records that order, and cuts each whole draw to a rank's slice."""
+    token = _BUILD.set(make)
+    try:
+        yield
+    finally:
+        _BUILD.reset(token)
+
+
+def kept(w: torch.Tensor) -> nn.Parameter:
+    """A frozen parameter of ``w`` (or what ``building``'s ``make`` makes
+    of it)."""
+    make = _BUILD.get()
+    return nn.Parameter(w, requires_grad=False) if make is None else make(w)
+
+
 def dense_param(shape, dtype: torch.dtype, device, gen=None,
                 scale: Optional[float] = None) -> nn.Parameter:
     """Normal(0, 1/fan_in) weights drawn in float32 from ``gen`` and cast
@@ -56,12 +109,82 @@ def dense_param(shape, dtype: torch.dtype, device, gen=None,
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         w = torch.randn(shape, generator=gen, dtype=F32,
                         device=device).mul_(scale).to(dtype)
-    return nn.Parameter(w, requires_grad=False)
+    return kept(w)
 
 
 def ones_param(d: int, dtype: torch.dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                        requires_grad=False)
+    return kept(torch.ones(d, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# The model axis
+# ---------------------------------------------------------------------------
+
+def on_model_axis(local: int, full: int, model) -> bool:
+    """Whether a layer runs on the model axis: its weights hold ``local``
+    of a dim's ``full`` entries (a rank's slice), which needs the model
+    group ``model`` of ``full / local`` ranks."""
+    if local == full:
+        return False
+    if model is None or local * model.size != full:
+        raise ValueError(f"weights hold {local} of {full} entries: a slice "
+                         f"needs its model group of {full // max(local, 1)} "
+                         f"ranks, got {getattr(model, 'size', None)}")
+    return True
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over the model group
+    (in float32, rounded once to its dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, model):
+        ctx.model = model
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.model.psum(g.to(F32)).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group; the backward is the identity (the
+    sum is used alike on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x, model):
+        return model.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, model) -> torch.Tensor:
+    """``x``, replicated over the model group, entering this rank's part
+    of the work: its gradient is the sum of every rank's."""
+    return _CopyToModel.apply(x, model)
+
+
+def reduce_from_model(x: torch.Tensor, model) -> torch.Tensor:
+    """The sum of every model rank's ``x``, used alike on each."""
+    return _ReduceFromModel.apply(x, model)
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+                 model=None) -> torch.Tensor:
+    """``h (..., k) @ w (k, n)`` summed in float32 and rounded once to
+    ``act_dtype``; with the model group ``model`` (``h`` and ``w`` this
+    rank's slice of k), the ranks' partial products are summed, in
+    float32 before the rounding (``cfg.tp_shardmap=False``) or rounded
+    each and summed in ``act_dtype`` (True, the reference's
+    ``shard_map`` branch)."""
+    y = matmul_f32(h, w)
+    if model is None:
+        return y.to(cfg.act_dtype)
+    if cfg.tp_shardmap:
+        return reduce_from_model(y.to(cfg.act_dtype), model)
+    return reduce_from_model(y, model).to(cfg.act_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +348,8 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     pos3: Optional[torch.Tensor] = None,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                    return_kv: bool = False, use_rope: bool = True):
+                    return_kv: bool = False, use_rope: bool = True,
+                    model=None):
     """Full-sequence attention (prefill).  x: (b, s, d_model), pos: (b, s).
 
     ``pos3`` (3, b, s): M-RoPE's position streams (configs with
@@ -237,10 +361,18 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     With ``cfg.use_pallas`` the attention core is ``flash_attention_op``
     on the unexpanded K/V (the kernel reads kv head ``h // group``;
     cross-attention with s_kv != s as well); like the reference's flash
-    path it ignores ``cfg.attn_logit_softcap``."""
+    path it ignores ``cfg.attn_logit_softcap``.
+
+    With ``wq`` / ``wo`` this rank's slice of the heads (``model``, the
+    model group), the rank attends with its query heads over the K/V
+    heads they read -- every K/V head is projected (``wk`` / ``wv`` are
+    replicated) and enters through ``copy_to_model`` -- and the output
+    product is ``row_parallel``."""
     group = cfg.n_heads // cfg.n_kv_heads
     act = cfg.act_dtype
-    q = project_heads(x, attn.wq, act)
+    hl = attn.wq.shape[1]
+    tp = on_model_axis(hl, cfg.n_heads, model)
+    q = project_heads(copy_to_model(x, model) if tp else x, attn.wq, act)
     if kv_override is None:
         k = project_heads(x, attn.wk, act)
         v = project_heads(x, attn.wv, act)
@@ -253,6 +385,13 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     kv_cacheable = (k, v)
+    if tp:
+        # the K/V head of each of this rank's query heads (global head
+        # model.rank * hl + j reads K/V head (model.rank * hl + j) // group)
+        kv_of = (model.rank * hl + torch.arange(hl, device=x.device)) // group
+        k = copy_to_model(k, model).index_select(1, kv_of)
+        v = copy_to_model(v, model).index_select(1, kv_of)
+        group = 1
     if cfg.use_pallas:
         out = flash_attention_op(q, k, v, causal=causal, window=cfg.window)
     else:
@@ -267,7 +406,12 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             out = _chunked_attention(
                 q, k, v, causal=causal, window=cfg.window,
                 chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
-    y = merge_heads(out, attn.wo, act)
+    if tp:
+        b, _, s, hd = out.shape
+        y = row_parallel(out.transpose(1, 2).reshape(b, s, hl * hd),
+                         attn.wo.reshape(hl * hd, -1), cfg, model)
+    else:
+        y = merge_heads(out, attn.wo, act)
     if return_kv:
         return y, kv_cacheable
     return y
@@ -390,17 +534,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig, model=None
+              ) -> torch.Tensor:
     """The input products stay in float32 through the activation and are
     rounded once to ``act_dtype`` before ``wo``, as the reference does;
-    ``wo`` too sums in float32 and rounds once."""
+    ``wo`` too sums in float32 and rounds once.  With ``wi`` / ``wg``
+    this rank's columns and ``wo`` its rows (``model``, the model group),
+    ``wo``'s product is ``row_parallel``."""
+    tp = on_model_axis(mlp.wi.shape[1], cfg.d_ff, model)
+    if tp:
+        x = copy_to_model(x, model)
     h = matmul_f32(x, mlp.wi)
     if cfg.mlp_act == "gelu_mlp":
         h = gelu(h)
     else:
         act = torch.nn.functional.silu if cfg.mlp_act == "silu" else gelu
         h = act(matmul_f32(x, mlp.wg)) * h
-    return matmul_f32(h.to(cfg.act_dtype), mlp.wo).to(cfg.act_dtype)
+    return row_parallel(h.to(cfg.act_dtype), mlp.wo, cfg,
+                        model if tp else None)
 
 
 # ---------------------------------------------------------------------------
@@ -431,12 +582,23 @@ class Embedding(nn.Module):
         return self._head_f32
 
 
-def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
+                 model=None) -> torch.Tensor:
     """The rows of the token table.  ``F.embedding``, not indexing: its
     gradient adds a repeated token's rows in a fixed order (indexing's
-    adds them in any order on the CPU, so two runs could differ)."""
-    return torch.nn.functional.embedding(tokens, emb.tok).to(cfg.act_dtype)
+    adds them in any order on the CPU, so two runs could differ).  With
+    ``tok`` this rank's vocab rows (``model``, the model group), each
+    rank looks up the tokens in its rows, puts zero elsewhere, and the
+    ranks' rows are summed (exactly: one is not zero)."""
+    vl = emb.tok.shape[0]
+    if not on_model_axis(vl, cfg.vocab, model):
+        return torch.nn.functional.embedding(tokens, emb.tok).to(
+            cfg.act_dtype)
+    local = tokens - model.rank * vl
+    inside = (local >= 0) & (local < vl)
+    x = torch.nn.functional.embedding(torch.where(inside, local, 0), emb.tok)
+    x = torch.where(inside[..., None], x, 0)
+    return reduce_from_model(x, model).to(cfg.act_dtype)
 
 
 def lm_logits(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
@@ -444,21 +606,45 @@ def lm_logits(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(F32), emb.head_f32())
 
 
+def vocab_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+             cfg: ModelConfig, model=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) of each position of ``x`` (..., d) under
+    ``head`` (d, vocab), float32; ``labels`` in range.  With the head's
+    vocab columns on the model group ``model``, vocab-parallel: each
+    rank's logits over its columns, the max taken over the group, the
+    sums of exps and the gold logit (found on one rank, 0 on the others)
+    summed over it."""
+    if not on_model_axis(head.shape[1], cfg.vocab, model):
+        logits = matmul_f32(x, head)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1), gold
+    vl = head.shape[1]
+    logits = matmul_f32(copy_to_model(x, model), head)
+    top = model.pmax(logits.detach().amax(dim=-1))
+    sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    local = labels - model.rank * vl
+    inside = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = torch.where(inside, gold[..., 0], 0.0)
+    sumexp, gold = reduce_from_model(torch.stack([sumexp, gold]), model)
+    return torch.log(sumexp) + top, gold
+
+
 def chunked_cross_entropy(head: torch.Tensor, x: torch.Tensor,
-                          labels: torch.Tensor, cfg: ModelConfig
-                          ) -> torch.Tensor:
+                          labels: torch.Tensor, cfg: ModelConfig,
+                          model=None) -> torch.Tensor:
     """Mean cross-entropy of ``labels`` (b, s) under the logits of ``x``
     (b, s, d) and ``head`` (d, vocab), over ``max(s // loss_chunk, 1)``
-    sequence chunks so that the (b, s, vocab) logits never exist at once.
-    Like the reference, ``s`` must split into equal chunks."""
+    sequence chunks so that the (b, s, vocab) logits never exist at once
+    (``vocab_ce``; vocab-parallel with ``model``).  Like the reference,
+    ``s`` must split into equal chunks."""
     b, s, d = x.shape
     nc = max(s // cfg.loss_chunk, 1)
     xc = x.reshape(b, nc, s // nc, d)
     lc = labels.reshape(b, nc, s // nc).long()
     total = torch.zeros((), dtype=F32, device=x.device)
     for ci in range(nc):
-        logits = matmul_f32(xc[:, ci], head)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[:, ci, :, None])[..., 0]
+        logz, gold = vocab_ce(xc[:, ci], head, lc[:, ci], cfg, model)
         total = total + torch.sum(logz - gold)
     return total / (b * s)

@@ -8,14 +8,33 @@ expert run (Algorithm 1's S_i), and slice by expert capacity.  Items
 whose prefix sum exceeds the capacity are dropped, like interval
 overflow in the 1-D partitioner.
 
-The dense strategy is ported: scatter into an (E, groups, C, d) buffer,
-batched expert products, gather back.  A group is one batch row: a
+The dense strategy scatters into an (E, groups, C, d) buffer, runs
+batched expert products and gathers back.  A group is one batch row: a
 decode row, a full prefill's prompt, or the whole packed prefill buffer
-(pad tokens included, as in the reference).  The reference's
-expert-parallel ``shard_map`` branch waits with the tensor- and
-expert-parallel step (ROADMAP.md, queue 1, item 10): ``moe_apply`` takes
-the dense path for any ``ep_shards``, and ``_dense_expert_weights``
-reads weights stored in the ``ep > E`` f-slice layout.
+(pad tokens included, as in the reference).  Without a model axis
+``moe_apply`` takes it for any ``ep_shards`` (``_dense_expert_weights``
+reads weights stored in the ``ep > E`` f-slice layout).
+
+On a model axis (``model=``, the model group's ``Comm``; the experts on
+"model", the router replicated) each rank holds a slice of the stored
+expert rows, and the layer finds it from their shapes:
+
+* ``ep_shards == 0`` (the launcher's case): rank i holds experts ``[i
+  E/m, (i+1) E/m)``; it runs the dense strategy on the items routed to
+  them (the dispatch, capacity ``capacity_factor s k / E`` a group
+  included, is the one-rank dispatch), and the float32 partial outputs
+  are summed over the group once, then rounded: ``_moe_dense``'s value
+  up to summation order;
+* ``ep_shards > 0`` is the reference's ``_moe_ep_shardmap``: rank r
+  holds stored row r -- expert ``r // rpe``, or its f-slice ``r % rpe``
+  when ``ep_shards > E`` -- runs the capacity dispatch of its expert,
+  keeps its output in float32, and the ranks' outputs meet in one
+  float32 sum, then the cast.
+
+Either way the tokens and the gates enter a rank's part through
+``layers.copy_to_model``: their gradients (the router's, through the
+gates) are the sums of every rank's, while the aux loss, which every
+rank computes alike from the replicated router, is not summed.
 
 The auxiliary load-balancing loss (Switch-style f*P) is the
 optimization-side counterpart of the paper's imbalance metric;
@@ -25,7 +44,7 @@ imbalance itself.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,7 +53,8 @@ from ..core.metrics import PartitionQuality
 from ..core.metrics import quality as _partition_quality
 from ..core.spec import BalanceSpec
 from .config import ModelConfig
-from .layers import bmm_f32, dense_param, matmul_f32
+from .layers import (bmm_f32, copy_to_model, dense_param, kept, matmul_f32,
+                     on_model_axis, reduce_from_model)
 
 F32 = torch.float32
 
@@ -87,7 +107,7 @@ def _expert_param(shape, dtype: torch.dtype, device, gen, scale: float
         for row in w:
             row.copy_(torch.randn(shape[1:], generator=gen, dtype=F32,
                                   device=device).mul_(scale))
-    return nn.Parameter(w, requires_grad=False)
+    return kept(w)
 
 
 class MoE(nn.Module):
@@ -136,11 +156,16 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int,
     return slot, slot < capacity
 
 
-def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig, data=None):
+def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig, data=None,
+           expert_idx: Optional[torch.Tensor] = None):
     """Router math: (gate_vals (b, s, k) float32, expert_idx (b, s, k),
     aux).  The top k come from a stable descending sort of the float32
     probabilities, so on a tie the lower expert id comes first, as
     ``jax.lax.top_k`` orders them (``torch.topk`` promises no order).
+    A given ``expert_idx`` replaces the top k, with those experts' gates:
+    another run's routing (``chip_smoke.py``'s oracle of an
+    expert-parallel run takes that run's, so that a near-tie the two
+    break apart in bf16 does not send a token to other experts).
 
     ``aux = e * sum_e f_e p_e`` over every token of the batch.  With a
     data group ``data``, ``x`` is this rank's rows of the global batch:
@@ -151,8 +176,10 @@ def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig, data=None):
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(matmul_f32(x.to(F32), moe.router), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_idx = vals[..., :k], idx[..., :k]
+    if expert_idx is None:
+        expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                stable=True)[1][..., :k]
+    gate_vals = torch.gather(probs, -1, expert_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True),
                                         min=1e-9)
     # aux load-balance loss (the imbalance objective); the item counts
@@ -187,44 +214,102 @@ def _dense_expert_weights(moe: MoE, cfg: ModelConfig):
 
 
 def _moe_dense(moe: MoE, x: torch.Tensor, gate_vals: torch.Tensor,
-               expert_idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+               expert_idx: torch.Tensor, cfg: ModelConfig, model=None
+               ) -> torch.Tensor:
     """Scatter each kept item into its expert's capacity slot, run every
     expert on its (groups x capacity) rows, gather back and weight by the
     gates.  The expert products sum in float32: ``h`` and ``g`` stay in
     float32 through the activation and are rounded once to ``act_dtype``,
     and so is each expert's output, as the reference's einsums with
     ``preferred_element_type=float32`` do.  A dropped item adds an exact
-    0 at ``min(slot, capacity - 1)`` and gathers 0."""
+    0 at ``min(slot, capacity - 1)`` and gathers 0.
+
+    With ``model`` (the model group), ``moe`` holds this rank's block of
+    the experts: the items routed elsewhere add and gather 0 here, and
+    the float32 sums over k are summed over the group, then rounded."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     act, dev = cfg.act_dtype, x.device
     capacity = max(int(cfg.capacity_factor * s * k / e), 1)
     wi, wg, wo = _dense_expert_weights(moe, cfg)
+    el = wi.shape[0]
+    first = 0 if model is None else model.rank * el
 
     flat_e = expert_idx.reshape(b, s * k).long()
     slot, keep = _dispatch_indices(flat_e, e, capacity)
     slot = torch.clamp(slot, max=capacity - 1).long()
+    mine = keep & (flat_e >= first) & (flat_e < first + el)
+    local_e = torch.where(mine, flat_e - first, 0)
     group = torch.arange(b, device=dev)[:, None].expand(b, s * k)
     token_of_item = torch.arange(s * k, device=dev) // k
-    contrib = torch.where(keep[..., None], x[:, token_of_item], 0.0)
+    contrib = torch.where(mine[..., None], x[:, token_of_item], 0.0)
     # expert-major, so that each expert's rows are one contiguous block
-    x_disp = torch.zeros((e, b, capacity, d), dtype=act, device=dev)
-    x_disp.index_put_((flat_e, group, slot), contrib.to(act),
+    x_disp = torch.zeros((el, b, capacity, d), dtype=act, device=dev)
+    x_disp.index_put_((local_e, group, slot), contrib.to(act),
                       accumulate=True)
 
-    xe = x_disp.reshape(e, b * capacity, d)
+    xe = x_disp.reshape(el, b * capacity, d)
     h = torch.nn.functional.silu(bmm_f32(xe, wg)) * bmm_f32(xe, wi)
-    y_e = bmm_f32(h.to(act), wo).to(act).reshape(e, b, capacity, d)
+    y_e = bmm_f32(h.to(act), wo).to(act).reshape(el, b, capacity, d)
 
-    gathered = torch.where(keep[..., None], y_e[flat_e, group, slot], 0.0)
+    gathered = torch.where(mine[..., None], y_e[local_e, group, slot], 0.0)
     gathered = gathered * gate_vals.reshape(b, s * k)[..., None]
-    return gathered.reshape(b, s, k, d).sum(dim=2).to(act)
+    out = gathered.reshape(b, s, k, d).sum(dim=2)
+    if model is not None:
+        out = reduce_from_model(out, model)
+    return out.to(act)
 
 
-def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *, data=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ep(moe: MoE, x: torch.Tensor, gate_vals: torch.Tensor,
+            expert_idx: torch.Tensor, cfg: ModelConfig, model
+            ) -> torch.Tensor:
+    """The reference's ``_moe_ep_shardmap`` on model rank r, which holds
+    stored row r of ``ep_shards``: expert ``r // rpe`` (its f-slice ``r %
+    rpe``).  The items routed to that expert and kept by the capacity
+    dispatch run through it; its output stays float32 through the gates
+    and the sum over k, and the ranks' outputs are summed once in
+    float32 (the f-slices' partial products with them), then cast."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    _, rpe, _ = _ep_layout(cfg)
+    act, dev = cfg.act_dtype, x.device
+    capacity = max(int(cfg.capacity_factor * s * k / e), 1)
+    if moe.wi.shape[0] != 1:
+        raise ValueError(f"ep_shards={cfg.ep_shards} over {model.size} model "
+                         "ranks: the expert-parallel branch holds one stored "
+                         "row a rank")
+    flat_e = expert_idx.reshape(b, s * k).long()
+    slot, keep = _dispatch_indices(flat_e, e, capacity)
+    slot = torch.clamp(slot, max=capacity - 1).long()
+    mine = keep & (flat_e == model.rank // rpe)
+    group = torch.arange(b, device=dev)[:, None].expand(b, s * k)
+    token_of_item = torch.arange(s * k, device=dev) // k
+    contrib = torch.where(mine[..., None], x[:, token_of_item], 0.0)
+    x_disp = torch.zeros((b, capacity, d), dtype=act, device=dev)
+    x_disp.index_put_((group, slot), contrib.to(act), accumulate=True)
+
+    h = torch.nn.functional.silu(matmul_f32(x_disp, moe.wg[0])) \
+        * matmul_f32(x_disp, moe.wi[0])
+    y_e = matmul_f32(h.to(act), moe.wo[0])               # float32
+
+    gathered = torch.where(mine[..., None], y_e[group, slot], 0.0)
+    gathered = gathered * gate_vals.reshape(b, s * k)[..., None]
+    part = gathered.reshape(b, s, k, d).sum(dim=2)
+    return reduce_from_model(part, model).to(act)
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig, *, data=None,
+              model=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (out, aux_loss).  Groups = batch rows (capacity is
     per row, so splitting a batch by rows over ``data`` changes no
-    dispatch); ``data``: this rank's term of the aux (``_route``)."""
+    dispatch); ``data``: this rank's term of the aux (``_route``).  With
+    the expert rows this rank's slice (``model``, the model group), the
+    expert-parallel strategies of the module docstring."""
     gate_vals, expert_idx, aux = _route(moe, x, cfg, data)
-    return _moe_dense(moe, x, gate_vals, expert_idx, cfg), aux
+    ep, _, _ = _ep_layout(cfg)
+    if not on_model_axis(moe.wi.shape[0], ep or cfg.n_experts, model):
+        return _moe_dense(moe, x, gate_vals, expert_idx, cfg), aux
+    x, gate_vals = copy_to_model(x, model), copy_to_model(gate_vals, model)
+    if ep > 0:
+        return _moe_ep(moe, x, gate_vals, expert_idx, cfg, model), aux
+    return _moe_dense(moe, x, gate_vals, expert_idx, cfg, model), aux

@@ -27,7 +27,12 @@ sequence-chunked masked cross-entropy ``_masked_ce``; the decoder adds
 rows of the global batch and passes its data group as ``data``: the
 ranks' losses then sum to the loss of the whole batch (``_masked_ce``
 divides by the global count of labels, ``moe._route`` weighs by the
-global expert counts), and so do their gradients.  Where the reference wraps a layer body in
+global expert counts), and so do their gradients.  On a model axis
+(``model=``, the model group's ``Comm``; the dense, MoE, VLM and
+encoder-decoder families) each rank holds its slices of the weights and
+every layer runs its part (``models.layers``, ``models.moe``): the loss
+is the same on every rank of the group, not a term to sum.  These
+functions take the LM module as ``lm``.  Where the reference wraps a layer body in
 ``jax.checkpoint`` under ``cfg.remat`` (decoder, encoder, decoder of the
 encoder-decoder, SSM), ``remat`` runs it through
 ``torch.utils.checkpoint`` while grad is enabled.
@@ -42,8 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embedding, attention_apply,
-                     embed_tokens, matmul_f32, mlp_apply, ones_param,
-                     project_heads, rmsnorm)
+                     embed_tokens, mlp_apply, ones_param, project_heads,
+                     rmsnorm, vocab_ce)
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, rglru_block_apply
 from .ssm import Mamba2, mamba2_apply
@@ -68,17 +73,17 @@ class Block(nn.Module):
 
 
 def block_ffn(block: Block, x: torch.Tensor, cfg: ModelConfig, *,
-              with_aux: bool = False, data=None):
+              with_aux: bool = False, data=None, model=None):
     """``x`` plus the block's MLP, or MoE, of ``rmsnorm(x)``: the second
     half of every block, for prefill, decode, packed prefill and training
     alike.  The MoE's aux loss is a training term: ``with_aux=True``
     returns it too (a float32 zero for an MLP block; this rank's term
-    over ``data``), else it is dropped."""
+    over ``data``), else it is dropped.  ``model``: the model group."""
     h = rmsnorm(x, block.ln_mlp)
     if hasattr(block, "moe"):
-        y, aux = moe_apply(block.moe, h, cfg, data=data)
+        y, aux = moe_apply(block.moe, h, cfg, data=data, model=model)
     else:
-        y = mlp_apply(block.mlp, h, cfg)
+        y = mlp_apply(block.mlp, h, cfg, model)
         aux = torch.zeros((), dtype=F32, device=x.device)
     return (x + y, aux) if with_aux else x + y
 
@@ -104,15 +109,15 @@ class DecoderLM(nn.Module):
         self.ln_f = ones_param(cfg.d_model, cfg.p_dtype, device)
 
 
-def decoder_inputs(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
-                   patch_embeds: Optional[torch.Tensor] = None
+def decoder_inputs(lm: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+                   patch_embeds: Optional[torch.Tensor] = None, model=None
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
     """The first hidden state (b, s, d) -- the VLM's patch embeddings (b,
     n_p, d), if given, before the token embeddings -- with its positions
     ``pos`` (b, s) and, for M-RoPE configs, ``pos3`` (3, b, s): the same
     ``arange`` in all three streams, as the reference builds it."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(cfg.act_dtype), x], dim=1)
     b, s, _ = x.shape
@@ -122,48 +127,52 @@ def decoder_inputs(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def block_apply(layer: Block, x: torch.Tensor, cfg: ModelConfig,
-                pos: torch.Tensor, pos3: Optional[torch.Tensor], data=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                pos: torch.Tensor, pos3: Optional[torch.Tensor], data=None,
+                model=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One causal decoder block over the whole sequence: (x, aux)."""
     h = rmsnorm(x, layer.ln_attn)
     x = x + attention_apply(layer.attn, h, cfg, pos=pos, pos3=pos3,
-                            causal=True)
-    return block_ffn(layer, x, cfg, with_aux=True, data=data)
+                            causal=True, model=model)
+    return block_ffn(layer, x, cfg, with_aux=True, data=data, model=model)
 
 
-def decoder_hidden(model: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
+def decoder_hidden(lm: DecoderLM, tokens: torch.Tensor, cfg: ModelConfig,
                    *, pos3: Optional[torch.Tensor] = None,
                    patch_embeds: Optional[torch.Tensor] = None,
-                   with_aux: bool = False, data=None):
+                   with_aux: bool = False, data=None, model=None):
     """The final hidden state (b, s, d) of a causal forward over
     ``patch_embeds`` and ``tokens``; ``pos3`` replaces the M-RoPE streams
     ``decoder_inputs`` builds (distinct (t, h, w) ids of image patches).
     ``with_aux=True`` returns (hidden, aux): the MoE's aux loss summed
     over the layers (float32; 0 without experts), as the reference's
     ``decoder_hidden`` does -- with a data group ``data``, this rank's
-    term of it; else the aux is dropped.  (Under ``cfg.remat`` a layer's
-    forward runs again in the backward pass, and with it the MoE's
-    all-reduce of the expert counts: every rank recomputes the layers
-    in the same order, so the all-reduces pair up.)"""
-    x, pos, own3 = decoder_inputs(model, tokens, cfg, patch_embeds)
+    term of it; else the aux is dropped.  ``model``: the model group.
+    (Under ``cfg.remat`` a layer's forward runs again in the backward
+    pass, and with it its all-reduces -- the MoE's expert counts over the
+    data group, the layer's sums over the model group: every rank
+    recomputes the layers in the same order, so the all-reduces pair
+    up.)"""
+    x, pos, own3 = decoder_inputs(lm, tokens, cfg, patch_embeds, model)
     pos3 = own3 if pos3 is None else pos3
     aux = torch.zeros((), dtype=F32, device=x.device)
-    for layer in model.layers:
-        x, a = remat(cfg, block_apply, layer, x, cfg, pos, pos3, data)
+    for layer in lm.layers:
+        x, a = remat(cfg, block_apply, layer, x, cfg, pos, pos3, data, model)
         aux = aux + a
-    x = rmsnorm(x, model.ln_f)
+    x = rmsnorm(x, lm.ln_f)
     return (x, aux) if with_aux else x
 
 
 def _masked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
-               cfg: ModelConfig, data=None) -> torch.Tensor:
+               cfg: ModelConfig, data=None, model=None) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is >= 0, in
     ``nc = max(s // loss_chunk, 1)`` sequence chunks of ``cs = s // nc``
     positions (the (b, s, vocab) logits never exist at once).  As in the
     reference, positions past ``nc * cs`` are not scored: s = 200 with
     chunks of 64 scores 198.  With a data group ``data``, this rank's sum
     over the count of scored labels of every rank (one all-reduce): the
-    ranks' values sum to the mean over the global batch."""
+    ranks' values sum to the mean over the global batch.  With ``head``
+    this rank's vocab columns (``model``, the model group), the
+    logsumexp and gold logit are vocab-parallel (``layers.vocab_ce``)."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     b, s, _ = x.shape
@@ -175,30 +184,29 @@ def _masked_ce(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
         den = data.psum(torch.sum(mask[:, :nc * cs]).to(F32))
     for ci in range(nc):
         sl = slice(ci * cs, (ci + 1) * cs)
-        logits = matmul_f32(x[:, sl], head)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, safe[:, sl, None])[..., 0]
+        logz, gold = vocab_ce(x[:, sl], head, safe[:, sl], cfg, model)
         num = num + torch.sum(torch.where(mask[:, sl], logz - gold, 0.0))
         if data is None:
             den = den + torch.sum(mask[:, sl])
     return num / torch.clamp(den, min=1.0)
 
 
-def decoder_loss(model: DecoderLM, batch: Dict, cfg: ModelConfig, data=None
-                 ) -> torch.Tensor:
+def decoder_loss(lm: DecoderLM, batch: Dict, cfg: ModelConfig, data=None,
+                 model=None) -> torch.Tensor:
     """``_masked_ce`` of ``batch['labels']`` plus 0.01 times the MoE aux
     loss.  The VLM's patch positions carry no label: -1 is prepended
     over them."""
     patches = batch.get("patch_embeds")
-    x, aux = decoder_hidden(model, batch["tokens"], cfg,
+    x, aux = decoder_hidden(lm, batch["tokens"], cfg,
                             pos3=batch.get("pos3"), patch_embeds=patches,
-                            with_aux=True, data=data)
+                            with_aux=True, data=data, model=model)
     labels = batch["labels"]
     if patches is not None:
         pad = torch.full((labels.shape[0], patches.shape[1]), -1,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    return _masked_ce(model.embed.head, x, labels, cfg, data) + 0.01 * aux
+    return (_masked_ce(lm.embed.head, x, labels, cfg, data, model)
+            + 0.01 * aux)
 
 
 class SSMBlock(nn.Module):
@@ -316,60 +324,64 @@ class EncDecLM(nn.Module):
 
 
 def _encoder_block(layer: EncBlock, x: torch.Tensor, cfg: ModelConfig,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, model=None) -> torch.Tensor:
     h = rmsnorm(x, layer.ln_attn)
     x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=False,
-                            use_rope=False)
-    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+                            use_rope=False, model=model)
+    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
 
 
-def encoder_apply(model: EncDecLM, frames: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
+def encoder_apply(lm: EncDecLM, frames: torch.Tensor, cfg: ModelConfig,
+                  model=None) -> torch.Tensor:
     """frames (b, s_enc, d): precomputed embeddings (the reference's stub
-    of the conv front end) -> the encoder's output (b, s_enc, d)."""
+    of the conv front end) -> the encoder's output (b, s_enc, d);
+    ``model``: the model group."""
     b, s, d = frames.shape
     x = frames.to(cfg.act_dtype) + _sinusoid(s, d, cfg.act_dtype,
                                              frames.device)
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    for layer in model.enc_layers:
-        x = remat(cfg, _encoder_block, layer, x, cfg, pos)
-    return rmsnorm(x, model.ln_enc)
+    for layer in lm.enc_layers:
+        x = remat(cfg, _encoder_block, layer, x, cfg, pos, model)
+    return rmsnorm(x, lm.ln_enc)
 
 
 def _decoder_block(layer: DecBlock, x: torch.Tensor, enc: torch.Tensor,
-                   cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+                   cfg: ModelConfig, pos: torch.Tensor, model=None
+                   ) -> torch.Tensor:
     """Self-attention, cross-attention to ``enc`` (its K/V projected here,
-    once a layer), MLP."""
+    once a layer, every K/V head on every rank of a model group), MLP."""
     act = cfg.act_dtype
     h = rmsnorm(x, layer.ln_self)
     x = x + attention_apply(layer.self_attn, h, cfg, pos=pos, causal=True,
-                            use_rope=False)
+                            use_rope=False, model=model)
     h = rmsnorm(x, layer.ln_cross)
     kv = (project_heads(enc, layer.cross_attn.wk, act),
           project_heads(enc, layer.cross_attn.wv, act))
     x = x + attention_apply(layer.cross_attn, h, cfg, pos=pos, causal=False,
-                            kv_override=kv)
-    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
+                            kv_override=kv, model=model)
+    return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
 
 
-def encdec_hidden(model: EncDecLM, frames: torch.Tensor,
-                  tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encdec_hidden(lm: EncDecLM, frames: torch.Tensor,
+                  tokens: torch.Tensor, cfg: ModelConfig, model=None
+                  ) -> torch.Tensor:
     """The decoder's final hidden state (b, s, d) over ``tokens`` (b, s)
-    with cross-attention to the encoder's output over ``frames``."""
-    enc = encoder_apply(model, frames, cfg)
+    with cross-attention to the encoder's output over ``frames``;
+    ``model``: the model group."""
+    enc = encoder_apply(lm, frames, cfg, model)
     b, s = tokens.shape
-    x = embed_tokens(model.embed, tokens, cfg) + _sinusoid(
+    x = embed_tokens(lm.embed, tokens, cfg, model) + _sinusoid(
         s, cfg.d_model, cfg.act_dtype, enc.device)
     pos = torch.arange(s, device=enc.device)[None].expand(b, s)
-    for layer in model.dec_layers:
-        x = remat(cfg, _decoder_block, layer, x, enc, cfg, pos)
-    return rmsnorm(x, model.ln_f)
+    for layer in lm.dec_layers:
+        x = remat(cfg, _decoder_block, layer, x, enc, cfg, pos, model)
+    return rmsnorm(x, lm.ln_f)
 
 
-def encdec_loss(model: EncDecLM, batch: Dict, cfg: ModelConfig, data=None
-                ) -> torch.Tensor:
-    x = encdec_hidden(model, batch["frames"], batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)
+def encdec_loss(lm: EncDecLM, batch: Dict, cfg: ModelConfig, data=None,
+                model=None) -> torch.Tensor:
+    x = encdec_hidden(lm, batch["frames"], batch["tokens"], cfg, model)
+    return _masked_ce(lm.embed.head, x, batch["labels"], cfg, data, model)
 
 
 def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig

@@ -17,7 +17,11 @@ A data-parallel run whose moments are sharded ZeRO-style
 (``save_sharded``: each moment gathered leaf by leaf, rank 0 writes,
 then a barrier), so any run can resume it; ``restore_sharded`` reads a
 checkpoint onto a rank of a data group of any size, re-slicing the
-moments (the reference's elastic restart onto another mesh).
+moments (the reference's elastic restart onto another mesh).  On a model
+axis the model-parallel leaves are this rank's slices: ``save_sharded``
+all-gathers them, and their moments, over the model group too, and
+``restore_sharded`` cuts each rank's slices, so a checkpoint moves
+between any two ``(d, m)`` meshes.
 The port's leaves carry no logical axes (``"axes": null``).  bfloat16
 arrays are written as the JAX package writes them -- raw 2-byte words
 with descr ``'<V2'`` -- and read back by the manifest's dtype, so no
@@ -33,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import narrow, unslice
 from .optimizer import (AdamWConfig, OptState, Shard, _local, gather_moment,
                         named)
 
@@ -206,47 +211,65 @@ def restore(path: str, step: Optional[int] = None, template=None
     return step, fill("", template)
 
 
-def save_sharded(path: str, step: int, model: torch.nn.Module,
-                 opt: OptState, ocfg: AdamWConfig, shards: Dict[str, Shard],
-                 data, extra: Optional[Dict] = None) -> None:
-    """Checkpoint a data-parallel run as ``save(path, step, {"params":
-    model, "opt": opt})`` of one rank would: each moment gathered whole,
-    one leaf at a time (so no rank holds every whole moment on its
-    device), rank 0 writes, then a barrier.  Every rank of ``data`` calls
-    it."""
+def save_sharded(path: str, step: int, lm: torch.nn.Module,
+                 opt: OptState, ocfg: AdamWConfig,
+                 shards: Optional[Dict[str, Shard]], data,
+                 extra: Optional[Dict] = None, *, model=None,
+                 slices: Optional[Dict] = None) -> None:
+    """Checkpoint a data- and model-parallel run as ``save(path, step,
+    {"params": lm, "opt": opt})`` of one rank would: each moment
+    gathered whole over the data group (``shards``), one leaf at a time
+    (so no rank holds every whole moment on its device), then each
+    model-parallel leaf and its moments over the model group
+    (``model``, ``slices``); the rank at data and model index 0 writes,
+    then a barrier.  Every rank of the mesh calls it."""
     dt = getattr(torch, ocfg.adam_dtype)
-    params = named(model)
-    lead = data.rank == 0
+    params = named(lm)
+    slices = slices or {}
+    lead = ((data is None or data.rank == 0)
+            and (model is None or model.rank == 0))
     flat: Dict[str, Any] = {}
     for n, p in params.items():
+        whole = unslice(p, slices.get(n), model)
         if lead:
-            flat[f"params{_SEP}{n}"] = _host(p)
+            flat[f"params{_SEP}{n}"] = _host(whole)
     flat[f"opt{_SEP}0"] = _host(opt.step)
     for i, d in ((1, opt.m), (2, opt.v)):
         for n, p in params.items():
-            whole = gather_moment(d.get(n), p, shards[n], data, dt)
+            local = (d[n] if shards is None
+                     else gather_moment(d.get(n), p, shards[n], data, dt))
+            whole = unslice(local, slices.get(n), model)
             if lead:
                 flat[f"opt{_SEP}{i}{_SEP}{n}"] = _host(whole)
-            del whole
+            del whole, local
     if lead:
         _write(path, step, flat, extra)
-    data.barrier()
+    # the model group first: then every rank of the data groups waits
+    # for a rank that waited for the writer
+    for group in (model, data):
+        if group is not None:
+            group.barrier()
 
 
-def restore_sharded(path: str, model: torch.nn.Module, ocfg: AdamWConfig,
-                    shards: Dict[str, Shard], rank: int,
-                    step: Optional[int] = None) -> Tuple[int, OptState]:
+def restore_sharded(path: str, lm: torch.nn.Module, ocfg: AdamWConfig,
+                    shards: Optional[Dict[str, Shard]], rank: int,
+                    step: Optional[int] = None, *,
+                    slices: Optional[Dict] = None) -> Tuple[int, OptState]:
     """Load a checkpoint in the full layout onto data rank ``rank``: the
-    model's parameters whole (in place), and this rank's part of each
-    moment (``shards``, of any data group's size), cut on the host.
-    Returns (step, this rank's ``OptState``)."""
+    model's parameters (whole, or this model rank's ``slices`` of them)
+    in place, and this rank's part of each moment of those (``shards``,
+    of any data group's size; None: whole), cut on the host.  Returns
+    (step, this rank's ``OptState``)."""
     step, arrays = read_checkpoint(path, step)
     dt = getattr(torch, ocfg.adam_dtype)
-    params = named(model)
+    params = named(lm)
+    slices = slices or {}
     with torch.no_grad():
         for n, p in params.items():
-            p.copy_(arrays[f"params{_SEP}{n}"])
-    parts = [{n: _local(arrays[f"opt{_SEP}{i}{_SEP}{n}"], shards[n]).to(
+            p.copy_(narrow(arrays[f"params{_SEP}{n}"], slices.get(n)))
+    shards = shards or {n: Shard() for n in params}
+    parts = [{n: _local(narrow(arrays[f"opt{_SEP}{i}{_SEP}{n}"],
+                               slices.get(n)), shards[n]).to(
                   p.device, dt).contiguous()
               for n, p in params.items() if shards[n].mine(rank)}
              for i in (1, 2)]

@@ -16,6 +16,8 @@ depth: there one leaf holds a parameter of every layer.  Given the model
 config, ``ef_compress_grads`` groups the port's per-layer tensors the
 same way (``scale_groups``), so both packages quantize to the same
 bits; the hybrid's layers are a list in the reference, one leaf each.
+On a model axis a group holding this rank's slices of a leaf takes the
+max over the whole leaf (over the model group).
 """
 from __future__ import annotations
 
@@ -64,12 +66,16 @@ def scale_groups(names, cfg=None) -> List[List[str]]:
 
 
 def ef_compress_grads(grads: Mapping[str, torch.Tensor],
-                      state: Optional[CompressState], cfg=None
+                      state: Optional[CompressState], cfg=None, model=None,
+                      split=frozenset()
                       ) -> Tuple[Dict[str, torch.Tensor], CompressState]:
     """Quantize ``grads`` to int8 with error feedback: the dequantized
     gradients (in each gradient's dtype: what the optimizer consumes) and
     the new error state.  ``cfg`` (the model's config) shares one scale
-    over a stacked parameter's layers, as the reference's tree does."""
+    over a stacked parameter's layers, as the reference's tree does.
+    With the model group ``model``, the gradients named in ``split`` are
+    this rank's slices, and their group's max is taken over the model
+    group."""
     if state is None:
         state = init_compress_state(grads)
     new_g, new_e = {}, {}
@@ -77,6 +83,8 @@ def ef_compress_grads(grads: Mapping[str, torch.Tensor],
         corrected = {n: grads[n].to(F32) + state.err[n] for n in group}
         amax = torch.max(torch.stack([torch.max(torch.abs(c))
                                       for c in corrected.values()]))
+        if model is not None and split.intersection(group):
+            amax = model.pmax(amax)
         for n, c in corrected.items():
             q, scale = _quantize(c, amax)
             deq = q.to(F32) * scale

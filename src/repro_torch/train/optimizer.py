@@ -26,6 +26,14 @@ parameters, m and v) from the summed gradients, the same on every rank,
 then all-gathers the parameters: the result is bit for bit that of one
 rank's update, since the update is elementwise and the clip's global
 norm is taken over the whole gradients on every rank.
+
+On a model axis each rank holds its slices of the model-parallel leaves
+(``distributed.sharding.model_slices``) and the moments of those
+slices; ``zero_shards`` splits each rank's slice over the data ranks
+along the dims the rules leave free, exactly as it splits a whole leaf
+(the dims on "model" are never the ZeRO dim), and the clip's global norm
+sums the squares of the sliced leaves over the model group and counts
+each replicated leaf once (``adamw_update(..., model=, split=)``).
 """
 from __future__ import annotations
 
@@ -204,17 +212,28 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def _global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def _global_norm(tensors: Mapping[str, torch.Tensor], model=None,
+                 split=frozenset()) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32, summed
     leaf by leaf in the mapping's order and within a leaf a slice of at
     most ``UPDATE_CHUNK`` elements at a time, so that the float32 squares
     of a 525M-element embedding stay small (the reference sums in its
-    tree's sorted-key order, so the two may differ in the last bits)."""
-    total = None
-    for x in tensors.values():
+    tree's sorted-key order, so the two may differ in the last bits).
+    With the model group ``model``, the leaves named in ``split`` are
+    this rank's slices: their sum is summed over the group (one
+    all-reduce) and added to that of the replicated leaves, which every
+    rank of the group holds alike and counts once."""
+    total = part = torch.zeros((), dtype=F32,
+                               device=next(iter(tensors.values())).device)
+    for name, x in tensors.items():
         for xc in x.reshape(-1).split(UPDATE_CHUNK):
             sq = torch.sum(xc.to(F32) ** 2)
-            total = sq if total is None else total + sq
+            if model is not None and name in split:
+                part = part + sq
+            else:
+                total = total + sq
+    if model is not None:
+        total = total + model.psum(part)
     return torch.sqrt(total)
 
 
@@ -226,7 +245,8 @@ def _chunks(t: torch.Tensor):
 def adamw_update(params: Params, grads: Mapping[str, torch.Tensor],
                  state: OptState, cfg: AdamWConfig,
                  shards: Optional[Dict[str, Shard]] = None, data=None,
-                 times: Optional[Dict[str, float]] = None
+                 times: Optional[Dict[str, float]] = None, model=None,
+                 split=frozenset()
                  ) -> Tuple[OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: global-norm clipping to ``clip_norm``, bias
     correction, decoupled weight decay.  Writes the parameters and
@@ -240,11 +260,12 @@ def adamw_update(params: Params, grads: Mapping[str, torch.Tensor],
     updates its part of every parameter, then the parts are all-gathered
     (a layer owned by one rank is broadcast from it).  A dict passed as
     ``times`` receives the seconds of the gathering (``"gather"``, the
-    device synchronized)."""
+    device synchronized).  With the model group ``model``, the leaves
+    named in ``split`` are this rank's slices (``_global_norm``)."""
     params = named(params)
     rank = 0 if data is None else data.rank
     step = state.step + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, model, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_schedule(cfg, step)

@@ -7,7 +7,14 @@ batch, of which each rank of the data group takes its contiguous rows
 gives gradients that sum to the global batch's; the step sums them over
 the group (as GSPMD sums them), applies the error feedback to the sum
 when ``compress`` (the same on every rank), and updates with the moments
-sharded ZeRO-style (``optimizer.zero_shards``)."""
+sharded ZeRO-style (``optimizer.zero_shards``).
+
+On a model axis (``model``, the model group's ``Comm``) the model holds
+this rank's slices (``slices``): the loss is the same on every rank of
+the group (``loss_fn(..., model=)``), each gradient is of this rank's
+slice (``sum_grads`` still sums over the data group only), and the clip
+norm and the compression's scales of the sliced leaves are taken over
+the model group."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
@@ -50,48 +57,63 @@ def gather_bytes(params: Dict[str, torch.Tensor], shards, rank: int) -> int:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     compress: bool = False, data=None,
-                    shards: Optional[Dict[str, Shard]] = None) -> Callable:
-    """Returns ``train_step(model, opt_state, batch[, comp_state],
+                    shards: Optional[Dict[str, Shard]] = None, model=None,
+                    slices: Optional[Dict] = None) -> Callable:
+    """Returns ``train_step(lm, opt_state, batch[, comp_state],
     times=None)``: the loss of ``batch`` under ``loss_fn``, its gradients
     with respect to every parameter (``torch.autograd.grad``; the step
     turns on grad for the model it trains), with ``compress`` the
     error-feedback int8 round trip (scales shared as the reference's
     stacked layers share them), then one ``adamw_update``, which
-    writes the model's parameters in place.  Returns ``(model,
+    writes the model's parameters in place.  Returns ``(lm,
     opt_state[, comp_state], metrics)`` with ``metrics`` = ``{"loss",
     "gnorm", "lr"}`` (float32 scalars), as the reference does.
 
     With ``data`` (the data group's ``Comm``) and ``shards`` (this rank's
     ``zero_shards``, which the launcher builds from its rules), ``batch``
     is this rank's rows of the global batch, ``opt_state`` holds this
-    rank's parts of the moments (``init_opt_state(model, ocfg, shards,
+    rank's parts of the moments (``init_opt_state(lm, ocfg, shards,
     data.rank)``), the gradients are summed over the group before the
     compression and the update (``sum_grads``), and ``loss`` is the
     global batch's (the ranks' terms summed); metrics add the bytes this
     rank handed to the gradient all-reduces (``"reduce_bytes"``) and to
     the parameters' all-gathers and broadcasts (``"gather_bytes"``).
 
+    With ``model`` (the model group's ``Comm``) and ``slices`` (this
+    rank's ``distributed.sharding.model_slices``, from which the model
+    was built), the step runs the model-parallel forward and backward;
+    metrics add the bytes this rank handed to the model group's
+    all-reduces in the step (``"model_bytes"``).
+
     A dict passed as ``times`` receives the seconds of the forward +
     backward (``"grad"``), the gradient all-reduce (``"reduce"``, 0
     without ``data``), the compression and update (``"update"``) and,
     with ``data``, the parameters' all-gather within it (``"gather"``),
-    each measured with the device synchronized.  ``grads_out``, a dict,
+    each measured with the device synchronized, and with ``model`` the
+    host seconds of the model group's all-reduces within the step
+    (``"model"``, most of them within ``"grad"``).  ``grads_out``, a dict,
     receives the gradients the update consumed (summed, before any
     compression), by name."""
     if (data is None) != (shards is None):
         raise ValueError("data and shards come together: a data group's "
                          "step updates this rank's shards of the moments")
+    if (model is None) != (slices is None):
+        raise ValueError("model and slices come together: a model group's "
+                         "step trains this rank's slices")
+    split = frozenset(n for n, sl in (slices or {}).items() if sl is not None)
 
-    def train_step(model: torch.nn.Module, opt_state: OptState, batch: Dict,
+    def train_step(lm: torch.nn.Module, opt_state: OptState, batch: Dict,
                    comp_state: Optional[CompressState] = None, *,
                    times: Optional[Dict[str, float]] = None,
                    grads_out: Optional[Dict[str, torch.Tensor]] = None):
-        model.requires_grad_(True)
-        params = dict(model.named_parameters())
+        lm.requires_grad_(True)
+        params = dict(lm.named_parameters())
         dev = next(iter(params.values())).device
+        if model is not None:
+            sent0, spent0 = model.reduce_bytes, model.reduce_s
         t0 = device_clock(dev) if times is not None else 0.0
         with torch.enable_grad():
-            loss = loss_fn(model, batch, cfg, data=data)
+            loss = loss_fn(lm, batch, cfg, data=data, model=model)
             grads = torch.autograd.grad(loss, list(params.values()))
         grads = {n: g.contiguous() for n, g in zip(params, grads)}
         loss = loss.detach()
@@ -108,9 +130,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if grads_out is not None:
             grads_out.update(grads)
         if compress:
-            grads, comp_state = ef_compress_grads(grads, comp_state, cfg)
+            grads, comp_state = ef_compress_grads(grads, comp_state, cfg,
+                                                  model, split)
         opt_state, info = adamw_update(params, grads, opt_state, opt_cfg,
-                                       shards=shards, data=data, times=times)
+                                       shards=shards, data=data, times=times,
+                                       model=model, split=split)
         del grads
         if times is not None:
             times["update"] = device_clock(dev) - t2
@@ -118,8 +142,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if data is not None:
             metrics["reduce_bytes"] = wire
             metrics["gather_bytes"] = gather_bytes(params, shards, data.rank)
+        if model is not None:
+            metrics["model_bytes"] = model.reduce_bytes - sent0
+            if times is not None:
+                times["model"] = model.reduce_s - spent0
         if compress:
-            return model, opt_state, comp_state, metrics
-        return model, opt_state, metrics
+            return lm, opt_state, comp_state, metrics
+        return lm, opt_state, metrics
 
     return train_step

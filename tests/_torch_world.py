@@ -734,10 +734,265 @@ def _elastic(comm, batches, ckpt):
     return out
 
 
-def dp_world(comm, cases, elastic_batches, ckpt):
+def _mesh_2x2_case(comm, batch, weights):
+    """llama SMOKE on a 2x2 mesh: this rank's ``data_shards`` of its
+    model slices, the shapes of its moments, and the clip norm of the
+    gradients summed over the data group (``_global_norm`` over the model
+    group)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import data_shards, rows_of
+    from repro_torch.models import loss_fn
+    from repro_torch.train import AdamWConfig, init_opt_state
+    from repro_torch.train.optimizer import _global_norm
+    from repro_torch.train.train_step import sum_grads
+    cfg = get_smoke("llama3_8b")
+    mesh = make_mesh(comm, 2, 2)
+    lm, slices = sliced_model(cfg, weights, mesh)
+    shards = data_shards(cfg, lm, mesh.data, 2)
+    opt = init_opt_state(lm, AdamWConfig(**DP_OPT), shards, mesh.data.rank)
+    lm.requires_grad_(True)
+    names, params = zip(*lm.named_parameters())
+    tb = {k: torch.as_tensor(v) for k, v in rows_of(batch, mesh.data).items()}
+    loss = loss_fn(lm, tb, cfg, data=mesh.data, model=mesh.model)
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    sum_grads(grads, mesh.data)
+    split = frozenset(n for n, sl in slices.items() if sl is not None)
+    return {"gnorm": float(_global_norm(grads, mesh.model, split)),
+            "shards": {n: (s.dim, s.start, s.size, s.owner)
+                       for n, s in shards.items()},
+            "slices": {n: None if sl is None else tuple(sl)
+                       for n, sl in slices.items()},
+            "local": {n: tuple(p.shape) for n, p in zip(names, params)},
+            "local_m": {n: tuple(t.shape) for n, t in opt.m.items()},
+            "coords": (mesh.data.rank, mesh.model.rank)}
+
+
+def dp_world(comm, cases, elastic_batches, ckpt, mesh_case):
     """The data-parallel training cases (``(arch, overrides, global
-    batches, weights)`` each) and the elastic checkpoint (llama SMOKE)."""
+    batches, weights)`` each), the elastic checkpoint (llama SMOKE) and
+    llama SMOKE's ZeRO shards and clip norm on a 2x2 mesh (``(batch,
+    weights)``)."""
     out = {arch: _dp_case(comm, arch, overrides, batches, weights)
            for arch, overrides, batches, weights in cases}
     out["elastic"] = _elastic(comm, elastic_batches, ckpt)
+    out["mesh_2x2"] = _mesh_2x2_case(comm, *mesh_case)
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_tp.py, test_torch_ep.py, test_torch_checkpoint.py: the model
+# axis
+# ---------------------------------------------------------------------------
+
+def sub_world(comm, size):
+    """A ``Comm`` of this rank's block of ``size`` consecutive ranks: the
+    world split into ``comm.size // size`` such blocks (every rank
+    creates every block's group, in order)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import Comm
+    if size == comm.size:
+        return comm
+    mine = None
+    for first in range(0, comm.size, size):
+        g = dist.new_group(list(range(first, first + size)))
+        if first <= comm.rank < first + size:
+            mine = g
+    return Comm(mine, device=comm.device)
+
+
+def sliced_model(cfg, weights, mesh, rules=None):
+    """A CPU model of ``cfg`` holding this model rank's slices (under
+    ``rules``, default ``train_rules``) of ``weights`` (numpy, by
+    parameter name): (model, slices)."""
+    from repro_torch.distributed.sharding import model_slices, narrow
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.models import init_model
+    m = 1 if mesh.model is None else mesh.model.size
+    i = 0 if mesh.model is None else mesh.model.rank
+    rules = train_rules(cfg, m) if rules is None else rules
+    slices = model_slices(cfg, rules, m, i)
+    lm = init_model(cfg, seed=None, device="cpu", slices=slices)
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            p.copy_(narrow(torch.as_tensor(weights[n]), slices[n]))
+    return lm, slices
+
+
+def whole_grads(grads, slices, model):
+    """Each gradient in the one-rank layout: a slice's all-gathered over
+    the model group (a collective)."""
+    from repro_torch.distributed.sharding import unslice
+    return {n: unslice(g, slices[n], model).numpy().copy()
+            for n, g in grads.items()}
+
+
+def _tp_case(comm, arch, overrides, d, m, batch, weights):
+    """This rank's loss and gradients of one SMOKE config on a (d, m)
+    mesh of the first ``d m`` ranks' blocks: the global loss, the
+    gradients summed over the data group and gathered to the one-rank
+    layout, and this rank's own (local) gradients."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import rows_of
+    from repro_torch.models import loss_fn
+    from repro_torch.train.train_step import sum_grads
+    cfg = get_smoke(arch).replace(**overrides)
+    mesh = make_mesh(sub_world(comm, d * m), d, m)
+    lm, slices = sliced_model(cfg, weights, mesh)
+    lm.requires_grad_(True)
+    names, params = zip(*lm.named_parameters())
+    tb = {k: torch.as_tensor(v) for k, v in rows_of(batch, mesh.data).items()}
+    loss = loss_fn(lm, tb, cfg, data=mesh.data, model=mesh.model)
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    loss = loss.detach()
+    if mesh.data is not None:
+        sum_grads(grads, mesh.data)
+        loss = mesh.data.psum(loss)
+    return {"loss": float(loss), "local": _np_dict(grads),
+            "whole": whole_grads(grads, slices, mesh.model),
+            "sliced": sorted(n for n, s in slices.items() if s is not None),
+            "coords": (None if mesh.data is None else mesh.data.rank,
+                       None if mesh.model is None else mesh.model.rank)}
+
+
+def _launcher_step(comm, batches):
+    """One launcher step of llama SMOKE at 2x2 from the seed-0 init: the
+    parameters after it in the one-rank layout."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import model_slices
+    from repro_torch.launch.mesh import make_mesh, train_rules
+    from repro_torch.launch.train import train
+    cfg = get_smoke("llama3_8b")
+    mesh = make_mesh(comm, 2, 2)
+    out = train(cfg, steps=1, batch=4, seq=64, lr=1e-3, ckpt=None,
+                device="cpu", batches=iter(batches), data=mesh.data,
+                model=mesh.model, log=lambda *a: None)
+    slices = model_slices(cfg, train_rules(cfg, 2), 2, mesh.model.rank)
+    params = dict(out["model"].named_parameters())
+    return {"params": whole_grads({n: p.detach() for n, p in
+                                   params.items()}, slices, mesh.model),
+            "history": out["history"]}
+
+
+def _vocab_parallel_ce(comm, x, head, labels):
+    """``layers.chunked_cross_entropy`` of llama SMOKE's widths with the
+    head's vocab columns over a model axis of ``comm``'s ranks: the loss
+    and its gradients with respect to ``x`` and the head (the one-rank
+    layout)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import Slice, unslice
+    from repro_torch.models.layers import chunked_cross_entropy
+    cfg = get_smoke("llama3_8b")
+    n = head.shape[1] // comm.size
+    sl = Slice(1, comm.rank * n, n)
+    xt = torch.as_tensor(x).requires_grad_(True)
+    ht = torch.as_tensor(head).narrow(*sl).clone().requires_grad_(True)
+    loss = chunked_cross_entropy(ht, xt, torch.as_tensor(labels), cfg,
+                                 model=comm)
+    gx, gh = torch.autograd.grad(loss, (xt, ht))
+    return {"loss": float(loss), "grad_x": gx.numpy(),
+            "grad_head": unslice(gh, sl, comm).numpy()}
+
+
+def tp_world(comm, cases, launcher_batches, ce_case):
+    """The TP cases (``key: (arch, overrides, d, m, batch, weights)``),
+    one launcher step at 2x2 and the vocab-parallel
+    ``chunked_cross_entropy`` (``(x, head, labels)``) over 4 ranks."""
+    out = {key: _tp_case(comm, *case) for key, case in cases.items()}
+    out["launcher"] = _launcher_step(comm, launcher_batches)
+    out["chunked_ce"] = _vocab_parallel_ce(comm, *ce_case)
+    return out
+
+
+def _ep_case(comm, cfg_kw, rules, x, weights):
+    """The MoE layer of ``ModelConfig(**cfg_kw)`` on a 1 x size mesh
+    under ``rules``: its output and the gradients of ``sum(out^2)`` and
+    of the aux loss, each in the one-rank layout."""
+    from repro_torch.distributed.sharding import model_slices, narrow
+    from repro_torch.models import ModelConfig
+    from repro_torch.models.moe import MoE, moe_apply
+    from repro_torch.models.layers import building
+    cfg = ModelConfig(**cfg_kw)
+    shapes = {n: tuple(np.shape(w)) for n, w in weights.items()}
+    names = ["layers.0.moe." + n for n in shapes]
+    full = model_slices(cfg, rules, comm.size, comm.rank,
+                        {n: shapes[n.split(".")[-1]] for n in names})
+    slices = {n.split(".")[-1]: s for n, s in full.items()}
+    parts = iter(slices[n] for n in ("router", "wi", "wg", "wo"))
+    with building(lambda w: torch.nn.Parameter(
+            narrow(w, next(parts)).clone(), requires_grad=False)):
+        moe = MoE(cfg, "cpu")
+    with torch.no_grad():
+        for n, p in moe.named_parameters():
+            p.copy_(narrow(torch.as_tensor(weights[n]), slices[n]))
+    moe.requires_grad_(True)
+    xt = torch.as_tensor(x)
+    names, params = zip(*moe.named_parameters())
+    out, aux = moe_apply(moe, xt, cfg, model=comm)
+    g_out = torch.autograd.grad(torch.sum(out ** 2), params,
+                                retain_graph=True)
+    g_aux = torch.autograd.grad(aux, params, allow_unused=True)
+    g_aux = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(g_aux, params)]
+    return {"out": out.detach().numpy(), "aux": float(aux),
+            "grad_out": whole_grads(dict(zip(names, g_out)), slices, comm),
+            "grad_aux": whole_grads(dict(zip(names, g_aux)), slices, comm),
+            "local_rows": tuple(moe.wi.shape)}
+
+
+def ep_world(comm, cases):
+    """The MoE layer cases (``key: (cfg kwargs, rules, x, weights)``)."""
+    return {key: _ep_case(comm, *case) for key, case in cases.items()}
+
+
+def elastic_mesh(comm, batches, ckpt):
+    """llama SMOKE trained 2 steps at 2x2 with a checkpoint after the
+    second, then the checkpoint carried 2x2 -> 4x1 -> 1x1 -> 2x2: at each
+    mesh every rank restores its part (``restore_sharded``; ``restore``
+    at 1x1) and the mesh saves it again under a directory of its own
+    (step 2); then a run resumed at 4x1, and one at 1x1, takes the third
+    step.  Returns the directories and the resumed runs' first steps."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import model_slices
+    from repro_torch.launch.mesh import make_mesh, train_rules
+    from repro_torch.launch.train import data_shards, train
+    from repro_torch.models import init_model
+    from repro_torch.train import (AdamWConfig, init_opt_state, restore,
+                                   restore_sharded, save, save_sharded)
+    cfg = get_smoke("llama3_8b")
+    kw = dict(batch=4, seq=64, lr=1e-3, device="cpu", log=lambda *a: None)
+    ocfg = AdamWConfig(lr=1e-3, warmup=1, total_steps=2)
+    dirs = {k: os.path.join(ckpt, k) for k in ("2x2", "4x1", "1x1", "2x2b")}
+    first = make_mesh(comm, 2, 2)
+    train(cfg, steps=2, ckpt=dirs["2x2"], ckpt_every=2,
+          batches=iter(batches), data=first.data, model=first.model, **kw)
+    for src, dst, (d, m) in (("2x2", "4x1", (4, 1)), ("1x1", "2x2b", (2, 2))):
+        mesh = first if (d, m) == (2, 2) else make_mesh(comm, d, m)
+        slices = (None if mesh.model is None else
+                  model_slices(cfg, train_rules(cfg, m), m, mesh.model.rank))
+        lm = init_model(cfg, seed=None, device="cpu", slices=slices)
+        shards = data_shards(cfg, lm, mesh.data, m)
+        step, opt = restore_sharded(dirs[src], lm, ocfg, shards,
+                                    mesh.data.rank, slices=slices)
+        save_sharded(dirs[dst], step, lm, opt, ocfg, shards, mesh.data,
+                     model=mesh.model, slices=slices)
+        if dst == "4x1" and comm.rank == 0:
+            lm = init_model(cfg, seed=None, device="cpu")
+            step, state = restore(dirs["4x1"], template={
+                "params": lm, "opt": init_opt_state(lm, ocfg)})
+            save(dirs["1x1"], step, state)
+        comm.barrier()
+    resumed = {}
+    for d, data in ((4, comm), (1, None)):
+        if data is None and comm.rank != 0:
+            continue
+        out = train(cfg, steps=3, ckpt=dirs["2x2"], ckpt_every=100,
+                    batches=iter(batches[2:]), data=data, **kw)
+        resumed[d] = {"start": out["start"],
+                      "params": _np_dict(dict(out["model"]
+                                              .named_parameters()))}
+    comm.barrier()
+    return {"dirs": dirs, "resumed": resumed}

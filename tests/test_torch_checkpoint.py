@@ -4,7 +4,10 @@ checkpoint, float32 and bf16, restored by ``interop.checkpoint_from_jax``
 gives the reference's next loss: 1e-5 relative in float32, 2e-2 in bf16,
 whose forwards round differently in the two packages), the port's own
 round trip bit for bit, and ``launch.train``: training, checkpointing
-and resuming equal to an unbroken run."""
+and resuming equal to an unbroken run.  On a gloo world of 4 CPU ranks,
+a checkpoint written on a (data, model) mesh of 2x2 moves to 4x1, to
+one rank and back to 2x2, each mesh's own save of it equal bit for bit
+in the one-rank layout."""
 import numpy as np
 import pytest
 import torch
@@ -125,8 +128,8 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert again["opt"].step == 6 and latest_step(ck) == 6
     text = capsys.readouterr().out
     assert "resumed from step 4" in text and "step    5 loss=" in text
-    with pytest.raises(ValueError, match="item 10"):
-        launch.main(argv + ["--mesh", "2x2"])
+    with pytest.raises(ValueError, match="item 15"):
+        launch.main(argv[:1] + ["mamba2_1_3b"] + argv[2:] + ["--mesh", "2x2"])
 
 
 def test_resume_continues_like_an_unbroken_run(tmp_path):
@@ -149,3 +152,38 @@ def test_resume_continues_like_an_unbroken_run(tmp_path):
     for (n, p), q in zip(whole["model"].named_parameters(),
                          resumed["model"].parameters()):
         assert torch.equal(p, q), n
+
+
+@pytest.fixture(scope="module")
+def elastic(tmp_path_factory):
+    import _torch_world as W
+    from repro_torch import configs
+    from repro_torch.data import random_batch
+    cfg = configs.get_smoke("llama3_8b")
+    batches = [random_batch(cfg, b=4, s=64, seed=300 + i) for i in range(3)]
+    ranks = W.world(W.elastic_mesh, batches,
+                    str(tmp_path_factory.mktemp("mesh_ckpt")),
+                    tmp_path=tmp_path_factory.mktemp("mesh"), p=4)
+    return ranks
+
+
+def test_elastic_checkpoint_moves_between_meshes(elastic):
+    """Saved at 2x2 (the model slices and their ZeRO'd moments gathered
+    into the one-rank layout), restored and saved again at 4x1, at 1x1
+    and at 2x2: every array equal bit for bit to the first save; a run
+    resumed at 4x1 or at 1x1 starts at step 2, and the two take the next
+    step alike (within 1e-6: the data ranks sum their rows in another
+    order)."""
+    from repro_torch.train.checkpoint import read_checkpoint
+    dirs = elastic[0]["dirs"]
+    step, want = read_checkpoint(dirs["2x2"])
+    assert step == 2 and len(want) > 1
+    for k in ("4x1", "1x1", "2x2b"):
+        got_step, got = read_checkpoint(dirs[k])
+        assert got_step == 2 and set(got) == set(want), k
+        for n, w in want.items():
+            assert got[n].dtype == w.dtype and torch.equal(got[n], w), (k, n)
+    resumed = elastic[0]["resumed"]
+    assert resumed[4]["start"] == resumed[1]["start"] == 2
+    for n, w in resumed[1]["params"].items():
+        assert np.max(np.abs(resumed[4]["params"][n] - w)) <= 1e-6, n

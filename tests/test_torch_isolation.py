@@ -135,13 +135,15 @@ def test_training_stands_alone_and_defaults_to_cuda(tmp_path):
 def test_data_parallel_training_stands_alone_and_defaults_to_cuda(tmp_path):
     """The sharding rules and the mesh are among the files checked above;
     ``--mesh Dx1`` trains D ranks on the card unless asked for the CPU,
-    and a model axis wider than 1 names ROADMAP's item 10."""
+    and the SSM family on a model axis wider than 1 names ROADMAP's item
+    15."""
     from repro_torch.launch import train as launch
     assert {"sharding.py", "mesh.py"} <= {p.name for p in PORT_FILES}
     argv = ["--arch", "llama3_8b", "--smoke", "--steps", "2", "--batch",
             "2", "--seq", "64", "--ckpt", str(tmp_path / "ck")]
-    with pytest.raises(ValueError, match="item 10"):
-        launch.main(argv + ["--mesh", "2x2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="item 15"):
+        launch.main(argv[:1] + ["mamba2_1_3b"] + argv[2:]
+                    + ["--mesh", "2x2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch.main(argv + ["--mesh", "2x1"])

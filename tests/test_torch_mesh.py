@@ -148,17 +148,47 @@ def test_zero_pspec_folds_data_into_the_reference_dims(arch):
 
 
 @pytest.mark.parametrize("d,m", [(1, 1), (4, 1), (2, 2), (1, 16)])
-def test_make_mesh_runs_a_data_axis_only(d, m):
-    """``make_mesh(comm, d, m)`` gives the data group: the comm itself
-    (none for one rank); a model axis wider than 1 raises naming
-    ROADMAP's item 10."""
+def test_make_mesh_runs_a_data_axis_only(d, m, monkeypatch):
+    """``make_mesh(comm, d, m)`` puts rank r at data index r // m and
+    model index r % m (``jax.make_mesh``'s device order): its data group
+    is the ranks of its model index, its model group those of its data
+    index; a group of one rank is None and a group of the whole world is
+    the comm itself.  Every rank creates every new group in the same
+    order (``torch.distributed.new_group`` is collective over the
+    world); a mesh that does not fill the world raises."""
     import types
-    comm = types.SimpleNamespace(size=d * m, rank=0)
-    if m > 1:
-        with pytest.raises(ValueError, match="item 10"):
-            mesh.make_mesh(comm, d, m)
-        return
-    got = mesh.make_mesh(comm if d > 1 else None, d, m)
-    assert got is (comm if d > 1 else None)
+
+    import torch.distributed as dist
+
+    import repro_torch.distributed as rdist
+    created = []
+    monkeypatch.setattr(dist, "new_group",
+                        lambda ranks: created.append(list(ranks)) or
+                        list(ranks))
+
+    class FakeComm:
+        def __init__(self, group, device=None):
+            self.members, self.device = group, device
+
+    monkeypatch.setattr(rdist, "Comm", FakeComm)
+    p = d * m
+    orders = []
+    for r in range(p):
+        created.clear()
+        comm = types.SimpleNamespace(size=p, rank=r, device="cpu")
+        got = mesh.make_mesh(comm if p > 1 else None, d, m)
+        orders.append(list(created))
+        for group, want, index in (
+                (got.data, [j * m + r % m for j in range(d)], r // m),
+                (got.model, [r // m * m + j for j in range(m)], r % m)):
+            assert want.index(r) == index
+            if len(want) == 1:
+                assert group is None
+            elif len(want) == p:
+                assert group is comm
+            else:
+                assert group.members == want and group.device == "cpu"
+    assert all(o == orders[0] for o in orders)
+    assert len(orders[0]) == (d + m if 1 < d < p else 0)
     with pytest.raises(ValueError, match="ranks"):
-        mesh.make_mesh(comm, d + 1, 1)
+        mesh.make_mesh(types.SimpleNamespace(size=p, rank=0), d + 1, m)

@@ -67,11 +67,14 @@ def dp(tmp_path_factory):
                pairs[a][3].named_parameters()})
              for i, (a, o) in enumerate(CASES)]
     elastic = _batches(configs.get_smoke("llama3_8b"), 100)
+    mesh_case = (_batches(configs.get_smoke("llama3_8b"), 200)[0],
+                 cases[0][3])
     ranks = W.world(W.dp_world, cases, elastic,
-                    str(tmp_path_factory.mktemp("ckpt")),
+                    str(tmp_path_factory.mktemp("ckpt")), mesh_case,
                     tmp_path=tmp_path_factory.mktemp("dp"), p=4)
     return {"cases": {a: (o, b, w) for a, o, b, w in cases},
-            "pairs": pairs, "elastic": elastic, "ranks": ranks}
+            "pairs": pairs, "elastic": elastic, "ranks": ranks,
+            "mesh_case": mesh_case}
 
 
 def _jax_whole_batch(pair, batch):
@@ -241,3 +244,55 @@ def test_elastic_checkpoint_resumes_at_another_size(dp):
     for n, p in model.named_parameters():
         np.testing.assert_array_equal(ranks[0][2]["memory_params"][n],
                                       p.detach().numpy(), n)
+
+
+def test_zero_shards_split_local_slices_at_2x2(dp):
+    """On a 2x2 mesh each rank's moments are ZeRO shards of its model
+    slices: a dim on "model" is never the ZeRO dim, a split dim gives
+    the rank its half of the slice (by data rank), the moments have the
+    part's shape, and the rank of the other data index holds the other
+    half of the same slice."""
+    ranks = [r["mesh_2x2"] for r in dp["ranks"]]
+    assert [r["coords"] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    split = 0
+    for r in ranks:
+        for n, (dim, start, size, owner) in r["shards"].items():
+            sl, local = r["slices"][n], list(r["local"][n])
+            if sl is not None:
+                assert dim != sl[0], n
+                assert local[sl[0]] == sl[2]
+            if owner is not None:                 # a layer owned whole
+                if owner == r["coords"][0]:
+                    assert r["local_m"][n] == tuple(local)
+                else:
+                    assert n not in r["local_m"]
+                continue
+            if dim is not None:
+                assert size * 2 == local[dim] and start == r["coords"][0] * size
+                local[dim] = size
+                split += sl is not None
+            assert r["local_m"][n] == tuple(local), n
+    assert split > 0
+    for a, b in ((0, 2), (1, 3)):           # one model index, two data
+        assert ranks[a]["slices"] == ranks[b]["slices"]
+
+
+def test_global_norm_at_2x2_matches_one_rank(dp):
+    """The clip norm on a 2x2 mesh (the sliced leaves' squares summed
+    over the model group, each replicated leaf counted once) against one
+    rank's on the whole batch, within 1e-6 relative; equal on every
+    rank."""
+    from repro_torch.models import loss_fn
+    from repro_torch.train.optimizer import _global_norm
+    batch, weights = dp["mesh_case"]
+    cfg = configs.get_smoke("llama3_8b")
+    model = W.model_from_numpy(cfg, weights)
+    model.requires_grad_(True)
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, {k: torch.as_tensor(v) for k, v in batch.items()},
+                   cfg)
+    want = float(_global_norm(dict(zip(names,
+                                       torch.autograd.grad(loss, params)))))
+    got = [r["mesh_2x2"]["gnorm"] for r in dp["ranks"]]
+    assert got == [got[0]] * 4
+    assert abs(got[0] - want) <= 1e-6 * want
