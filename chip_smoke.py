@@ -175,11 +175,31 @@ CUDA toolkit's nvcc.  It
     routed items a rank; each rank's step split with the model group's
     all-reduces and its bytes to each group; then the SMOKE configs in
     float32 on meshes of the card's ranks (llama 2x2 with ``tp_shardmap``
-    False and True, phi3.5-moe 1x4, qwen2-vl and whisper 1x2) against one
-    rank on the card;
-25. prints the kernel table as one JSON line (with each rank's launches
+    False and True, phi3.5-moe 1x4, qwen2-vl and whisper 1x2; the
+    attention in the head_dim layout of the launcher's rules, 8 heads not
+    dividing the production axis) against one rank on the card;
+25. trains the last two families on a model axis, with phase 23's oracle
+    and checks: 25a recurrentgemma-2b at full width (depth
+    TRAIN_HYBRID_DEPTH, one whole (rglru, rglru, attn) pattern) on a 2x2
+    mesh -- the local attention in the head_dim layout (q and k gathered
+    over the model group for RoPE), the RG-LRU on its channels, the MLP
+    width and vocab halved -- and 25b mamba2-1.3b at full width (depth
+    TRAIN_SSM_DEPTH) on a 2x2 mesh, whose rules slice no leaf, so every
+    model rank holds and runs the whole model; then SMOKE_RECURRENT_CASES
+    in float32 on meshes of the card's ranks against one rank;
+26. runs the port's telemetry smoke (``repro_torch.telemetry.smoke``) on
+    4 ranks on the card: a 3-step sharded adaptive session and a
+    16-request sharded serve trace under tracing; writes and validates
+    chiprun_out/telemetry_smoke/trace.json (every rank's spans, pid =
+    rank) and counters.jsonl, checks every required span and counter,
+    and holds each of the four kernels it launched (sfc_keys,
+    prefix_scan, ksection_hist, fem_matvec) against its plain version on
+    every input; then ``greedy_graph_partition`` (host numpy) on the
+    dual graph of phase 2's step-0 mesh at p = 64, its cut, imbalance
+    and seconds beside the session's k-section partition's;
+27. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-24 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    14-26 in ``launches_by_path``, the flash kernel's d = 256 reading as
     ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
     and ``at_cross_decode``, and qwen2-vl's as ``at_qwen2_vl``), the
     card's name and power limit, and ``{"ok": true, ...}`` as the last
@@ -213,8 +233,16 @@ PEAK_FP32_PER_S = 67e12
 TRACED_STEPS = 2        # session steps run under the profiler
 
 
+#: the whole log, beside standard output (whose end is all a remote run
+#: may show); opened by ``main``, so the ranks' processes only print
+LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
+_LOG_FILE = []
+
+
 def log(*args):
     print(*args, flush=True)
+    for f in _LOG_FILE:
+        print(*args, file=f, flush=True)
 
 
 def device_events(prof):
@@ -501,6 +529,13 @@ def run_session(dev, rounds=12, max_tets=3_000_000):
         if state.repartitioned:
             balanced["coords"] = state.mesh.barycenters().astype(np.float32)
             balanced["step"] = state.step
+        if state.step == 0:         # phase 26's graph-versus-SFC reading
+            parts = np.asarray(state.mesh.leaf_payload["parts"]).copy()
+            balanced["step0"] = dict(
+                n=state.mesh.n_tets, parts=parts,
+                adjacency=state.mesh.face_adjacency(),
+                t_balance=stats.t_balance,
+                repartitioned=state.repartitioned)
         log(f"step {state.step}: n_tets={stats.n_tets} cg_iters="
             f"{stats.cg_iters} err_l2={stats.err_l2:.6e} imbalance="
             f"{stats.imbalance:.6f} t_solve={stats.t_solve:.4f}s "
@@ -2835,10 +2870,10 @@ FULL_SHARDED_SPEC = dict(SERVE_SPEC, prefill="full", decode="sharded",
                          rebalance="kv")
 # the depth of the model phase 18b shards (of mamba2's 48 layers): each of
 # its migrations ships every rank's slot rows through the host, and a
-# mamba2 row grows with the depth (101,916,676 B at 48 layers); 3 layers
+# mamba2 row grows with the depth (101,916,676 B at 48 layers); 2 layers
 # keep every path the phase checks and cut its time (the script's time
-# limit)
-MAMBA_SHARDED_DEPTH = 3
+# limit; 3 until the hybrid and SSM families' training phases joined)
+MAMBA_SHARDED_DEPTH = 2
 # phase 19's flash reading: recurrentgemma's local attention at the longest
 # prompt of swa_trace (10 query heads over 1 kv head, d = 256, window 2048)
 HYBRID_FLASH_S = 6144
@@ -3269,11 +3304,12 @@ def serve_qwen2_vl(dev):
 # steps: each migration's fixed-capacity exchange ships every row of every
 # rank through the host, ~10 s at 2,048 positions (an H100 80GB HBM3 at
 # 700 W, 4 gloo ranks sharing it); the depth of the model 20b shards (of
-# whisper's 24 + 24 layers), which a slot row grows with: 4 + 4 keep every
-# path the phase checks and cut its migrations to a sixth (the script's
-# time limit)
+# whisper's 24 + 24 layers), which a slot row grows with: 2 + 2 keep every
+# path the phase checks and cut its migrations to a twelfth (the script's
+# time limit; 4 + 4 until the hybrid and SSM families' training phases
+# joined)
 WHISPER_MAX_SEQ = 448
-WHISPER_SHARDED_DEPTH = 4
+WHISPER_SHARDED_DEPTH = 2
 WHISPER_SHARDED_SPEC = dict(SERVE_SPEC, max_seq=WHISPER_MAX_SEQ,
                             rebalance_every=16, prefill="cheap",
                             decode="sharded", rebalance="kv")
@@ -3864,10 +3900,10 @@ def train_card_vs_cpu(dev):
 # and 23 run alone but 10.36 GB in the whole script (this process holds
 # more by then), a margin one run's variation may cross; 5 left 16.7 GB
 # alone.  3 layers and 2 steps since the model axis's phases joined the
-# script (its time limit).  The one-rank oracle runs after the
-# data-parallel run.  The SMOKE variant runs 4 layers, whose moments split
-# by layer.
-TRAIN_DP_DEPTH = 3
+# script (its time limit), 2 layers since the hybrid and SSM families'
+# did.  The one-rank oracle runs after the data-parallel run.  The SMOKE
+# variant runs 4 layers, whose moments split by layer.
+TRAIN_DP_DEPTH = 2
 SMOKE_DP_LAYERS = 4
 # the ranks' allocator maps memory as it grows rather than in fixed
 # segments, so four processes on one card do not strand reserved blocks
@@ -4108,7 +4144,8 @@ STEP_KEYS = ("t_pack", "t_grad", "t_model", "t_reduce", "t_update",
 BYTE_KEYS = ("model_bytes", "reduce_bytes", "gather_bytes")
 
 
-def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False):
+def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False,
+                  expect_slices=True):
     """Phases 23 and 24a-b: ``arch`` at full width, ``depth`` layers,
     bf16, remat, on a (d, m) mesh of SHARDED_P ranks on the card: a
     global batch of TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic
@@ -4124,7 +4161,8 @@ def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False):
     forward + backward, the model group's all-reduces, the data group's
     all-reduce, update, all-gather), its bytes to each group and its
     peak memory; with ``routing``, each layer's routed items a model rank
-    and their imbalance."""
+    and their imbalance.  ``expect_slices=False`` (mamba2): the rules
+    slice no leaf, so every rank holds every leaf, bit for bit alike."""
     import statistics
     from repro_torch.configs import get_config
     free_memory()
@@ -4159,8 +4197,12 @@ def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False):
     log(f"  worst summed gradient leaf {g_worst[0]} {g_worst[1]:.4e} of max "
         f"|g| (limit {TRAIN_DP_GRAD_TOL}); parameters after step 0 within "
         f"2 lr + 1 ulp (worst margin {p_worst[1]:.3e}, {p_worst[0]})")
-    check(m == 1 or len(sliced) > 0, f"{label}: no leaf sliced on the model "
-          "axis")
+    if expect_slices:
+        check(m == 1 or len(sliced) > 0, f"{label}: no leaf sliced on the "
+              "model axis")
+    else:
+        check(not sliced, f"{label}: leaves sliced on the model axis: "
+              f"{sorted(sliced)[:4]}")
     for r, o in enumerate(outs):
         for k, n in enumerate(names):
             twin = r % m if n in sliced else 0
@@ -4326,8 +4368,9 @@ def train_dp_smoke(dev):
 
 
 # phases 24a-b: the model axis, at full width (the oracle and checks are
-# phase 23's)
-TRAIN_TP_MESH, TRAIN_TP_DEPTH, TRAIN_TP_STEPS = (2, 2), 4, 3    # llama3-8b
+# phase 23's); 24a at 2 layers and 2 steps since the hybrid and SSM
+# families' phases joined the script (4 and 3 before; its time limit)
+TRAIN_TP_MESH, TRAIN_TP_DEPTH, TRAIN_TP_STEPS = (2, 2), 2, 2    # llama3-8b
 TRAIN_EP_MESH, TRAIN_EP_DEPTH, TRAIN_EP_STEPS = (1, 4), 2, 2    # phi3.5-moe
 # phase 24 SMOKE: float32, the card's mesh against one rank on the card
 SMOKE_MESH_CASES = (("llama3_8b", {}, 2, 2),
@@ -4416,13 +4459,15 @@ def smoke_mesh_rank(comm, cases):
     return out
 
 
-def train_mesh_smoke(dev):
-    """Phase 24 SMOKE: the SMOKE configs in float32 on their meshes of
-    the card's ranks (llama at 2x2 with ``tp_shardmap`` False and True,
-    phi3.5-moe at 1x4, qwen2-vl and whisper at 1x2) against one rank on
-    the card, from the same seed-0 weights (each rank draws every leaf
-    and keeps its slice) and ``random_batch(cfg, 4, 64, seed=0)``: the
-    loss within SMOKE_DP_LOSS_RTOL relative, every gradient leaf within
+def train_mesh_smoke(dev, mesh_cases=SMOKE_MESH_CASES):
+    """Phases 24 and 25 SMOKE: the SMOKE configs in float32 on their
+    meshes of the card's ranks (24: llama at 2x2 with ``tp_shardmap``
+    False and True, phi3.5-moe at 1x4, qwen2-vl and whisper at 1x2, the
+    attention in the head_dim layout of the launcher's rules; 25:
+    SMOKE_RECURRENT_CASES) against one rank on the card, from the same
+    seed-0 weights (each rank draws every leaf and keeps its slice) and
+    ``random_batch(cfg, 4, 64, seed=0)``: the loss within
+    SMOKE_DP_LOSS_RTOL relative, every gradient leaf within
     SMOKE_DP_GRAD_TOL of its max |g|."""
     import numpy as np
     from repro_torch.configs import get_smoke
@@ -4430,7 +4475,7 @@ def train_mesh_smoke(dev):
     cases = [(arch, over, d, m,
               random_batch(get_smoke(arch).replace(**over),
                            b=SMOKE_MESH_BATCH, s=SMOKE_MESH_SEQ, seed=0))
-             for arch, over, d, m in SMOKE_MESH_CASES]
+             for arch, over, d, m in mesh_cases]
     outs, _ = start_world(smoke_mesh_rank, cases, join_s=300.0)
     for (arch, over, d, m, batch), got in zip(cases, outs[0]):
         cfg = get_smoke(arch).replace(**over)
@@ -4448,6 +4493,193 @@ def train_mesh_smoke(dev):
             f"card): loss within {rel:.3e} relative (limit "
             f"{SMOKE_DP_LOSS_RTOL}), gradients within {g:.3e} of max |g| "
             f"(limit {SMOKE_DP_GRAD_TOL})")
+
+
+# ---------------------------------------------------------------------------
+# phases 25a-b: the hybrid and SSM families on the model axis, at full
+# width (the oracle and checks are phase 23's).  recurrentgemma-2b: one
+# whole (rglru, rglru, attn) pattern; head_dim, MLP and RG-LRU width and
+# vocab halved over the model groups.  mamba2-1.3b: the rules slice no
+# leaf (d_ff = 0; vocab 50,280 does not divide 16), so every model rank
+# runs the whole model; 4 of 48 layers keep the data group's float32
+# gradient all-reduce (which the depth sets) to a few seconds a step
+# through gloo's host staging (the script's time limit)
+# ---------------------------------------------------------------------------
+
+TRAIN_HYBRID_MESH, TRAIN_HYBRID_DEPTH, TRAIN_HYBRID_STEPS = (2, 2), 3, 2
+TRAIN_SSM_MESH, TRAIN_SSM_DEPTH, TRAIN_SSM_STEPS = (2, 2), 4, 2
+# phase 25 SMOKE: float32, the card's meshes against one rank on the card
+SMOKE_RECURRENT_CASES = (("recurrentgemma_2b", {}, 1, 4),
+                         ("recurrentgemma_2b", {}, 2, 2),
+                         ("recurrentgemma_2b", {"tp_shardmap": True}, 2, 2),
+                         ("mamba2_1_3b", {}, 2, 2))
+
+
+def train_hybrid_mesh(dev):
+    """Phase 25a: recurrentgemma-2b at full width on a 2x2 mesh
+    (``train_on_mesh``): the local attention in the head_dim layout (q
+    and k gathered over the model group for RoPE), the RG-LRU on its
+    channels, the GeGLU MLP on its columns, the vocab halved."""
+    return train_on_mesh(dev, "phase 25a", "recurrentgemma_2b",
+                         TRAIN_HYBRID_DEPTH, *TRAIN_HYBRID_MESH,
+                         TRAIN_HYBRID_STEPS)
+
+
+def train_ssm_mesh(dev):
+    """Phase 25b: mamba2-1.3b at full width on a 2x2 mesh
+    (``train_on_mesh``): no leaf sliced, every model rank holds and runs
+    the whole model on its data index's rows."""
+    return train_on_mesh(dev, "phase 25b", "mamba2_1_3b", TRAIN_SSM_DEPTH,
+                         *TRAIN_SSM_MESH, TRAIN_SSM_STEPS,
+                         expect_slices=False)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the port's telemetry smoke on the card, and the graph baseline
+# ---------------------------------------------------------------------------
+
+#: the wrapper each of the smoke's kernels is launched through, in
+#: ``kernels.ops``'s namespace, and what a call keeps for the check: its
+#: inputs, or None where the wrapper returns without a launch (nothing
+#: to compute: no items, no elements)
+SMOKE_KERNEL_CALLS = {
+    "sfc_keys": ("sfc_keys_cuda", lambda grid, **kw: (
+        (grid.clone(), kw) if grid.shape[0] else None)),
+    "prefix_scan": ("exclusive_scan_cuda", lambda x: (
+        x.clone() if x.shape[0] else None)),
+    "ksection_hist": ("ksection_hist_cuda", lambda keys, w, cuts: (
+        (keys.clone(), w.clone(), cuts.clone())
+        if keys.shape[0] and cuts.shape[0] else None)),
+    "fem_matvec": ("fem_matvec_cuda", lambda tets, kel, u, n_out, plan=None: (
+        (tets.clone(), kel.clone(), u.clone(), n_out)
+        if tets.shape[0] and n_out else None)),
+}
+GREEDY_P = 64
+
+
+def telemetry_smoke_rank(comm):
+    """One rank of phase 26: ``repro_torch.telemetry.smoke.rank_run``
+    (the 3-step sharded adaptive session and the 16-request sharded
+    serve trace under this rank's tracer) with the launch counts from 0;
+    every input of the four kernels it launches is kept, and after the
+    run each kernel is held against its plain version on each of them
+    (sfc_keys, prefix_scan, ksection_hist bit for bit; fem_matvec within
+    1e-5 of max |y|, another summation order)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fem_matvec import fem_matvec_cuda
+    from repro_torch.kernels.sfc_keys import sfc_keys_cuda
+    from repro_torch.telemetry import smoke
+    dev = torch.device(comm.device)
+    ops.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        seen = {k: stack.enter_context(recorded_calls(ops, fn, keep))
+                for k, (fn, keep) in SMOKE_KERNEL_CALLS.items()}
+        t0 = time.perf_counter()
+        out = smoke.rank_run(comm)
+        sync(dev)
+        out["wall"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    seen = {k: [x for x in v if x is not None] for k, v in seen.items()}
+    agree = {"inputs": {k: len(v) for k, v in seen.items()}}
+    agree["sfc_keys"] = all(
+        torch.equal(sfc_keys_cuda(g, **kw).to(torch.int64),
+                    (ref.hilbert_keys_ref if kw.get("curve", "hilbert")
+                     == "hilbert" else ref.morton_keys_ref)(
+                         g, kw.get("bits", 10)))
+        for g, kw in seen["sfc_keys"])
+    agree["prefix_scan"] = all(
+        torch.equal(ops.exclusive_scan_cuda(x), ref.exclusive_scan_ref(x))
+        for x in seen["prefix_scan"])
+    agree["ksection_hist"] = hist_agreement(seen["ksection_hist"])
+    worst = 0.0
+    for tets, kel, u, n_out in seen["fem_matvec"]:
+        want = ref.fem_matvec_kel_ref(tets, kel, u, n_out)
+        got = fem_matvec_cuda(tets, kel, u, n_out)
+        worst = max(worst, float((got - want).abs().max())
+                    / max(float(want.abs().max()), 1e-30))
+    agree["fem_matvec"] = worst
+    out["agree"] = agree
+    return out
+
+
+def graph_versus_sfc(step0):
+    """The paper's graph-versus-SFC comparison on phase 2's step-0 mesh:
+    ``greedy_graph_partition`` (host numpy, the ParMETIS stand-in) of its
+    dual graph at p = GREEDY_P against the session's own k-section
+    partition of the same mesh (unit weights both): cut, imbalance,
+    seconds.  Host code; nothing of it is timed as a kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.core import greedy_graph_partition
+    from repro_torch.core.metrics import quality
+    n, adj = step0["n"], step0["adjacency"]
+    check(len(step0["parts"]) == n, "phase 2's step-0 parts do not cover "
+          "its mesh")
+    t0 = time.perf_counter()
+    greedy = greedy_graph_partition(n, adj, np.ones(n), GREEDY_P)
+    t_greedy = time.perf_counter() - t0
+    w = torch.ones(n, dtype=torch.float32)
+    a = torch.as_tensor(adj)
+    rows = {}
+    for name, parts in (("greedy graph growing", greedy),
+                        ("k-section (phase 2, step 0)", step0["parts"])):
+        q = quality(torch.as_tensor(parts).long(), w, GREEDY_P, a)
+        rows[name] = (int(q.cut), float(q.imbalance))
+    check(greedy.min() >= 0 and greedy.max() < GREEDY_P,
+          "greedy parts out of range")
+    g, k = rows["greedy graph growing"], rows["k-section (phase 2, step 0)"]
+    log(f"phase 26 graph vs SFC on phase 2's step-0 mesh ({n} tets, "
+        f"{len(adj)} dual-graph links, p = {GREEDY_P}, unit weights): "
+        f"greedy graph growing cut {g[0]} imbalance {g[1]:.6f} in "
+        f"{t_greedy:.3f} s (host numpy); k-section cut {k[0]} imbalance "
+        f"{k[1]:.6f}, its step's t_balance {step0['t_balance']:.4f} s "
+        f"(repartitioned {step0['repartitioned']})")
+    return dict(greedy=g, ksection=k, t_greedy=t_greedy)
+
+
+def telemetry_smoke_on_card(dev, step0):
+    """Phase 26: ``repro_torch.telemetry.smoke`` on SHARDED_P ranks on the
+    card (``telemetry_smoke_rank``; its ``report`` writes and validates
+    trace.json and counters.jsonl under chiprun_out/telemetry_smoke and
+    checks every required span on every rank and every required counter
+    in rank 0's totals); the kernels its ranks launched held against
+    their plain versions on every input; then, with phase 2's step-0
+    mesh, ``graph_versus_sfc``."""
+    from repro_torch.telemetry import smoke
+    outs, backend = start_world(telemetry_smoke_rank, join_s=600.0)
+    out_dir = os.path.join(ROOT, "chiprun_out", "telemetry_smoke")
+    ok, summary = smoke.report(outs, out_dir)
+    check(ok, f"telemetry smoke: missing spans {summary['missing_spans']}, "
+          f"missing counters {summary['missing_counters']}")
+    totals = summary["totals"]
+    log(f"phase 26 telemetry smoke ({backend}): wrote and validated "
+        f"{os.path.relpath(summary['trace'], ROOT)} ({sum(summary['spans'])}"
+        f" spans: {summary['spans']} by rank, each under its rank as pid) "
+        f"and {os.path.relpath(summary['jsonl'], ROOT)}; every required "
+        f"span on every rank; rank 0's counter totals "
+        f"{ {k: totals[k] for k in sorted(totals)} }; wall by rank "
+        f"{[round(o['wall'], 3) for o in outs]} s")
+    for r, o in enumerate(outs):
+        a, c = o["agree"], o["launches"]
+        for name in ("sfc_keys", "prefix_scan", "ksection_hist",
+                     "fem_matvec"):
+            check(c[name] > 0, f"rank {r}: {name} was not launched on the "
+                  "telemetry smoke's path")
+            check(a["inputs"][name] == c[name], f"rank {r}: {name} kept "
+                  f"{a['inputs'][name]} inputs for {c[name]} launches")
+        check(a["sfc_keys"] and a["prefix_scan"],
+              f"rank {r}: sfc_keys or prefix_scan != its plain version")
+        check_hist_agreement(a["ksection_hist"], c["ksection_hist"],
+                             f"phase 26 rank {r}")
+        check(a["fem_matvec"] <= 1e-5, f"rank {r}: fem_matvec off by "
+              f"{a['fem_matvec']:.3e} of max |y|")
+        log(f"  rank {r}: launches {c}; sfc_keys and prefix_scan equal to "
+            f"their plain versions bit for bit on each input, fem_matvec "
+            f"within {a['fem_matvec']:.3e} of max |y| (limit 1e-5)")
+    graph = graph_versus_sfc(step0) if step0 is not None else None
+    return dict(launches=[o["launches"] for o in outs], graph=graph,
+                totals=totals)
 
 
 # ---------------------------------------------------------------------------
@@ -4538,6 +4770,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     t_start = time.perf_counter()
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _LOG_FILE.append(open(LOG_PATH, "w"))
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -4675,15 +4909,40 @@ def main():
     ep = phase(f"phase 24b: phi3.5-moe at full width ({TRAIN_EP_DEPTH} "
                "layers) on a 1x4 mesh: 4 experts a rank", train_expert_parallel,
                dev)
-    phase("phase 24 SMOKE: the model axis in float32, the card's meshes "
+    phase("phase 24 SMOKE: the model axis in float32 (the attention in "
+          "the head_dim layout of the launcher's rules), the card's meshes "
           "against one rank", train_mesh_smoke, dev)
     log(f"phase 24: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    hybrid_mesh = phase(
+        f"phase 25a: recurrentgemma-2b at full width ({TRAIN_HYBRID_DEPTH} "
+        "layers) on a 2x2 mesh: head_dim, RG-LRU and MLP width and vocab on "
+        "the model axis", train_hybrid_mesh, dev)
+    ssm_mesh = phase(
+        f"phase 25b: mamba2-1.3b at full width ({TRAIN_SSM_DEPTH} layers) on "
+        "a 2x2 mesh: every leaf whole on every model rank", train_ssm_mesh,
+        dev)
+    phase("phase 25 SMOKE: the hybrid and SSM families on the model axis in "
+          "float32, the card's meshes against one rank", train_mesh_smoke,
+          dev, SMOKE_RECURRENT_CASES)
+    log(f"phase 25: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    tsmoke = phase(
+        "phase 26: the telemetry smoke on the card (4 ranks: a sharded "
+        "adaptive session and a sharded serve trace under tracing, exports "
+        "validated); greedy graph growing against k-section",
+        telemetry_smoke_on_card, dev,
+        None if fem is None else fem[3].get("step0"))
+    log(f"phase 26: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
                         whisper, whisper_sharded, vlm, vlm_sharded, training,
-                        packing, dp, tp, ep)
+                        packing, dp, tp, ep, hybrid_mesh, ssm_mesh, tsmoke)
+            or tsmoke["graph"] is None
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -4726,6 +4985,14 @@ def main():
              f"phi35_moe_42b train on a 1x4 mesh ({TRAIN_EP_DEPTH} layers, "
              f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_EP_STEPS} steps, per rank)":
                  ep["launches"],
+             f"recurrentgemma_2b train on a 2x2 mesh ({TRAIN_HYBRID_DEPTH} "
+             f"layers, {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_HYBRID_STEPS} "
+             "steps, per rank)": hybrid_mesh["launches"],
+             f"mamba2_1_3b train on a 2x2 mesh ({TRAIN_SSM_DEPTH} layers, "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_SSM_STEPS} steps, per "
+             "rank)": ssm_mesh["launches"],
+             "telemetry smoke (3-step sharded adaptive session and 16-request"
+             " sharded serve trace, per rank)": tsmoke["launches"],
              f"llama3_8b train ({TRAIN_DEPTH} layers, {TRAIN_BATCH} x "
              f"{TRAIN_SEQ}, {training['steps']} steps)": training["launches"],
              f"training packer, corpus pass ({packing['batches']} batches)":

@@ -3,7 +3,11 @@
 ``BalanceSpec`` describes the pipeline, the stage registry provides the
 host (single-device) implementation of ``keys -> partition1d -> remap ->
 migrate``, and ``Balancer`` runs it on a device.
+``greedy_graph_partition`` is the graph-growing baseline the paper's
+partitioners are compared against (host numpy, as the reference keeps
+it).
 """
+from .graph_greedy import greedy_graph_partition
 from .metrics import imbalance, migration_volume, quality
 from .partition1d import (Partition1DResult, ksection,
                           ksection_splitters_counted, prefix_sum_parts,
@@ -25,7 +29,8 @@ __all__ = [
     "BalanceResult", "BalanceSpec", "Balancer", "KeyCache",
     "Partition1DResult", "RefinementForest", "Spec",
     "bounding_box", "box_drift", "box_map",
-    "get_stage", "greedy_map_torch", "guarded_greedy_perm",
+    "get_stage", "greedy_graph_partition", "greedy_map_torch",
+    "guarded_greedy_perm",
     "hilbert_decode", "hilbert_encode", "imbalance", "ksection",
     "ksection_splitters_counted", "migration_volume", "morton_decode",
     "morton_encode", "partition_dfs", "prefix_sum_parts", "quality",

@@ -7,10 +7,10 @@ rank's data group and model group.
 
 The rules are plain dicts from logical axis names to mesh axis names
 (``distributed.sharding``): nothing here touches a device.  On a model
-axis wider than 1, the dense, MoE, VLM and encoder-decoder families
-train tensor- and expert-parallel (``models.layers``, ``models.moe``);
-the SSM and hybrid families, and a ``head_dim`` rule on "model", are
-refused (``train_rules``).
+axis wider than 1 every family trains under the launcher's rules
+(``train_rules``): tensor- and expert-parallel where the rules slice a
+leaf (``models.layers``, ``models.rglru``, ``models.moe``), replicated
+on every model rank where they slice none (mamba2 at full width).
 """
 from __future__ import annotations
 
@@ -19,11 +19,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 from ..models.config import ModelConfig
 
 MODEL_AXIS_SIZE = 16
-
-#: what the SSM and hybrid families wait for on a model axis
-MODEL_AXIS_LATER = ("the SSM and hybrid families (and a head_dim rule on "
-                    "'model') on a model axis wider than 1 are item 15 in "
-                    "ROADMAP.md (queue 1)")
 
 
 def batch_axes(multi_pod: bool) -> Tuple[str, ...]:
@@ -92,25 +87,15 @@ def adapt_rules(rules: Dict, cfg: ModelConfig, m: int) -> Dict:
 
 def train_rules(cfg: ModelConfig, m: int = 1) -> Dict:
     """The rules the training launcher runs ``cfg`` with on a ``(d, m)``
-    mesh: ``arch_rules`` of one pod, adapted to ``m``.
-
-    For ``m > 1`` the SSM and hybrid families raise ``ValueError``
-    (``MODEL_AXIS_LATER``).  Where the adapted rules put head_dim on
-    "model" -- heads that the production axis of 16 does not divide, as
-    every SMOKE config's 8 -- the port shards the heads instead, where
-    ``m`` divides them (the same function in another layout; the
-    head_dim layout, whose RoPE pairs straddle the ranks, waits with
-    ``MODEL_AXIS_LATER``), and raises where it does not."""
-    rules = adapt_rules(arch_rules(cfg.name, cfg), cfg, m)
-    if m == 1:
-        return rules
-    if cfg.family in ("ssm", "hybrid") or (rules.get("head_dim") == "model"
-                                           and cfg.n_heads % m):
-        raise ValueError(f"{cfg.name} on a model axis of {m}: "
-                         f"{MODEL_AXIS_LATER}")
-    if rules.get("head_dim") == "model":
-        rules.update(heads="model", head_dim=None)
-    return rules
+    mesh: ``arch_rules`` of one pod, adapted to ``m`` -- the reference
+    launcher's rules, for every family.  Where the heads do not divide
+    the production axis (recurrentgemma, every SMOKE config) head_dim is
+    on "model" (``models.layers.attention_apply`` runs that layout);
+    mamba2's mixer carries no axis the rules keep on "model", so it runs
+    whole on every model rank.  A dim on "model" that ``m`` does not
+    divide (an RG-LRU leaf at ``m = 3``, where the adaptation keeps
+    "mlp" for ``d_ff`` alone) raises in ``model_slices``."""
+    return adapt_rules(arch_rules(cfg.name, cfg), cfg, m)
 
 
 class Mesh(NamedTuple):

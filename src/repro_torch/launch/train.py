@@ -17,17 +17,24 @@ process), as the reference's launcher does on a ``(D, M)`` mesh
 (``launch.mesh.make_mesh``; rank r at data index r // M, model index
 r % M).  Every rank packs the same global batch of ``--batch`` rows and
 each data index takes its D-th of them.  On the model axis the rules
-(``launch.mesh.train_rules``) put heads, MLP width, vocab and experts,
-where M divides them: each rank holds its slices of those leaves
+(``launch.mesh.train_rules``, the reference launcher's) put heads (or
+head_dim, where the heads do not divide the production axis), MLP and
+recurrent width, vocab and experts there, where M divides them: each
+rank holds its slices of those leaves
 (``distributed.sharding.model_slices``) and runs its part of every
-layer (tensor- and expert-parallel, ``models.layers``,
-``models.moe``).  The gradients are summed over the data group, the
+layer (tensor- and expert-parallel, ``models.layers``, ``models.rglru``,
+``models.moe``); a layer with no slice (mamba2's mixer) runs whole on
+every model rank.  A leaf on "model" that M does not split
+(recurrentgemma's RG-LRU width at M = 3) raises ``ValueError`` before
+any rank starts.  The gradients are summed over the data group, the
 AdamW moments of each rank's slices are sharded ZeRO-style over it
 (``train.zero_shards``), and checkpoints keep the one-rank layout, so a
-run resumes onto any mesh.  The SSM and hybrid families refuse M > 1.
+run resumes onto any mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \\
         --smoke --device cpu --mesh 2x2 --steps 8 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma_2b --smoke --device cpu --mesh 1x4 --steps 4
 
 ``train(cfg, ...)`` is the loop (``data=`` and ``model=``, a rank's
 ``Comm`` of its data and model group); ``main`` parses the arguments and
@@ -227,7 +234,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    train_rules(cfg, m)                 # refuses a family before any rank
+    # an uneven split of a leaf on "model" raises before any rank starts
+    model_slices(cfg, train_rules(cfg, m), m, 0)
     kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
               ckpt=args.ckpt, ckpt_every=args.ckpt_every)
     if d * m == 1:

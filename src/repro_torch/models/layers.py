@@ -29,7 +29,9 @@ On a model axis (``model=``, the model group's ``Comm``) a layer whose
 weights are this rank's slices (``models.init_model(..., slices=)``)
 runs tensor-parallel, Megatron style: the attention on its query heads
 (``wq`` / ``wo`` sliced by heads; ``wk`` / ``wv`` replicated, each rank
-reading the K/V heads its query heads read), the MLP on its columns of
+reading the K/V heads its query heads read) or on its block of every
+head's dims (the reference's head_dim rule; q and k gathered whole for
+RoPE, ``gather_from_model``), the MLP on its columns of
 ``wi`` / ``wg`` and rows of ``wo``, the embedding on its vocab rows and
 the loss on its vocab columns of the head (a vocab-parallel logsumexp).
 A layer finds its slice from its weights' shapes against ``cfg``.  The
@@ -38,12 +40,17 @@ two semantics: ``cfg.tp_shardmap=False`` (GSPMD's) sums the float32
 partials over the model group and rounds once, which is the one-rank
 product up to summation order; ``True`` (the reference's ``_local_out``
 / ``_local_down`` under ``shard_map``) rounds each partial to
-``act_dtype`` and sums those (gloo and nccl sum bf16 in bf16).
+``act_dtype`` and sums those (gloo and nccl sum bf16 in bf16).  The
+head_dim layout's output product and the RG-LRU's (``models.rglru``)
+have no ``shard_map`` branch in the reference: they sum in float32.
 
 The collectives are autograd functions: ``copy_to_model`` (identity;
 the backward sums the cotangent over the group) where a replicated
 tensor enters a rank's part of the work, ``reduce_from_model`` (sums;
-the backward is the identity) where the parts meet.  So
+the backward is the identity) where the parts meet,
+``gather_from_model`` (all-gathers slices; the backward sums and keeps
+the rank's slice) and ``reduce_scatter_to_model`` (sums and keeps the
+rank's slice; the backward all-gathers).  So
 ``torch.autograd.grad`` gives each rank the gradient of its slices, and
 of every replicated leaf the whole gradient once: a replicated leaf
 used inside a rank's part (``wk``, ``wv``: their K/V heads reach the
@@ -160,6 +167,42 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """Every model rank's slice of ``x`` along ``dim``, concatenated in
+    rank order; the backward sums the cotangent over the group (in
+    float32, rounded once to its dtype) and keeps this rank's slice (the
+    ranks use the gathered tensor in different parts of the work)."""
+
+    @staticmethod
+    def forward(ctx, x, model, dim):
+        ctx.model, ctx.dim, ctx.n = model, dim, x.shape[dim]
+        return model.all_gather(x.movedim(dim, 0)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.model
+        g = m.psum(g.to(F32)).to(g.dtype)
+        return g.narrow(ctx.dim, m.rank * ctx.n, ctx.n), None, None
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    """The sum of every model rank's ``x``, of which this rank keeps its
+    slice along ``dim``; the backward gathers every rank's cotangent of
+    its slice (the sum's cotangent, whole, on each rank)."""
+
+    @staticmethod
+    def forward(ctx, x, model, dim):
+        ctx.model, ctx.dim = model, dim
+        n = x.shape[dim] // model.size
+        return model.psum(x).narrow(dim, model.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.model
+        return m.all_gather(g.movedim(ctx.dim, 0)).movedim(0, ctx.dim), \
+            None, None
+
+
 def copy_to_model(x: torch.Tensor, model) -> torch.Tensor:
     """``x``, replicated over the model group, entering this rank's part
     of the work: its gradient is the sum of every rank's."""
@@ -171,18 +214,34 @@ def reduce_from_model(x: torch.Tensor, model) -> torch.Tensor:
     return _ReduceFromModel.apply(x, model)
 
 
+def gather_from_model(x: torch.Tensor, model, dim: int) -> torch.Tensor:
+    """Every model rank's slice of ``x`` along ``dim``, whole on each
+    rank; the gradient of this rank's slice is the sum of every rank's
+    of it."""
+    return _GatherFromModel.apply(x, model, dim)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, model, dim: int
+                            ) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every model rank's
+    ``x``."""
+    return _ReduceScatterToModel.apply(x, model, dim)
+
+
 def row_parallel(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
-                 model=None) -> torch.Tensor:
+                 model=None, shardmap: Optional[bool] = None
+                 ) -> torch.Tensor:
     """``h (..., k) @ w (k, n)`` summed in float32 and rounded once to
     ``act_dtype``; with the model group ``model`` (``h`` and ``w`` this
     rank's slice of k), the ranks' partial products are summed, in
     float32 before the rounding (``cfg.tp_shardmap=False``) or rounded
     each and summed in ``act_dtype`` (True, the reference's
-    ``shard_map`` branch)."""
+    ``shard_map`` branch).  ``shardmap`` overrides ``cfg.tp_shardmap``
+    where the reference has no ``shard_map`` branch (False)."""
     y = matmul_f32(h, w)
     if model is None:
         return y.to(cfg.act_dtype)
-    if cfg.tp_shardmap:
+    if cfg.tp_shardmap if shardmap is None else shardmap:
         return reduce_from_model(y.to(cfg.act_dtype), model)
     return reduce_from_model(y, model).to(cfg.act_dtype)
 
@@ -283,18 +342,19 @@ def _mask(rows, cols, causal: bool, window: Optional[int]) -> torch.Tensor:
 
 def _chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
                        chunk: int, softcap: Optional[float] = None):
-    """Online softmax over KV chunks.  q: (b, h, sq, d); k/v: (b, h, skv, d).
-    Like the reference, ``skv`` must split into equal chunks."""
+    """Online softmax over KV chunks.  q / k: (b, h, sq / skv, d); v: (b,
+    h, skv, dv) (dv < d: a rank's head_dim slice of v).  Like the
+    reference, ``skv`` must split into equal chunks."""
     b, h, s, d = q.shape
-    skv = k.shape[2]
+    skv, dv = k.shape[2], v.shape[-1]
     scale = 1.0 / math.sqrt(d)
     nc = max(skv // chunk, 1)
     chunk = skv // nc
     qf = q.to(F32) * scale
     kc = k.to(F32).reshape(b, h, nc, chunk, d)
-    vc = v.to(F32).reshape(b, h, nc, chunk, d)
+    vc = v.to(F32).reshape(b, h, nc, chunk, dv)
     rows = torch.arange(s, device=q.device)
-    acc = torch.zeros((b, h, s, d), dtype=F32, device=q.device)
+    acc = torch.zeros((b, h, s, dv), dtype=F32, device=q.device)
     m = torch.full((b, h, s, 1), -1e30, dtype=F32, device=q.device)
     l = torch.zeros((b, h, s, 1), dtype=F32, device=q.device)
     for ci in range(nc):
@@ -317,7 +377,8 @@ def _chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 def _blocked_causal_attention(q, k, v, *, window: Optional[int], chunk: int,
                               softcap: Optional[float] = None):
     """Query chunk i attends keys [lo, (i + 1) chunk) only: the causal
-    band, with static shapes per chunk."""
+    band, with static shapes per chunk.  v may hold a head_dim slice, as
+    in ``_chunked_attention``."""
     b, h, s, d = q.shape
     scale = 1.0 / math.sqrt(d)
     nc = max(s // chunk, 1)
@@ -343,6 +404,19 @@ def _blocked_causal_attention(q, k, v, *, window: Optional[int], chunk: int,
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
+def _model_layout(attn: Attention, cfg: ModelConfig, model
+                  ) -> Optional[str]:
+    """Which slice of the attention this rank holds, read from its
+    weights' shapes: ``"heads"`` (``wq`` / ``wo`` a block of the heads),
+    ``"head_dim"`` (``wq``, ``wk``, ``wv`` and ``wo`` a block of the head
+    dim) or None (the whole layer)."""
+    if on_model_axis(attn.wq.shape[1], cfg.n_heads, model):
+        return "heads"
+    if on_model_axis(attn.wq.shape[2], cfg.hd, model):
+        return "head_dim"
+    return None
+
+
 def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     pos: torch.Tensor, causal: bool = True,
                     pos3: Optional[torch.Tensor] = None,
@@ -363,21 +437,37 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     cross-attention with s_kv != s as well); like the reference's flash
     path it ignores ``cfg.attn_logit_softcap``.
 
-    With ``wq`` / ``wo`` this rank's slice of the heads (``model``, the
-    model group), the rank attends with its query heads over the K/V
-    heads they read -- every K/V head is projected (``wk`` / ``wv`` are
-    replicated) and enters through ``copy_to_model`` -- and the output
-    product is ``row_parallel``."""
+    On the model group ``model`` the layer runs the layout its weights
+    hold (``_model_layout``).  Heads: the rank attends with its query
+    heads over the K/V heads they read -- every K/V head is projected
+    (``wk`` / ``wv`` are replicated) and enters through
+    ``copy_to_model`` -- and the output product is ``row_parallel``.
+    Head dim (the reference's rule where the heads do not divide the
+    production axis): ``wq``, ``wk``, ``wv`` project the rank's block of
+    every head's dims (``kv_override`` holds that block too); a RoPE
+    pair (i, i + hd/2) lies on two ranks, so q and k are gathered whole
+    over the group (``gather_from_model``) and rotated, and every rank
+    computes the same logits and softmax from them; P . V runs on the
+    rank's block of v, and the output product sums the ranks' blocks of
+    ``wo`` in float32 (the reference takes its ``shard_map`` branch only
+    with the heads on "model", so ``tp_shardmap`` does not round these
+    partials)."""
     group = cfg.n_heads // cfg.n_kv_heads
     act = cfg.act_dtype
-    hl = attn.wq.shape[1]
-    tp = on_model_axis(hl, cfg.n_heads, model)
-    q = project_heads(copy_to_model(x, model) if tp else x, attn.wq, act)
+    layout = _model_layout(attn, cfg, model)
+    # x enters each rank's part through copy_to_model: the query heads or
+    # the head_dim block; whole K/V heads enter below instead
+    xp = x if layout is None else copy_to_model(x, model)
+    q = project_heads(xp, attn.wq, act)
     if kv_override is None:
-        k = project_heads(x, attn.wk, act)
-        v = project_heads(x, attn.wv, act)
+        xkv = xp if layout == "head_dim" else x
+        k = project_heads(xkv, attn.wk, act)
+        v = project_heads(xkv, attn.wv, act)
     else:
         k, v = kv_override
+    if layout == "head_dim":
+        q = gather_from_model(q, model, 3)
+        k = gather_from_model(k, model, 3)
     if cfg.mrope_sections is not None and pos3 is not None:
         q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
@@ -385,7 +475,8 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     kv_cacheable = (k, v)
-    if tp:
+    hl = attn.wq.shape[1]
+    if layout == "heads":
         # the K/V head of each of this rank's query heads (global head
         # model.rank * hl + j reads K/V head (model.rank * hl + j) // group)
         kv_of = (model.rank * hl + torch.arange(hl, device=x.device)) // group
@@ -393,6 +484,9 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         v = copy_to_model(v, model).index_select(1, kv_of)
         group = 1
     if cfg.use_pallas:
+        if layout == "head_dim":
+            raise ValueError("the flash kernel takes whole heads; a head_dim "
+                             "slice trains on the plain attention")
         out = flash_attention_op(q, k, v, causal=causal, window=cfg.window)
     else:
         if group > 1:
@@ -406,12 +500,13 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             out = _chunked_attention(
                 q, k, v, causal=causal, window=cfg.window,
                 chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
-    if tp:
-        b, _, s, hd = out.shape
-        y = row_parallel(out.transpose(1, 2).reshape(b, s, hl * hd),
-                         attn.wo.reshape(hl * hd, -1), cfg, model)
-    else:
+    if layout is None:
         y = merge_heads(out, attn.wo, act)
+    else:
+        b, h, s, dl = out.shape
+        y = row_parallel(out.transpose(1, 2).reshape(b, s, h * dl),
+                         attn.wo.reshape(h * dl, -1), cfg, model,
+                         shardmap=None if layout == "heads" else False)
     if return_kv:
         return y, kv_cacheable
     return y

@@ -79,19 +79,17 @@ def loss_fn(lm: torch.nn.Module, batch: Dict, cfg: ModelConfig, *,
     ``model`` (the model group's ``Comm``; ``lm`` holds this rank's
     slices, ``init_model(..., slices=)``), every rank of the group
     computes its part of each layer, and the value is the same on each:
-    it is not summed over the group.  The SSM and hybrid families take
-    no model axis (ROADMAP.md, queue 1, item 15)."""
+    it is not summed over the group.  Every family takes a model axis;
+    a leaf no rule slices (mamba2's mixer at full width) is computed
+    whole on every rank of the group, its gradient whole on each."""
     if cfg.family in ("dense", "moe", "vlm"):
         return T.decoder_loss(lm, batch, cfg, data, model)
     if cfg.family == "encdec":
         return T.encdec_loss(lm, batch, cfg, data, model)
-    if model is not None:
-        raise ValueError(f"family {cfg.family!r} on a model axis: ROADMAP.md, "
-                         "queue 1, item 15")
     if cfg.family == "hybrid":
-        return T.hybrid_loss(lm, batch, cfg, data)
+        return T.hybrid_loss(lm, batch, cfg, data, model)
     if cfg.family == "ssm":
-        return T.ssm_loss(lm, batch, cfg, data)
+        return T.ssm_loss(lm, batch, cfg, data, model)
     raise ValueError(cfg.family)
 
 

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from .config import ModelConfig
-from .layers import dense_param, matmul_f32
+from .layers import dense_param, kept, matmul_f32
 
 F32 = torch.float32
 
@@ -51,13 +51,12 @@ class Mamba2(nn.Module):
                                    gen)
         self.conv_w = dense_param((conv_dim, cfg.ssm_conv), dt, device, gen,
                                   scale=0.1)
-        fixed = lambda t: nn.Parameter(t, requires_grad=False)  # noqa: E731
-        self.conv_b = fixed(torch.zeros(conv_dim, dtype=dt, device=device))
-        self.A_log = fixed(torch.log(torch.linspace(1.0, 16.0, h, dtype=F32,
+        self.conv_b = kept(torch.zeros(conv_dim, dtype=dt, device=device))
+        self.A_log = kept(torch.log(torch.linspace(1.0, 16.0, h, dtype=F32,
                                                     device=device)))
-        self.D = fixed(torch.ones(h, dtype=F32, device=device))
-        self.dt_bias = fixed(torch.zeros(h, dtype=F32, device=device))
-        self.norm_w = fixed(torch.ones(d_in, dtype=dt, device=device))
+        self.D = kept(torch.ones(h, dtype=F32, device=device))
+        self.dt_bias = kept(torch.zeros(h, dtype=F32, device=device))
+        self.norm_w = kept(torch.ones(d_in, dtype=dt, device=device))
         self.out_proj = dense_param((d_in, d), dt, device, gen)
 
 

@@ -28,11 +28,12 @@ rows of the global batch and passes its data group as ``data``: the
 ranks' losses then sum to the loss of the whole batch (``_masked_ce``
 divides by the global count of labels, ``moe._route`` weighs by the
 global expert counts), and so do their gradients.  On a model axis
-(``model=``, the model group's ``Comm``; the dense, MoE, VLM and
-encoder-decoder families) each rank holds its slices of the weights and
-every layer runs its part (``models.layers``, ``models.moe``): the loss
-is the same on every rank of the group, not a term to sum.  These
-functions take the LM module as ``lm``.  Where the reference wraps a layer body in
+(``model=``, the model group's ``Comm``; every family) each rank holds
+its slices of the weights and every layer runs its part
+(``models.layers``, ``models.rglru``, ``models.moe``; a layer with no
+slice runs whole): the loss is the same on every rank of the group, not
+a term to sum.  These functions take the LM module as ``lm``.  Where
+the reference wraps a layer body in
 ``jax.checkpoint`` under ``cfg.remat`` (decoder, encoder, decoder of the
 encoder-decoder, SSM), ``remat`` runs it through
 ``torch.utils.checkpoint`` while grad is enabled.
@@ -47,8 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embedding, attention_apply,
-                     embed_tokens, mlp_apply, ones_param, project_heads,
-                     rmsnorm, vocab_ce)
+                     copy_to_model, embed_tokens, mlp_apply, on_model_axis,
+                     ones_param, project_heads, rmsnorm, vocab_ce)
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, rglru_block_apply
 from .ssm import Mamba2, mamba2_apply
@@ -349,14 +350,18 @@ def _decoder_block(layer: DecBlock, x: torch.Tensor, enc: torch.Tensor,
                    cfg: ModelConfig, pos: torch.Tensor, model=None
                    ) -> torch.Tensor:
     """Self-attention, cross-attention to ``enc`` (its K/V projected here,
-    once a layer, every K/V head on every rank of a model group), MLP."""
+    once a layer: every K/V head on every rank of a model group, or the
+    rank's head_dim block of each, ``enc`` then entering that part
+    through ``copy_to_model``), MLP."""
     act = cfg.act_dtype
     h = rmsnorm(x, layer.ln_self)
     x = x + attention_apply(layer.self_attn, h, cfg, pos=pos, causal=True,
                             use_rope=False, model=model)
     h = rmsnorm(x, layer.ln_cross)
-    kv = (project_heads(enc, layer.cross_attn.wk, act),
-          project_heads(enc, layer.cross_attn.wv, act))
+    wk, wv = layer.cross_attn.wk, layer.cross_attn.wv
+    if on_model_axis(wk.shape[2], cfg.hd, model):
+        enc = copy_to_model(enc, model)
+    kv = (project_heads(enc, wk, act), project_heads(enc, wv, act))
     x = x + attention_apply(layer.cross_attn, h, cfg, pos=pos, causal=False,
                             kv_override=kv, model=model)
     return x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
@@ -384,28 +389,31 @@ def encdec_loss(lm: EncDecLM, batch: Dict, cfg: ModelConfig, data=None,
     return _masked_ce(lm.embed.head, x, batch["labels"], cfg, data, model)
 
 
-def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
+def hybrid_hidden(lm: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
+                  model=None) -> torch.Tensor:
     """The final hidden state (b, s, d): RG-LRU or local-attention mixer,
     then the GeGLU MLP, a layer.  The reference unrolls these layers
-    without remat, and so does this."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    without remat, and so does this.  ``model``: the model group (the
+    attention on its head_dim slice, the RG-LRU on its channels, the MLP
+    on its columns, the embedding on its vocab rows)."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     b, s = tokens.shape
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    for layer, kind in zip(model.layers, hybrid_layer_kinds(cfg)):
+    for layer, kind in zip(lm.layers, hybrid_layer_kinds(cfg)):
         h = rmsnorm(x, layer.ln_mix)
         if kind == "attn":
-            x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=True)
+            x = x + attention_apply(layer.attn, h, cfg, pos=pos, causal=True,
+                                    model=model)
         else:
-            x = x + rglru_block_apply(layer.rglru, h, cfg)
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-    return rmsnorm(x, model.ln_f)
+            x = x + rglru_block_apply(layer.rglru, h, cfg, model=model)
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
+    return rmsnorm(x, lm.ln_f)
 
 
-def hybrid_loss(model: HybridLM, batch: Dict, cfg: ModelConfig, data=None
-                ) -> torch.Tensor:
-    x = hybrid_hidden(model, batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)
+def hybrid_loss(lm: HybridLM, batch: Dict, cfg: ModelConfig, data=None,
+                model=None) -> torch.Tensor:
+    x = hybrid_hidden(lm, batch["tokens"], cfg, model)
+    return _masked_ce(lm.embed.head, x, batch["labels"], cfg, data, model)
 
 
 def _ssm_block(layer: SSMBlock, x: torch.Tensor, cfg: ModelConfig
@@ -413,15 +421,19 @@ def _ssm_block(layer: SSMBlock, x: torch.Tensor, cfg: ModelConfig
     return x + mamba2_apply(layer.mixer, rmsnorm(x, layer.ln), cfg)
 
 
-def ssm_hidden(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
-    x = embed_tokens(model.embed, tokens, cfg)
-    for layer in model.layers:
+def ssm_hidden(lm: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
+               model=None) -> torch.Tensor:
+    """The final hidden state (b, s, d).  No rule puts a mixer leaf on
+    "model" (``launch.mesh.train_rules``), so with the model group
+    ``model`` every rank runs each whole mixer alike; only the embedding
+    (and the head, in ``ssm_loss``) may hold a rank's vocab slice."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
+    for layer in lm.layers:
         x = remat(cfg, _ssm_block, layer, x, cfg)
-    return rmsnorm(x, model.ln_f)
+    return rmsnorm(x, lm.ln_f)
 
 
-def ssm_loss(model: SSMLM, batch: Dict, cfg: ModelConfig, data=None
-             ) -> torch.Tensor:
-    x = ssm_hidden(model, batch["tokens"], cfg)
-    return _masked_ce(model.embed.head, x, batch["labels"], cfg, data)
+def ssm_loss(lm: SSMLM, batch: Dict, cfg: ModelConfig, data=None,
+             model=None) -> torch.Tensor:
+    x = ssm_hidden(lm, batch["tokens"], cfg, model)
+    return _masked_ce(lm.embed.head, x, batch["labels"], cfg, data, model)

@@ -12,21 +12,26 @@ clock stops, so a span covers the device work it launched.
 * ``stopwatch`` -- always times and always honours ``block``, recording
   into the tracer only when one is active (``Balancer.balance_timed``
   and the adaptive session's ``StepStats`` consume its duration).
+* ``traced`` -- a decorator wrapping a function in a span on the tracer
+  active at each call; ``block=True`` waits for the CUDA tensors it
+  returns before the clock stops.
 
 Single-threaded by design, like the control plane it instruments.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
 from .metrics import MetricsRegistry, NullMetricsRegistry
 
 __all__ = ["NullTracer", "Span", "SpanEvent", "Tracer", "block_until_ready",
-           "get_tracer", "set_tracer", "span", "stopwatch", "tracing"]
+           "get_tracer", "set_tracer", "span", "stopwatch", "traced",
+           "tracing"]
 
 
 def _cuda_devices(value: Any, out: Set[torch.device]) -> None:
@@ -240,3 +245,27 @@ def stopwatch(name: str, *, block: bool = True, tracer=None, **attrs) -> Span:
     one) when enabled, but times -- and honours ``block`` -- regardless."""
     tr = tracer if tracer is not None else _ACTIVE
     return Span(tr if tr.enabled else None, name, block, attrs)
+
+
+def traced(name: Optional[str] = None, *, block: bool = False, tracer=None,
+           **attrs) -> Callable:
+    """Decorator: wrap a function in a span on the active tracer.
+
+    ``block=True`` designates the return value, so the span's clock stops
+    only after the CUDA tensors it holds are computed
+    (``block_until_ready``).  The tracer is resolved per *call* (late
+    binding), so decorated library code follows ``tracing()`` scopes."""
+
+    def deco(fn: Callable) -> Callable:
+        label = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            tr = tracer if tracer is not None else _ACTIVE
+            with tr.span(label, block=block, **attrs) as sp:
+                out = fn(*args, **kw)
+                if block:
+                    sp.block_on(out)
+            return out
+        return wrapper
+    return deco

@@ -801,6 +801,17 @@ def sub_world(comm, size):
     return Comm(mine, device=comm.device)
 
 
+def layout_rules(cfg, m, layout):
+    """The launcher's rules on a model axis of ``m`` (``layout``
+    "head_dim": the reference's, head_dim on "model" at SMOKE), or the
+    same with the heads on "model" instead ("heads")."""
+    from repro_torch.launch.mesh import train_rules
+    rules = train_rules(cfg, m)
+    if layout == "heads":
+        rules.update(heads="model", head_dim=None)
+    return rules
+
+
 def sliced_model(cfg, weights, mesh, rules=None):
     """A CPU model of ``cfg`` holding this model rank's slices (under
     ``rules``, default ``train_rules``) of ``weights`` (numpy, by
@@ -827,11 +838,12 @@ def whole_grads(grads, slices, model):
             for n, g in grads.items()}
 
 
-def _tp_case(comm, arch, overrides, d, m, batch, weights):
+def _tp_case(comm, arch, overrides, d, m, layout, batch, weights):
     """This rank's loss and gradients of one SMOKE config on a (d, m)
-    mesh of the first ``d m`` ranks' blocks: the global loss, the
-    gradients summed over the data group and gathered to the one-rank
-    layout, and this rank's own (local) gradients."""
+    mesh of the first ``d m`` ranks' blocks, the attention in ``layout``
+    (``layout_rules``): the global loss, the gradients summed over the
+    data group and gathered to the one-rank layout, and this rank's own
+    (local) gradients."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import rows_of
@@ -839,7 +851,8 @@ def _tp_case(comm, arch, overrides, d, m, batch, weights):
     from repro_torch.train.train_step import sum_grads
     cfg = get_smoke(arch).replace(**overrides)
     mesh = make_mesh(sub_world(comm, d * m), d, m)
-    lm, slices = sliced_model(cfg, weights, mesh)
+    lm, slices = sliced_model(cfg, weights, mesh,
+                              layout_rules(cfg, m, layout))
     lm.requires_grad_(True)
     names, params = zip(*lm.named_parameters())
     tb = {k: torch.as_tensor(v) for k, v in rows_of(batch, mesh.data).items()}
@@ -996,3 +1009,170 @@ def elastic_mesh(comm, batches, ckpt):
                                               .named_parameters()))}
     comm.barrier()
     return {"dirs": dirs, "resumed": resumed}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_model_axis.py: the head_dim layout, the RG-LRU on a slice and
+# the hybrid's elastic checkpoint
+# ---------------------------------------------------------------------------
+
+#: the dim of each attention weight the head_dim rule puts on "model"
+HEAD_DIM_OF = {"wq": 2, "wk": 2, "wv": 2, "wo": 1}
+#: the dim of each RG-LRU leaf the "mlp" rule puts on "model" (None: the
+#: leaf is replicated)
+RGLRU_DIM_OF = {"in_x": 1, "in_gate": 1, "conv_w": 0, "conv_b": 0, "w_r": 0,
+                "w_i": 0, "b_r": None, "b_i": None, "lam": None, "out": 0}
+#: the leaves the RG-LRU's gates read
+GATE_LEAVES = ("w_r", "b_r", "w_i", "b_i", "lam")
+
+
+def _sliced_module(module, weights, dims, model):
+    """``module`` holding this model rank's block of each of ``weights``
+    along ``dims[name]`` (None: whole), trainable: (module, slices)."""
+    from repro_torch.distributed.sharding import Slice, narrow
+    slices = {}
+    for n, w in weights.items():
+        dim = dims[n]
+        size = None if dim is None else w.shape[dim] // model.size
+        slices[n] = (None if dim is None
+                     else Slice(dim, model.rank * size, size))
+        setattr(module, n, torch.nn.Parameter(
+            narrow(torch.as_tensor(w), slices[n]).clone()))
+    return module, slices
+
+
+def _attention_case(comm, arch, overrides, m, inputs, weights):
+    """One attention layer of ``arch``'s SMOKE config in the head_dim
+    layout on a model group of ``m`` ranks: its output and the gradients
+    of ``sum(y * r)`` with respect to x (and ``enc``, whose K/V the layer
+    projects as the encoder-decoder's cross-attention does) and to each
+    weight, in the one-rank layout."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.layers import (Attention, attention_apply,
+                                           copy_to_model, project_heads)
+    cfg = get_smoke(arch).replace(**overrides)
+    model = sub_world(comm, m)
+    attn, slices = _sliced_module(Attention(cfg, "cpu"), weights,
+                                  HEAD_DIM_OF, model)
+    x = torch.as_tensor(inputs["x"]).requires_grad_(True)
+    pos = torch.as_tensor(inputs["pos"])
+    leaves = {"x": x}
+    if "enc" in inputs:
+        enc = torch.as_tensor(inputs["enc"]).requires_grad_(True)
+        leaves["enc"] = enc
+        e = copy_to_model(enc, model)
+        kv = (project_heads(e, attn.wk, cfg.act_dtype),
+              project_heads(e, attn.wv, cfg.act_dtype))
+        y = attention_apply(attn, x, cfg, pos=pos, causal=False,
+                            kv_override=kv, model=model)
+    else:
+        pos3 = inputs.get("pos3")
+        y = attention_apply(attn, x, cfg, pos=pos, causal=True,
+                            pos3=None if pos3 is None
+                            else torch.as_tensor(pos3), model=model)
+    leaves.update(dict(attn.named_parameters()))
+    names, ts = zip(*leaves.items())
+    grads = torch.autograd.grad(torch.sum(y * torch.as_tensor(inputs["r"])),
+                                ts)
+    return {"y": y.detach().numpy(),
+            "grads": whole_grads(dict(zip(names, grads)),
+                                 {**slices, "x": None, "enc": None}, model)}
+
+
+def _rglru_case(comm, m, inputs, weights):
+    """recurrentgemma SMOKE's RG-LRU block on a model group of ``m``
+    ranks (this rank's channels): the block's output and the gradients
+    of ``sum(y * r)``; then ``_gates`` alone on the rank's channels of
+    ``xc``, its two outputs gathered whole and the gradients of
+    ``sum(a * ra + b * rb)``; each gradient in the one-rank layout."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import Slice, narrow, unslice
+    from repro_torch.models.rglru import RGLRU, _gates, rglru_block_apply
+    cfg = get_smoke("recurrentgemma_2b")
+    model = sub_world(comm, m)
+    block, slices = _sliced_module(RGLRU(cfg, "cpu"), weights, RGLRU_DIM_OF,
+                                   model)
+    names, params = zip(*block.named_parameters())
+    x = torch.as_tensor(inputs["x"]).requires_grad_(True)
+    y = rglru_block_apply(block, x, cfg, model=model)
+    g = torch.autograd.grad(torch.sum(y * torch.as_tensor(inputs["r"])),
+                            (x,) + params)
+    out = {"y": y.detach().numpy(),
+           "grads": whole_grads(dict(zip(("x",) + names, g)),
+                                {**slices, "x": None}, model)}
+    n = cfg.lru_width // m
+    chan = Slice(2, model.rank * n, n)
+    xc = narrow(torch.as_tensor(inputs["xc"]), chan).clone()
+    xc.requires_grad_(True)
+    a, b = _gates(block, xc, model)
+    loss = torch.sum(a * narrow(torch.as_tensor(inputs["ra"]), chan)
+                     + b * narrow(torch.as_tensor(inputs["rb"]), chan))
+    leaves = {"xc": xc, **{n: getattr(block, n) for n in GATE_LEAVES}}
+    g = torch.autograd.grad(loss, list(leaves.values()))
+    out["gates"] = {
+        "a": unslice(a.detach(), chan, model).numpy(),
+        "b": unslice(b.detach(), chan, model).numpy(),
+        "grads": whole_grads(dict(zip(leaves, g)), {**slices, "xc": chan},
+                             model)}
+    return out
+
+
+def elastic_hybrid(comm, batches, ckpt):
+    """recurrentgemma SMOKE trained 2 steps at 2x2 with a checkpoint
+    after the second, restored and saved again at 1x4 and from that at
+    2x2 (``restore_sharded`` / ``save_sharded``); then runs resumed from
+    the first checkpoint at 1x4 and, on rank 0, at 1x1 take the third
+    step.  Returns the directories and the resumed runs' parameters (the
+    1x4 run's in the one-rank layout)."""
+    import os
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.sharding import model_slices
+    from repro_torch.launch.mesh import make_mesh, train_rules
+    from repro_torch.launch.train import data_shards, train
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, restore_sharded, save_sharded
+    cfg = get_smoke("recurrentgemma_2b")
+    kw = dict(batch=4, seq=64, lr=1e-3, device="cpu", log=lambda *a: None)
+    ocfg = AdamWConfig(lr=1e-3, warmup=1, total_steps=2)
+    dirs = {k: os.path.join(ckpt, k) for k in ("2x2", "1x4", "2x2b")}
+    meshes = {(2, 2): make_mesh(comm, 2, 2), (1, 4): make_mesh(comm, 1, 4)}
+    first = meshes[(2, 2)]
+    train(cfg, steps=2, ckpt=dirs["2x2"], ckpt_every=2,
+          batches=iter(batches), data=first.data, model=first.model, **kw)
+    for src, dst, (d, m) in (("2x2", "1x4", (1, 4)), ("1x4", "2x2b", (2, 2))):
+        mesh = meshes[(d, m)]
+        slices = model_slices(cfg, train_rules(cfg, m), m, mesh.model.rank)
+        lm = init_model(cfg, seed=None, device="cpu", slices=slices)
+        shards = data_shards(cfg, lm, mesh.data, m)
+        step, opt = restore_sharded(
+            dirs[src], lm, ocfg, shards,
+            0 if mesh.data is None else mesh.data.rank, slices=slices)
+        save_sharded(dirs[dst], step, lm, opt, ocfg, shards, mesh.data,
+                     model=mesh.model, slices=slices)
+        comm.barrier()
+    four = meshes[(1, 4)]
+    out = train(cfg, steps=3, ckpt=dirs["2x2"], ckpt_every=100,
+                batches=iter(batches[2:]), model=four.model, **kw)
+    slices = model_slices(cfg, train_rules(cfg, 4), 4, four.model.rank)
+    resumed = {4: {"start": out["start"], "params": whole_grads(
+        {n: p.detach() for n, p in out["model"].named_parameters()},
+        slices, four.model)}}
+    if comm.rank == 0:
+        one = train(cfg, steps=3, ckpt=dirs["2x2"], ckpt_every=100,
+                    batches=iter(batches[2:]), **kw)
+        resumed[1] = {"start": one["start"], "params": _np_dict(
+            dict(one["model"].named_parameters()))}
+    comm.barrier()
+    return {"dirs": dirs, "resumed": resumed}
+
+
+def model_axis_world(comm, attention_cases, rglru_cases, elastic_args):
+    """The head_dim-layout attention cases (``key: (arch, overrides, m,
+    inputs, weights)``), the RG-LRU cases (``key: (m, inputs,
+    weights)``) and the hybrid's elastic checkpoint."""
+    return {"attention": {k: _attention_case(comm, *c)
+                          for k, c in attention_cases.items()},
+            "rglru": {k: _rglru_case(comm, *c)
+                      for k, c in rglru_cases.items()},
+            "elastic": elastic_hybrid(comm, *elastic_args)}

@@ -128,8 +128,9 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert again["opt"].step == 6 and latest_step(ck) == 6
     text = capsys.readouterr().out
     assert "resumed from step 4" in text and "step    5 loss=" in text
-    with pytest.raises(ValueError, match="item 15"):
-        launch.main(argv[:1] + ["mamba2_1_3b"] + argv[2:] + ["--mesh", "2x2"])
+    with pytest.raises(ValueError, match=r"rglru\.in_x.*3 model ranks"):
+        launch.main(["--arch", "recurrentgemma_2b", "--device", "cpu",
+                     "--mesh", "2x3", "--ckpt", ck])
 
 
 def test_resume_continues_like_an_unbroken_run(tmp_path):

@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels, repro_torch.interop, repro_torch.telemetry, "
             "repro_torch.configs, repro_torch.data, repro_torch.models, "
             "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
-            "repro_torch.launch.mesh, repro_torch.distributed.sharding; "
+            "repro_torch.launch.mesh, repro_torch.distributed.sharding, "
+            "repro_torch.telemetry.smoke, repro_torch.core.graph_greedy; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -135,15 +136,16 @@ def test_training_stands_alone_and_defaults_to_cuda(tmp_path):
 def test_data_parallel_training_stands_alone_and_defaults_to_cuda(tmp_path):
     """The sharding rules and the mesh are among the files checked above;
     ``--mesh Dx1`` trains D ranks on the card unless asked for the CPU,
-    and the SSM family on a model axis wider than 1 names ROADMAP's item
-    15."""
+    and a mesh whose model axis does not split a leaf the rules put there
+    (recurrentgemma-2b's RG-LRU width at M = 3) raises before any rank
+    starts."""
     from repro_torch.launch import train as launch
     assert {"sharding.py", "mesh.py"} <= {p.name for p in PORT_FILES}
     argv = ["--arch", "llama3_8b", "--smoke", "--steps", "2", "--batch",
             "2", "--seq", "64", "--ckpt", str(tmp_path / "ck")]
-    with pytest.raises(ValueError, match="item 15"):
-        launch.main(argv[:1] + ["mamba2_1_3b"] + argv[2:]
-                    + ["--mesh", "2x2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="rglru"):
+        launch.main(["--arch", "recurrentgemma_2b", "--mesh", "1x3",
+                     "--ckpt", str(tmp_path / "ck")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch.main(argv + ["--mesh", "2x1"])
@@ -155,6 +157,20 @@ def test_data_parallel_training_stands_alone_and_defaults_to_cuda(tmp_path):
     assert [r["step"] for r in ranks[0]] == [0, 1]
     assert all(r["reduce_bytes"] > 0 and r["gather_bytes"] > 0
                for r in ranks[0])
+
+
+def test_telemetry_smoke_stands_alone_and_defaults_to_cuda(tmp_path):
+    """The exporters and the smoke are among the files checked above; the
+    smoke's ranks go on the card unless ``--device cpu`` asks for CPU
+    processes, and without a card the default raises (no fallback)."""
+    from repro_torch.telemetry import smoke
+    assert {"export.py", "smoke.py", "graph_greedy.py"} <= {
+        p.name for p in PORT_FILES}
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smoke.main(["--out", str(tmp_path / "t")])
+    assert not (tmp_path / "t").exists()
 
 
 def test_sharded_session_names_the_roadmap_item():

@@ -5,18 +5,26 @@ on one device taking the whole batch.
 Each case is a SMOKE config in float32, from the JAX package's init
 carried across (``interop.tensors_from_jax``), on a ``(d, m)`` mesh
 (``launch.mesh.make_mesh``) under the launcher's rules
-(``train_rules``: heads, MLP width, vocab and experts on "model"): each
-rank holds its slices (``distributed.sharding.model_slices``), takes its
-data index's rows, and its gradients are summed over the data group and
-all-gathered over the model group into the one-rank layout.  llama at
-1x4 and 2x2 with ``tp_shardmap`` False and True (2x2 False with remat,
-so the model group's sums run again in the backward pass); phi3.5-moe
-and grok (with remat) at 1x4, whose experts sit on the model axis
-(``ep_shards`` 0); qwen2-vl and whisper at 1x2 (the world split in two
-meshes of 2 ranks).  The llama cases take the batch of the reference's
-own ``test_tp_shardmap_parity`` (its mesh-sharded run is red under JAX
-0.9.0, so its unsharded ``loss_fn`` is the oracle); the others
-``random_batch(cfg, 4, 64, seed=0)``.
+(``train_rules``: heads or head_dim, MLP and recurrent width, vocab and
+experts on "model"): each rank holds its slices
+(``distributed.sharding.model_slices``), takes its data index's rows,
+and its gradients are summed over the data group and all-gathered over
+the model group into the one-rank layout.  The cases of the decoder,
+MoE, VLM and encoder-decoder families run in both attention layouts:
+the launcher's rules put head_dim on "model" at SMOKE (8 heads do not
+divide the production axis of 16), and the same rules with the heads
+on "model" instead reach the heads layout.  llama at 1x4 and 2x2 with
+``tp_shardmap`` False and True (2x2 False with remat, so the model
+group's sums run again in the backward pass); phi3.5-moe and grok (with
+remat) at 1x4, whose experts sit on the model axis (``ep_shards`` 0);
+qwen2-vl (M-RoPE) and whisper (cross-attention) at 1x2 (the world split
+in two meshes of 2 ranks).  The hybrid (recurrentgemma: head_dim
+attention, RG-LRU and GeGLU slices) and the SSM (mamba2: only the vocab
+sliced, the mixers whole on every rank) at 1x2, 1x4 and 2x2, with
+``tp_shardmap`` False and True.  The llama cases take the batch of the
+reference's own ``test_tp_shardmap_parity`` (its mesh-sharded run is
+red under JAX 0.9.0, so its unsharded ``loss_fn`` is the oracle); the
+others ``random_batch(cfg, 4, 64, seed=0)``.
 
 Limits: the loss within LOSS_RTOL relative (and the reference test's
 1e-3 absolute), every leaf's gradient within GRAD_TOL of its max |g|:
@@ -26,7 +34,9 @@ outside it.  Ranks of a model group hold their replicated leaves'
 gradients bit for bit; so do the ranks of a data group their slices'.
 One launcher step at 2x2 gives one rank's parameters within 2 lr +
 1e-5.  The vocab-parallel ``chunked_cross_entropy`` over 4 ranks equals
-the reference's.  The SSM and hybrid families refuse a model axis.
+the reference's.  ``train_rules`` is the reference launcher's
+adaptation for every architecture; recurrentgemma-2b at m = 3 raises on
+its RG-LRU width.
 """
 import jax
 import numpy as np
@@ -52,7 +62,7 @@ GRAD_TOL = 1e-5
 REF_LOSS_TOL = 1e-3         # test_tp_shardmap_parity's own limit
 LR = 1e-3
 
-CASES = {
+BOTH_LAYOUTS = {
     "llama-1x4": ("llama3_8b", {}, 1, 4),
     "llama-1x4-shardmap": ("llama3_8b", {"tp_shardmap": True}, 1, 4),
     "llama-2x2-remat": ("llama3_8b", {"remat": True}, 2, 2),
@@ -62,6 +72,20 @@ CASES = {
     "qwen2vl-1x2": ("qwen2_vl_72b", {}, 1, 2),
     "whisper-1x2": ("whisper_medium", {}, 1, 2),
 }
+RECURRENT = {
+    f"{name}-{d}x{m}{'-shardmap' if sm else ''}": (
+        arch, {"tp_shardmap": True} if sm else {}, d, m)
+    for name, arch in (("recurrentgemma", "recurrentgemma_2b"),
+                       ("mamba2", "mamba2_1_3b"))
+    for d, m, sm in ((1, 2, False), (1, 4, False), (1, 4, True),
+                     (2, 2, False), (2, 2, True))
+}
+#: key -> (arch, overrides, d, m, layout)
+CASES = {**{f"{k}/{layout}": v + (layout,)
+            for k, v in BOTH_LAYOUTS.items()
+            for layout in ("head_dim", "heads")},
+         **{f"{k}/head_dim": v + ("head_dim",)
+            for k, v in RECURRENT.items()}}
 
 
 def _reference_tokens(cfg):
@@ -85,17 +109,21 @@ def _jax_pair(arch, overrides):
 
 @pytest.fixture(scope="module")
 def tp(tmp_path_factory):
-    cases, want = {}, {}
-    for key, (arch, over, d, m) in CASES.items():
-        jcfg, cfg, params = _jax_pair(arch, over)
-        batch = _batch(arch, cfg)
-        weights = {n: t.numpy() for n, t in
-                   tensors_from_jax(params, cfg, device="cpu").items()}
-        cases[key] = (arch, over, d, m, batch, weights)
-        loss, grads = jax.value_and_grad(
-            lambda p: j_loss_fn(p, jax_batch(batch), jcfg))(params)
-        want[key] = (float(loss), {n: g.numpy() for n, g in tensors_from_jax(
-            grads, cfg, device="cpu").items()})
+    cases, want, jax_runs = {}, {}, {}
+    for key, (arch, over, d, m, layout) in CASES.items():
+        run = (arch, tuple(sorted(over.items())))
+        if run not in jax_runs:
+            jcfg, cfg, params = _jax_pair(arch, over)
+            batch = _batch(arch, cfg)
+            weights = {n: t.numpy() for n, t in
+                       tensors_from_jax(params, cfg, device="cpu").items()}
+            loss, grads = jax.value_and_grad(
+                lambda p: j_loss_fn(p, jax_batch(batch), jcfg))(params)
+            jax_runs[run] = (batch, weights, (float(loss), {
+                n: g.numpy() for n, g in tensors_from_jax(
+                    grads, cfg, device="cpu").items()}))
+        batch, weights, want[key] = jax_runs[run]
+        cases[key] = (arch, over, d, m, layout, batch, weights)
     cfg = configs.get_smoke("llama3_8b")
     launcher_batches = [_reference_tokens(cfg)]
     rng = np.random.default_rng(0)
@@ -126,23 +154,36 @@ def test_gradients_match_the_unsharded_reference(tp, key):
         assert err <= GRAD_TOL * max(np.max(np.abs(w)), 1e-30), (n, err)
 
 
+def _expected_slices(cfg, layout, names):
+    """Which leaves the rules slice, by family and layout: the vocab at
+    SMOKE; the attention's wq / wo (heads) or wq, wk, wv, wo (head_dim);
+    the MLP's and the RG-LRU's width but its replicated vectors; the
+    experts; never a norm, the router or a mamba2 mixer leaf."""
+    attn = ("wq", "wo") if layout == "heads" else ("wq", "wk", "wv", "wo")
+    rglru = ("in_x", "in_gate", "conv_w", "conv_b", "w_r", "w_i", "out")
+    out = {"embed.tok", "embed.head"}
+    for n in names:
+        module, leaf = (["", ""] + n.split("."))[-2:]
+        if (module in ("attn", "self_attn", "cross_attn") and leaf in attn
+                or module == "rglru" and leaf in rglru
+                or module == "mlp" or module == "moe" and leaf != "router"):
+            out.add(n)
+    return out
+
+
 @pytest.mark.parametrize("key", list(CASES))
 def test_ranks_agree_on_replicated_leaves_and_slices(tp, key):
-    """The leaves the rules shard are really sliced on every rank; ranks
-    of a model group hold equal gradients of their replicated leaves,
-    ranks of a data group equal gradients of their slices, and every
-    rank the same whole gradients."""
-    arch, over, d, m, _, _ = tp["cases"][key]
+    """The leaves the rules shard are really sliced on every rank (and no
+    other); ranks of a model group hold equal gradients of their
+    replicated leaves, ranks of a data group equal gradients of their
+    slices, and every rank the same whole gradients."""
+    arch, over, d, m, layout, _, _ = tp["cases"][key]
     ranks = [r[key] for r in tp["ranks"][:d * m]]
     assert [r["coords"] for r in ranks] == [
         (None if d == 1 else r // m, r % m) for r in range(d * m)]
     sliced = set(ranks[0]["sliced"])
     cfg = configs.get_smoke(arch).replace(**over)
-    assert {"embed.tok", "embed.head"} <= sliced
-    assert any(".attn.wq" in n or ".self_attn.wq" in n for n in sliced)
-    assert not any(n.endswith(("wk", "wv", "router")) or ".ln" in n
-                   for n in sliced)
-    assert any(".moe.wi" in n for n in sliced) == (cfg.n_experts > 0)
+    assert sliced == _expected_slices(cfg, layout, ranks[0]["whole"])
     for r in ranks:
         for n, g in r["whole"].items():
             np.testing.assert_array_equal(g, ranks[0]["whole"][n], n)
@@ -166,7 +207,7 @@ def test_tp_shardmap_parity_reference_case(tp):
     port's 1e-5 relative."""
     jcfg, cfg, params = _jax_pair("llama3_8b", {"tp_shardmap": True})
     ref = float(j_loss_fn(params, jax_batch(_reference_tokens(cfg)), jcfg))
-    got = tp["ranks"][0]["llama-2x2-shardmap"]["loss"]
+    got = tp["ranks"][0]["llama-2x2-shardmap/head_dim"]["loss"]
     assert abs(got - ref) < REF_LOSS_TOL
     assert abs(got - ref) <= LOSS_RTOL * abs(ref)
 
@@ -213,7 +254,8 @@ def test_launcher_step_at_2x2_equals_one_rank(tp):
 
 
 @pytest.mark.parametrize("arch", ["llama3_8b", "phi35_moe_42b",
-                                  "whisper_medium", "qwen2_vl_72b"])
+                                  "whisper_medium", "qwen2_vl_72b",
+                                  "recurrentgemma_2b", "mamba2_1_3b"])
 def test_rank_slices_equal_the_one_rank_init(arch):
     """``init_model(..., slices=)`` draws every leaf whole in the
     one-rank order and keeps the slice: each model rank's parameters are
@@ -236,38 +278,61 @@ def test_rank_slices_equal_the_one_rank_init(arch):
             assert torch.equal(jpart[n], narrow(jwhole[n], slices[n])), n
 
 
-@pytest.mark.parametrize("arch", ["mamba2_1_3b", "recurrentgemma_2b"])
-def test_ssm_and_hybrid_refuse_a_model_axis(arch, tmp_path):
-    """The rules, the launcher and the loss refuse a model axis for the
-    SSM and hybrid families, naming ROADMAP's item 15; m = 1 runs."""
-    cfg = configs.get_smoke(arch)
-    mesh_mod.train_rules(cfg, 1)
-    with pytest.raises(ValueError, match="item 15"):
-        mesh_mod.train_rules(cfg, 2)
-    with pytest.raises(ValueError, match="item 15"):
-        launch.main(["--arch", arch, "--smoke", "--device", "cpu", "--mesh",
-                     "2x2", "--steps", "1", "--ckpt", str(tmp_path)])
-    from repro_torch.models import loss_fn
-    tb = {k: torch.as_tensor(v) for k, v in
-          random_batch(cfg, b=1, s=64).items()}
-    with pytest.raises(ValueError, match="item 15"):
-        loss_fn(init_model(cfg, seed=0, device="cpu"), tb, cfg,
-                model=object())
+def _reference_launcher_rules(jcfg, m):
+    """The rules ``repro.launch.train.main`` trains with on a (d, m)
+    mesh: its production rules, then its own loop dropping "model" from
+    each axis whose dim ``m`` does not divide (``launch/train.py``
+    lines 64-71, which live inside ``main``)."""
+    from repro.launch.mesh import arch_rules
+    rules = arch_rules(jcfg.name, jcfg, multi_pod=False)
+    for name in ("heads", "mlp", "vocab", "expert", "head_dim"):
+        dim = {"heads": jcfg.n_heads, "mlp": max(jcfg.d_ff, 1),
+               "vocab": jcfg.vocab, "expert": max(jcfg.n_experts, 1),
+               "head_dim": jcfg.hd}[name]
+        if rules.get(name) == "model" and dim % m != 0:
+            rules[name] = None
+    return rules
 
 
-def test_launcher_rules_at_smoke_put_heads_on_model():
-    """At SMOKE (8 heads, which the production axis of 16 does not
-    divide) the reference's rules put head_dim on "model"; the port's
-    launcher shards the heads there instead, and keeps the reference's
-    rules where heads divide 16 (the full configs)."""
-    cfg = configs.get_smoke("llama3_8b")
-    base = mesh_mod.adapt_rules(mesh_mod.arch_rules(cfg.name, cfg), cfg, 2)
-    assert base["head_dim"] == "model" and base["heads"] is None
-    rules = mesh_mod.train_rules(cfg, 2)
-    assert rules == dict(base, heads="model", head_dim=None)
-    for arch in ("llama3_8b", "phi35_moe_42b"):
-        full = configs.get_config(arch)
-        assert mesh_mod.train_rules(full, 4) == mesh_mod.adapt_rules(
-            mesh_mod.arch_rules(arch, full), full, 4)
-    with pytest.raises(ValueError, match="item 15"):
-        mesh_mod.train_rules(cfg, 16)
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_train_rules_are_the_reference_launchers(arch, m):
+    """``train_rules(cfg, m)`` is the reference launcher's adaptation of
+    its production rules, for the published config and its SMOKE, every
+    family alike (no axis swapped, no family refused)."""
+    for get, jget in ((configs.get_config, jconfigs.get_config),
+                      (configs.get_smoke, jconfigs.get_smoke)):
+        want = _reference_launcher_rules(jget(arch), m)
+        assert mesh_mod.train_rules(get(arch), m) == want, get.__name__
+
+
+def test_mesh_rules_as_the_launcher_prints_them():
+    """What the launcher's rules do to the last two families: mamba2's
+    mixer keeps nothing on "model" on any small mesh (``d_ff = 0``), its
+    vocab of 50,280 only at SMOKE; recurrentgemma-2b puts head_dim, the
+    MLP and RG-LRU width and the vocab there at m = 2 and 4, and at
+    m = 3 keeps "mlp" (7,680 divides 3), which the RG-LRU width of 2,560
+    does not split: ``model_slices`` raises naming that leaf.  At m = 1
+    nothing is sliced."""
+    mamba, rg = (configs.get_config(a) for a in ("mamba2_1_3b",
+                                                 "recurrentgemma_2b"))
+    for m in (2, 3, 4):
+        assert not any(model_slices(mamba, mesh_mod.train_rules(mamba, m),
+                                    m, 0).values())
+    smoke = configs.get_smoke("mamba2_1_3b")
+    sl = model_slices(smoke, mesh_mod.train_rules(smoke, 2), 2, 1)
+    assert {n for n, s in sl.items() if s} == {"embed.tok", "embed.head"}
+    for m in (2, 4):
+        rules = mesh_mod.train_rules(rg, m)
+        assert {a for a, v in rules.items() if v == "model"} == {
+            "head_dim", "mlp", "vocab"}
+        sl = model_slices(rg, rules, m, m - 1)
+        assert sl["layers.2.attn.wq"] == (2, (m - 1) * 256 // m, 256 // m)
+        assert sl["layers.0.rglru.w_r"] == (0, (m - 1) * 2560 // m, 2560 // m)
+        assert sl["layers.0.rglru.b_r"] is None
+    assert {a for a, v in mesh_mod.train_rules(rg, 3).items()
+            if v == "model"} == {"mlp"}
+    with pytest.raises(ValueError, match=r"layers\.0\.rglru\.in_x"):
+        model_slices(rg, mesh_mod.train_rules(rg, 3), 3, 0)
+    assert not any(model_slices(rg, mesh_mod.train_rules(rg, 1), 1,
+                                0).values())
