@@ -197,23 +197,44 @@ CUDA toolkit's nvcc.  It
     every input; then ``greedy_graph_partition`` (host numpy) on the
     dual graph of phase 2's step-0 mesh at p = 64, its cut, imbalance
     and seconds beside the session's k-section partition's;
-27. prints the kernel table as one JSON line (with each rank's launches
+27. runs the production dry-run (``repro_torch.launch.dryrun``): the
+    single-pod cells of ``configs.cells()`` that fit the script's limit
+    (``meta_cells``: every decode and prefill cell and the card's train
+    cell) counted on the meta device by a background process started
+    after phase 13 (the card's cells whole, the others' phase B: a
+    record and a line each with parameters and
+    moments a rank, FLOPs, collective bytes by kind;
+    ``chiprun_out/dryrun/``), then four cells
+    (DRYRUN_CARD_CELLS: llama3-8b train_4k, prefill_32k and decode_32k,
+    mamba2-1.3b long_500k) run on the card as rank 0 of the 16 x 16 mesh
+    at full depth with loopback ``DryComm`` groups: each first step's
+    peak within PEAK_RTOL of the prediction, the collective bytes by kind
+    equal to the meta count, a profiled step's trace
+    (``launch.hlo_analysis``) equal to the counters; the prefill cell's
+    flash launches counted, its first launch's inputs held against the
+    plain blocked attention with SDPA's time beside it; the roofline rows
+    of the four cells under the H100's constants with the measured step
+    beside each;
+28. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-26 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    14-27 in ``launches_by_path``, the flash kernel's d = 256 reading as
     ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
-    and ``at_cross_decode``, and qwen2-vl's as ``at_qwen2_vl``), the
-    card's name and power limit, and ``{"ok": true, ...}`` as the last
-    line.
+    and ``at_cross_decode``, qwen2-vl's as ``at_qwen2_vl`` and the
+    dry-run prefill's as ``at_dryrun_prefill``), the card's name and
+    power limit, and ``{"ok": true, ...}`` as the last line.
 
 Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
-through host memory (the script prints which).  The kernels are built
-before any rank starts, so the ranks only load the library.
+through host memory (the script prints which).  The 4 rank processes
+start once, at phase 10, and run every multi-rank phase up to phase 26
+(``RankPool``).  The kernels are built before any rank starts, so the
+ranks only load the library.
 
 A failed check is printed and the run goes on to the next phase; at the
 end, any failure makes the script exit 1 without the last two lines.
 Without CUDA it exits 2 before doing anything.
 """
+import atexit
 import contextlib
 import gc
 import json
@@ -1139,6 +1160,10 @@ def standalone_dlb(dev, n=8_000_000):
 # ---------------------------------------------------------------------------
 
 SHARDED_P = 4
+# the ranks' allocator maps memory as it grows rather than in fixed
+# segments, so four processes on one card do not strand reserved blocks
+RANK_ALLOC_CONF = "expandable_segments:True"
+WORLD_TIMEOUT_S = 600.0     # a collective of the ranks' group times out
 PROFILED_STEP = 1       # the sharded session step run under torch.profiler
 # beside the shard lengths the sharded session scanned: 2^21, the FEM
 # session's largest mesh and a ragged n
@@ -1162,26 +1187,140 @@ def rank_placement():
     return "gloo", ["cuda:0"] * SHARDED_P
 
 
-def start_world(fn, *args, join_s):
-    """``fn(comm, *args)`` on SHARDED_P ranks placed by rank_placement;
-    a file rendezvous under build/ (no network port)."""
+def _pool_rank(rank, backend, init_file, devices, tasks, results):
+    """One rank of a RankPool: joins the group once, then runs each task
+    ``(fn, args)`` it is sent as ``fn(Comm(device), *args)`` -- a fresh
+    ``Comm`` (its counters from 0), the launch counts and the card's peak
+    from 0, as in a fresh process -- and frees what the task left on the
+    card before it answers; ``None`` ends it."""
+    import datetime
+    import traceback
     import torch
-    from repro_torch.distributed import run_world
-    backend, devices = rank_placement()
-    rdv_dir = os.path.join(ROOT, "build", "rendezvous")
-    os.makedirs(rdv_dir, exist_ok=True)
-    init = os.path.join(rdv_dir, f"{fn.__name__}-{os.getpid()}-"
-                                 f"{time.monotonic_ns()}")
-    log(f"ranks: {SHARDED_P} over {backend} on {devices} "
+    import torch.distributed as dist
+    from repro_torch.distributed import Comm
+    from repro_torch.kernels import ops
+    torch.set_num_threads(1)
+    device = devices[rank]
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", rank=rank,
+        world_size=len(devices),
+        timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+    try:
+        for task in iter(tasks.get, None):
+            ops.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                out = (rank, True, task[0](Comm(device=device), *task[1]))
+            except Exception:
+                out = (rank, False, traceback.format_exc())
+            del task
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            results.put(out)
+            del out
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """SHARDED_P rank processes, placed by rank_placement and joined by a
+    file rendezvous under build/ (no network port), started once and kept
+    for every multi-rank phase: a rank's start (the interpreter, torch,
+    the CUDA context, the kernel library, the libraries' first calls)
+    costs seconds that each phase used to pay again.  The ranks' allocator
+    maps memory as it grows (RANK_ALLOC_CONF).  A failed or late task ends
+    the pool, its ranks killed; the next task starts a new one."""
+
+    def __init__(self):
+        import torch.multiprocessing as mp
+        self.backend, self.devices = rank_placement()
+        rdv_dir = os.path.join(ROOT, "build", "rendezvous")
+        os.makedirs(rdv_dir, exist_ok=True)
+        self.init = os.path.join(rdv_dir, f"pool-{os.getpid()}-"
+                                          f"{time.monotonic_ns()}")
+        ctx = mp.get_context("spawn")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in self.devices]
+        self.procs = [ctx.Process(target=_pool_rank, daemon=True, args=(
+            r, self.backend, self.init, self.devices, q, self.results))
+            for r, q in enumerate(self.tasks)]
+        with rank_env(PYTORCH_CUDA_ALLOC_CONF=RANK_ALLOC_CONF):
+            for p in self.procs:
+                p.start()
+
+    def run(self, fn, args, join_s):
+        """``fn(comm, *args)`` on every rank; the results in rank order."""
+        import queue
+        for q in self.tasks:
+            q.put((fn, args))
+        got = {}
+        deadline = time.monotonic() + join_s
+        while len(got) < len(self.procs):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{fn.__name__}: {len(self.procs) - len(got)}"
+                                   f" ranks gave no result within {join_s} s")
+            try:
+                rank, ok, out = self.results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self.procs)
+                        if p.exitcode is not None]
+                if dead:
+                    raise RuntimeError(f"{fn.__name__}: rank(s) {dead} exited"
+                                       " without a result")
+                continue
+            if not ok:
+                raise RuntimeError(f"{fn.__name__}: rank {rank} failed:\n{out}")
+            got[rank] = out
+        return [got[r] for r in range(len(self.procs))]
+
+    def close(self, kill=False):
+        if not kill:
+            for q in self.tasks:
+                q.put(None)
+            for p in self.procs:
+                p.join(timeout=30.0)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for q in (self.results, *self.tasks):
+            q.close()
+        if os.path.exists(self.init):
+            os.remove(self.init)
+
+
+_POOL = []
+
+
+def stop_world():
+    """End the rank pool, if one runs."""
+    while _POOL:
+        _POOL.pop().close()
+
+
+def start_world(fn, *args, join_s):
+    """``fn(comm, *args)`` on the SHARDED_P ranks of the pool (started on
+    the first call); a failure ends the pool and raises here."""
+    import torch
+    if not _POOL:
+        _POOL.append(RankPool())
+        atexit.register(stop_world)
+    pool = _POOL[0]
+    log(f"ranks: {SHARDED_P} over {pool.backend} on {pool.devices} "
         f"(torch.cuda.device_count()={torch.cuda.device_count()}; card "
         f"{nvidia_smi_line()})")
     try:
-        return run_world(fn, SHARDED_P, *args, backend=backend,
-                         devices=devices, init_file=init, timeout_s=600.0,
-                         join_s=join_s), backend
-    finally:
-        if os.path.exists(init):
-            os.remove(init)
+        return pool.run(fn, args, join_s), pool.backend
+    except BaseException:
+        _POOL.clear()
+        pool.close(kill=True)
+        raise
 
 
 def compare_scan(dev, path_lengths):
@@ -3905,9 +4044,6 @@ def train_card_vs_cpu(dev):
 # variant runs 4 layers, whose moments split by layer.
 TRAIN_DP_DEPTH = 2
 SMOKE_DP_LAYERS = 4
-# the ranks' allocator maps memory as it grows rather than in fixed
-# segments, so four processes on one card do not strand reserved blocks
-RANK_ALLOC_CONF = "expandable_segments:True"
 TRAIN_DP_STEPS = 2
 TRAIN_DP_LOSS_TOL = 1e-3            # step 0's global loss, absolute
 TRAIN_DP_GRAD_TOL = 2.0 ** -5       # a summed bf16 leaf, of its max |g|
@@ -4170,11 +4306,10 @@ def train_on_mesh(dev, label, arch, depth, d, m, steps, routing=False,
     cfg = full.replace(n_layers=depth)
     held = memory(dev)
     log(f"{label}: this process holds {held[0] / 1e9:.3f} GB; card free "
-        f"{held[2] / 1e9:.3f} GB before the ranks start")
+        f"{held[2] / 1e9:.3f} GB before the ranks' task")
     t0 = time.perf_counter()
-    with rank_env(PYTORCH_CUDA_ALLOC_CONF=RANK_ALLOC_CONF):
-        outs, backend = start_world(train_dp_rank, cfg, d, m, steps, routing,
-                                    join_s=900.0)
+    outs, backend = start_world(train_dp_rank, cfg, d, m, steps, routing,
+                                join_s=900.0)
     world_wall = time.perf_counter() - t0
     free_memory()
     r0 = outs[0]
@@ -4685,6 +4820,289 @@ def telemetry_smoke_on_card(dev, step0):
 # ---------------------------------------------------------------------------
 
 FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
+# ---------------------------------------------------------------------------
+# Phase 27: the production dry-run (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+#: the cells phase 27 runs on the card, rank 0 of the 16 x 16 mesh at full
+#: depth: the dense family's three shapes and the SSM's long decode
+DRYRUN_CARD_CELLS = (("llama3_8b", "train_4k"), ("llama3_8b", "prefill_32k"),
+                     ("llama3_8b", "decode_32k"),
+                     ("mamba2_1_3b", "long_500k"))
+#: seconds phase 27 waits for them before it stops the rest (the cells
+#: counted by then are the ones that fit the script's limit)
+DRYRUN_WAIT_S = 120.0
+DRYRUN_DIR = os.path.join(ROOT, "chiprun_out", "dryrun")
+#: a card run's peak (its arguments plus the most the step allocated above
+#: them) within this share of the meta prediction (arguments plus
+#: temp_bytes): the caching allocator rounds each block to 512 bytes and
+#: the meta count sees no kernel's own scratch buffers
+PEAK_RTOL = 0.10
+_DRYRUN_WORKER = r"""
+import json, os, sys
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+for arch, shape, flops in json.loads(sys.argv[2]):
+    tag = os.path.join(out, f"{arch}__{shape}__sp.json")
+    try:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False, device="meta",
+                              flops_phase=flops)
+    except Exception as e:
+        rec = {"arch": arch, "shape": shape, "error": repr(e)}
+    with open(tag + ".tmp", "w") as f:
+        json.dump(rec, f, indent=1)
+    os.replace(tag + ".tmp", tag)
+"""
+
+
+def meta_cells():
+    """The single-pod cells phase 27 counts on the meta device, in the
+    order it counts them: the card's cells, whole; then every other
+    decode, long-decode and prefill cell's phase B (a device's memory and
+    collectives), smallest model first.  The other train cells (7 to 24 s
+    of a core each, about 2 minutes together) and every cell's phase A (the
+    unsharded step's FLOPs) are left to the CPU's count, ``python -m
+    repro_torch.launch.dryrun --device meta --all``."""
+    from repro_torch.configs import SHAPES, cells, get_config
+    kinds = {"decode": 0, "prefill": 1, "train": 2}
+    return [(a, s, (a, s) in DRYRUN_CARD_CELLS) for a, s in sorted(
+        (c for c in cells() if c in DRYRUN_CARD_CELLS
+         or SHAPES[c[1]][2] != "train"),
+        key=lambda c: (c not in DRYRUN_CARD_CELLS, kinds[SHAPES[c[1]][2]],
+                       get_config(c[0]).n_params()))]
+
+
+def start_meta_dryrun():
+    """Start one process that counts ``meta_cells()`` on the meta device
+    (``dryrun.run_cell(..., device="meta")``) into DRYRUN_DIR while the
+    serving phases after phase 13 run; niced to 19, on one core, with no
+    card visible (the multi-rank phases slowed down by ~250 s when three
+    such processes shared their cores from phase 2 on).  Returns the
+    processes in a list (``stop_meta_dryrun`` ends them)."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    for f in os.listdir(DRYRUN_DIR):
+        os.remove(os.path.join(DRYRUN_DIR, f))
+    todo = meta_cells()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(os.path.join(DRYRUN_DIR, "worker.log"), "w") as logf:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_WORKER, DRYRUN_DIR,
+             json.dumps(todo)], env=env, stdout=logf,
+            stderr=subprocess.STDOUT, preexec_fn=_background)]
+    atexit.register(stop_meta_dryrun, procs)
+    log(f"phase 27's meta counts: {len(todo)} single-pod cells started in "
+        "a background process")
+    return procs
+
+
+def _background():
+    """In a child before it runs: the lowest CPU priority, the last core
+    this process may use, and killed with its parent (Linux's
+    PR_SET_PDEATHSIG)."""
+    import ctypes
+    import signal
+    os.nice(19)
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL))
+
+
+def stop_meta_dryrun(procs):
+    for p in procs or ():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def dryrun_records():
+    """The meta records written so far, by (arch, shape)."""
+    out = {}
+    for f in sorted(os.listdir(DRYRUN_DIR)):
+        if f.endswith("__sp.json"):
+            with open(os.path.join(DRYRUN_DIR, f)) as fh:
+                rec = json.load(fh)
+            out[(rec["arch"], rec["shape"])] = rec
+    return out
+
+
+def log_dryrun_record(rec):
+    mem = rec["memory_per_device"]
+    args = rec["argument_bytes_by_name"]
+    coll = rec["collective_bytes_per_device"]
+    kinds = ", ".join(f"{k} {coll[k]:.0f}" for k in
+                      ("all-reduce", "all-gather", "reduce-scatter",
+                       "all-to-all", "broadcast"))
+    log(f"dryrun {rec['arch']} {rec['shape']}: params "
+        f"{args['params'] / 1e9:.4f} GB, moments "
+        f"{args.get('opt', 0) / 1e9:.4f} GB, argument "
+        f"{mem['argument_bytes'] / 1e9:.4f} GB, temp "
+        f"{mem['temp_bytes'] / 1e9:.4f} GB a rank; flops_global "
+        f"{rec.get('flops_global', float('nan')):.6e}, a rank "
+        f"{rec['compiled_flops_per_device_u1']:.6e}; collective bytes a "
+        f"rank: {kinds} (total {coll['total']:.0f}); counted in "
+        f"{rec.get('t_lower_unrolled_s', 0) + rec['t_compile_s']:.1f} s")
+
+
+def dryrun_profiled_step(cell, label):
+    """One more step of a card cell under the profiler (CPU activity):
+    the trace's collective bytes by ``launch.hlo_analysis`` (its
+    ``DryComm`` spans), checked equal to the groups' counters of that
+    step."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import collective_bytes
+    dryrun.reset_counts(cell)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cell.step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        traced = collective_bytes(path)
+    counted = dryrun.collective_counts(cell)
+    counted.pop("by_group")
+    for k, v in counted.items():
+        check(traced[k] == v, f"{label}: the trace's {k} bytes {traced[k]} "
+              f"!= the DryComm counters' {v}")
+    log(f"{label}: the profiled step's trace gives the DryComm counters' "
+        f"bytes by kind ({traced['total']:.0f} in all)")
+
+
+def dryrun_flash_row(call, label):
+    """The flash kernel against the plain blocked causal attention on the
+    inputs the prefill cell handed its first launch, with SDPA's time
+    beside it and the bound of the pairs it attends."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.dryrun import flash_pairs
+    from repro_torch.models.layers import _blocked_causal_attention
+    q, k, v, causal, window = call
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    chunk = 1024
+    plain = lambda: _blocked_causal_attention(    # noqa: E731
+        q, k.repeat_interleave(h // hkv, dim=1),
+        v.repeat_interleave(h // hkv, dim=1), window=window, chunk=chunk)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = plain()
+    err, reading = attention_err(label, got, want)
+    ms, call_ms = timed_ms(lambda: flash_attention_cuda(
+        q, k, v, causal=causal, window=window), reps=5, warmup=1)
+    plain_ms, plain_call = timed_ms(plain, reps=2, warmup=1)
+    lib_ms, _ = timed_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), reps=5, warmup=1)
+    pairs = flash_pairs(s, k.shape[2], causal, window)
+    bound, by = attention_bound(b * h * pairs, h, hkv, b * s, b * s, d,
+                                n_kv=b * k.shape[2])
+    shape = (f"b={b} hq={h} hkv={hkv} s={s} d={d} "
+             f"{'causal' if causal else 'no mask'} window={window} bf16")
+    log(f"{label}: flash {shape}: kernel_ms={ms:.4f} (call {call_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} (blocked causal, chunk {chunk}; call "
+        f"{plain_call:.4f}) sdpa_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+        f"({by}) share={bound / ms:.4f} {reading}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err, shape=shape)
+
+
+def production_dryrun(dev, procs):
+    """Phase 27: the meta counts of ``meta_cells()`` (started after
+    phase 13 by ``start_meta_dryrun``), then DRYRUN_CARD_CELLS on the
+    card, rank 0 of the production mesh at full depth with loopback
+    ``DryComm`` groups (``dryrun.card_run``): each run's peak within
+    PEAK_RTOL of the prediction, its collective bytes by kind equal to
+    the meta count, its profiled step's trace equal to the counters; the
+    prefill cell's flash launches counted from 0 over its run and the
+    first launch's inputs held against the plain attention; the roofline
+    rows of the four cells with the measured step beside them."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import layers
+    deadline = time.perf_counter() + DRYRUN_WAIT_S
+    while any(p.poll() is None for p in procs) and \
+            time.perf_counter() < deadline:
+        time.sleep(1.0)
+    running = sum(p.poll() is None for p in procs)
+    stop_meta_dryrun(procs)
+    recs = dryrun_records()
+    from repro_torch.configs import cells
+    failed = {c: r["error"] for c, r in recs.items() if "error" in r}
+    state = "stopped at the wait's end" if running else "done"
+    log(f"meta counts: {len(recs)} of the {len(meta_cells())} single-pod "
+        f"cells phase 27 counts written (the count {state}; {len(cells())} "
+        f"cells in all), {len(failed)} failed")
+    check(not failed, f"meta counts failed: {failed}")
+    for c in cells():
+        if c in recs:
+            log_dryrun_record(recs[c])
+    out = {"records": len(recs), "rows": [], "card": {}}
+    for arch, shape in DRYRUN_CARD_CELLS:
+        label = f"dryrun {arch} {shape} on the card"
+        rec = recs.get((arch, shape))
+        if rec is None:       # not counted in the background: count now
+            rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                                  device="meta")
+        rec = dict(rec)
+        free_memory()
+        calls = []
+        real = layers.flash_attention_op
+
+        def recording(q, k, v, **kw):
+            if not calls:
+                calls.append((q, k, v, kw.get("causal", True),
+                              kw.get("window")))
+            return real(q, k, v, **kw)
+        layers.flash_attention_op = recording
+        ops.reset_launch_counts()
+        try:
+            dryrun.card_run(arch, shape, rec, multi_pod=False, device=dev,
+                            on_card=lambda cell, r: dryrun_profiled_step(
+                                cell, label))
+        finally:
+            layers.flash_attention_op = real
+        launches = ops.launch_counts()
+        mem = rec["memory_per_device"]
+        want = mem["argument_bytes"] + mem["temp_bytes"]
+        got = rec["peak_bytes"] - rec["base_bytes"] + mem["argument_bytes"]
+        log(f"{label}: step {rec['step_s']:.4f} s; peak "
+            f"{got / 1e9:.4f} GB (allocator peak {rec['peak_bytes'] / 1e9:.4f}"
+            f" GB less {(rec['base_bytes'] - mem['argument_bytes']) / 1e9:.4f}"
+            f" GB held beside the cell's arguments) against the predicted "
+            f"{want / 1e9:.4f} GB ({got / want:.4f}); launches {launches}")
+        check(abs(got / want - 1) <= PEAK_RTOL,
+              f"{label}: peak {got} against the predicted {want}, beyond "
+              f"{PEAK_RTOL}")
+        pred = {k: v for k, v in rec["collective_bytes_per_device"].items()}
+        for k, v in rec["card_collectives"].items():
+            check(v == pred[k], f"{label}: {k} bytes {v} on the card, "
+                  f"{pred[k]} counted on meta")
+        if shape.startswith("prefill"):
+            check(launches["flash_attention"] > 0 and calls,
+                  f"{label}: no flash launch")
+            out["prefill_launches"] = launches
+            out["flash_row"] = dryrun_flash_row(calls[0], label)
+        calls.clear()
+        out["card"][f"{arch} {shape}"] = {
+            k: rec[k] for k in ("step_s", "peak_bytes", "base_bytes")}
+        out["rows"].append(roofline.roofline_row(rec))
+        with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__card.json"),
+                  "w") as f:
+            json.dump(rec, f, indent=1)
+    free_memory()
+    log(f"roofline under {roofline.H100.name} constants, rank 0's step "
+        "measured on this card beside it:")
+    for line in roofline.fmt_table(out["rows"]).splitlines():
+        log("  " + line)
+    for r in out["rows"]:
+        log(f"  {r['arch']} {r['shape']}: roofline step "
+            f"{max(r['t_compute_s'], r['t_memory_s'], r['t_collective_s']):.6f}"
+            f" s ({r['bottleneck']}), measured {r['measured_step_s']:.6f} s")
+    return out
+
+
 SRC = "src/repro_torch/kernels/csrc/"
 # the source of the kernel each row times and counts: the path's attention
 # is bf16, so flash_attention's row is the tensor-core kernel
@@ -4824,6 +5242,8 @@ def main():
         log(f"after freeing phase 6's model: "
             f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
     log(f"command time so far: {time.perf_counter() - t_start:.1f} s")
+    dry_procs = phase("phase 27 (started): the meta dry-run's counts in "
+                      "the background", start_meta_dryrun) or []
     swa = phase("phase 14: sliding window at h2o-danube3-4b width and depth "
                 "(full prefill over a ring of 4096)", serve_swa, dev)
     phase("phase 14b: h2o-danube3 SMOKE with a ring, card against CPU",
@@ -4935,13 +5355,23 @@ def main():
         "validated); greedy graph growing against k-section",
         telemetry_smoke_on_card, dev,
         None if fem is None else fem[3].get("step0"))
+    stop_world()
     log(f"phase 26: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    dry = phase("phase 27: the production dry-run: the single-pod decode "
+                "and prefill cells counted on the meta device, four cells "
+                "run on the card as "
+                "rank 0 of the 16 x 16 mesh at full depth",
+                production_dryrun, dev, dry_procs)
+    log(f"phase 27: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
                         whisper, whisper_sharded, vlm, vlm_sharded, training,
-                        packing, dp, tp, ep, hybrid_mesh, ssm_mesh, tsmoke)
+                        packing, dp, tp, ep, hybrid_mesh, ssm_mesh, tsmoke,
+                        dry)
             or tsmoke["graph"] is None
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
@@ -4999,7 +5429,9 @@ def main():
                  packing["corpus_launches"],
              f"balanced_pack sorted and ksection ({PACK_LENGTHS} lengths, p "
              f"= {PACK_ROWS}, {PACK_SEEDS} seeds x 2)":
-                 packing["pack_launches"]}
+                 packing["pack_launches"],
+             "llama3_8b prefill_32k dry-run cell, rank 0 of the 16 x 16 mesh "
+             "(2 of 32 heads, 2 rows, 3 steps)": dry["prefill_launches"]}
     # the flash kernel at the hybrid's head dim and at whisper's encoder
     # and cross-attention shapes, beside its main-path row
     d256 = dict(hybrid["row"], shape="b=1 hq=10 hkv=1 s=6144 d=256 causal "
@@ -5014,7 +5446,8 @@ def main():
                                 "s=1 s_kv=1500 d=64 no mask bf16"),
         "at_qwen2_vl": {f"s={n}": dict(r, shape=f"b=1 hq=64 hkv=8 s={n} d=128 "
                                        "causal bf16")
-                        for n, r in vlm["flash_rows"].items()}}
+                        for n, r in vlm["flash_rows"].items()},
+        "at_dryrun_prefill": dry["flash_row"]}
     table = [dict(name=name, route="cuda", source=SRC + SOURCES.get(name, name + ".cu"),
                   replaces=REPLACES[name], launches=launches[name],
                   max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],

@@ -7,6 +7,8 @@ package: the dense family (``llama3_8b``, the two sliding-window
 (``phi35_moe_42b``, ``grok_1_314b``), the encoder-decoder
 (``whisper_medium``), the VLM (``qwen2_vl_72b``), the SSM family
 (``mamba2_1_3b``) and the hybrid family (``recurrentgemma_2b``).
+``SHAPES``, ``LONG_OK`` and ``cells()`` are the dry-run's shape cells
+(``launch/dryrun.py``), the JAX package's registry.
 """
 from __future__ import annotations
 
@@ -27,6 +29,24 @@ ARCH_IDS = [
     "qwen2_vl_72b",
     "mamba2_1_3b",
 ]
+
+# shape cells: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k only for the sub-quadratic attention archs
+LONG_OK = {"recurrentgemma_2b", "h2o_danube3_4b", "h2o_danube_1_8b",
+           "mamba2_1_3b"}
+
+
+def cells():
+    """All runnable (arch, shape) dry-run cells."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if s != "long_500k" or a in LONG_OK]
 
 
 def _module(arch: str):

@@ -7,11 +7,11 @@ One process per rank: each rank holds its own shard, and the shards in
 rank order are the JAX package's global arrays.  Importing this package
 registers the sharded stages."""
 from . import stages  # registers the sharded stage variants on import
-from .comm import BACKENDS, Comm, run_world
+from .comm import BACKENDS, KINDS, Comm, DryComm, run_world
 from .migrate import (MigrationResult, dispatch_slots, migrate_items,
                       payload_nbytes)
 from .stages import build_balance_fn, check_world
 
-__all__ = ["BACKENDS", "Comm", "MigrationResult", "build_balance_fn",
+__all__ = ["BACKENDS", "KINDS", "Comm", "DryComm", "MigrationResult", "build_balance_fn",
            "check_world", "dispatch_slots", "migrate_items",
            "payload_nbytes", "run_world", "stages"]

@@ -21,6 +21,45 @@ from ..models.config import ModelConfig
 MODEL_AXIS_SIZE = 16
 
 
+class ProductionMesh(NamedTuple):
+    """The production mesh as the JAX package's ``make_production_mesh``
+    builds it: its ``shape`` and axis ``names``; rank r's coordinates are
+    ``coords(r)``, in ``jax.make_mesh``'s device order (row-major, the
+    model axis fastest)."""
+    shape: Tuple[int, ...]
+    names: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.names.index(name)]
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s index on each axis."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} of a mesh of {self.size}")
+        out = {}
+        for name, d in zip(reversed(self.names), reversed(self.shape)):
+            out[name] = rank % d
+            rank //= d
+        return {n: out[n] for n in self.names}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """16x16 ("data", "model"), or 2x16x16 ("pod", "data", "model") with
+    ``multi_pod``: a description of the mesh, which starts no process
+    (``make_mesh`` is the live counterpart over a ``Comm``)."""
+    if multi_pod:
+        return ProductionMesh((2, 16, MODEL_AXIS_SIZE),
+                              ("pod", "data", "model"))
+    return ProductionMesh((16, MODEL_AXIS_SIZE), ("data", "model"))
+
+
 def batch_axes(multi_pod: bool) -> Tuple[str, ...]:
     return ("pod", "data") if multi_pod else ("data",)
 
@@ -76,8 +115,12 @@ def adapt_rules(rules: Dict, cfg: ModelConfig, m: int) -> Dict:
     (With ``m = 1`` every dim divides, so those axes keep "model" and
     are not free for the ZeRO dim.)"""
     rules = dict(rules)
+    # the expert weights' stored rows: ep_shards of them when the config
+    # pre-blocks them for an expert-parallel axis (grok's 8 experts as 16
+    # f-slices), else one an expert
     dims = {"heads": cfg.n_heads, "mlp": max(cfg.d_ff, 1),
-            "vocab": cfg.vocab, "expert": max(cfg.n_experts, 1),
+            "vocab": cfg.vocab,
+            "expert": max(cfg.ep_shards or cfg.n_experts, 1),
             "head_dim": cfg.hd}
     for name, dim in dims.items():
         if rules.get(name) == "model" and dim % m != 0:
@@ -96,6 +139,22 @@ def train_rules(cfg: ModelConfig, m: int = 1) -> Dict:
     divide (an RG-LRU leaf at ``m = 3``, where the adaptation keeps
     "mlp" for ``d_ff`` alone) raises in ``model_slices``."""
     return adapt_rules(arch_rules(cfg.name, cfg), cfg, m)
+
+
+def serve_rules(cfg: ModelConfig, m: int = 1, *, multi_pod: bool = False,
+                batch: int = 1) -> Dict:
+    """The rules the serving steps run ``cfg`` with on a model axis of
+    ``m`` ranks (``serve.decode.prefill`` / ``decode_step`` with
+    ``model=``): ``decode_rules`` adapted to ``m`` as the training
+    launcher adapts ``arch_rules``, with the KV cache's sequence on
+    "model" (``"cache_seq"``).  Prefill takes them too, where the
+    reference's dry-run prefills under ``arch_rules`` (head_dim on
+    "model" for recurrentgemma): the cache's sequence takes that axis,
+    so no head_dim slice meets it."""
+    rules = adapt_rules(decode_rules(cfg.name, cfg, multi_pod=multi_pod,
+                                     batch=batch), cfg, m)
+    rules["cache_seq"] = "model"
+    return rules
 
 
 class Mesh(NamedTuple):

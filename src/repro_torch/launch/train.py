@@ -131,7 +131,9 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
     ``"model"`` of the result too), and the history adds the host
     seconds of the model group's all-reduces (``t_model``, within
     ``t_grad`` and ``t_update``) and the bytes this rank handed to them
-    (``model_bytes``).  ``on_step(step, model, grads, metrics)``, if
+    (``model_bytes``), and the model group's collectives by kind
+    (``model_bytes_by_kind``, ``t_model_by_kind``: the head_dim layout's
+    all-gathers and reduce-scatters as well).  ``on_step(step, model, grads, metrics)``, if
     given, sees each step's summed gradients (before the update consumed
     them) and the updated model."""
     dev = resolve_device(device)
@@ -186,7 +188,9 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 8,
                        gather_bytes=metr["gather_bytes"])
         if model is not None:
             rec.update(t_model=times["model"],
-                       model_bytes=metr["model_bytes"])
+                       model_bytes=metr["model_bytes"],
+                       model_bytes_by_kind=metr["model_bytes_by_kind"],
+                       t_model_by_kind=metr["model_s_by_kind"])
         history.append(rec)
         if on_step is not None:
             on_step(step, net, grads, metr)

@@ -167,6 +167,12 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _scatter_sum(x: torch.Tensor, model, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every model rank's
+    ``x`` (a reduce-scatter)."""
+    return model.psum_scatter(x.movedim(dim, 0)).movedim(0, dim)
+
+
 class _GatherFromModel(torch.autograd.Function):
     """Every model rank's slice of ``x`` along ``dim``, concatenated in
     rank order; the backward sums the cotangent over the group (in
@@ -180,9 +186,8 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        m = ctx.model
-        g = m.psum(g.to(F32)).to(g.dtype)
-        return g.narrow(ctx.dim, m.rank * ctx.n, ctx.n), None, None
+        return _scatter_sum(g.to(F32), ctx.model, ctx.dim).to(g.dtype), \
+            None, None
 
 
 class _ReduceScatterToModel(torch.autograd.Function):
@@ -193,8 +198,7 @@ class _ReduceScatterToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, model, dim):
         ctx.model, ctx.dim = model, dim
-        n = x.shape[dim] // model.size
-        return model.psum(x).narrow(dim, model.rank * n, n)
+        return _scatter_sum(x, model, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -287,7 +291,7 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
     freqs = rope_freqs(d, theta, x.device)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))
+        torch.as_tensor(sections, device=x.device), output_size=d // 2)
     pos_sel = pos3.to(F32)[sec_id]                       # (d/2, b, s)
     ang = pos_sel.permute(1, 2, 0)[:, None] * freqs      # (b, 1, s, d/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -515,7 +519,7 @@ def attention_apply(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      stored_pos: torch.Tensor, pos: torch.Tensor,
-                     use_rope: bool = True
+                     use_rope: bool = True, model=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode against a position-tracked cache.
 
@@ -523,16 +527,34 @@ def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     position held by each cache slot (-1 empty); pos: (b,) current
     position.  The new K/V entry is folded in here; the caller writes it
     to the cache afterwards.  ``use_rope=False``: no rotation (whisper's
-    decoder).  Returns (y, k_new, v_new), entries (b, hkv, 1, hd)."""
+    decoder).  Returns (y, k_new, v_new), entries (b, hkv, 1, hd).
+
+    On the model group ``model`` (serving's rules: the KV cache's
+    sequence on "model") the cache is this rank's block of the slots,
+    every K/V head, and ``stored_pos`` its positions.  The rank projects
+    every K/V head (``wk`` / ``wv`` are replicated) and its query heads
+    (``wq`` / ``wo`` sliced by heads) or all of them (unsliced), gathers
+    the rows' q over the group, and attends over its own block: the
+    running max of each (row, head) is taken over the group (a ``pmax``),
+    then the sums of the exps and P . V (one ``psum``); the new entry
+    counts once, on every rank alike.  The rank then keeps its own heads
+    for the ``row_parallel`` output product."""
     b = x.shape[0]
     group = cfg.n_heads // cfg.n_kv_heads
     act = cfg.act_dtype
+    layout = _model_layout(attn, cfg, model)
+    if layout == "head_dim":
+        raise ValueError("decode takes the attention by heads or whole; "
+                         "serving's rules put no head_dim slice on 'model'")
     q = project_heads(x, attn.wq, act)
     k_new = project_heads(x, attn.wk, act)
     v_new = project_heads(x, attn.wv, act)
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    hl = q.shape[1]
+    if layout == "heads":
+        q = model.all_gather(q.movedim(1, 0)).movedim(0, 1)
     scale = 1.0 / math.sqrt(cfg.hd)
     qg = q.reshape(b, cfg.n_kv_heads, group, cfg.hd).to(F32)
     logits = torch.matmul(qg, cache_k.to(F32).transpose(-1, -2)) * scale
@@ -546,14 +568,26 @@ def attention_decode(attn: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     self_logit = torch.matmul(qg, k_new.to(F32).transpose(-1, -2)) * scale
     if cap:
         self_logit = cap * torch.tanh(self_logit / cap)
-    m = torch.maximum(logits.amax(dim=-1, keepdim=True), self_logit)
+    top = logits.amax(dim=-1, keepdim=True)
+    if model is not None:
+        top = model.pmax(top)
+    m = torch.maximum(top, self_logit)
     p_cache = torch.exp(logits - m)
     p_self = torch.exp(self_logit - m)
-    l = p_cache.sum(dim=-1, keepdim=True) + p_self
+    l = p_cache.sum(dim=-1, keepdim=True)
     out = torch.matmul(p_cache, cache_v.to(F32))
+    if model is not None:
+        out, l = model.psum(torch.cat([out, l], dim=-1)).split(
+            [cfg.hd, 1], dim=-1)
+    l = l + p_self
     out = (out + p_self * v_new.to(F32)) / torch.clamp(l, min=1e-30)
     out = out.reshape(b, cfg.n_heads, 1, cfg.hd).to(act)
-    return merge_heads(out, attn.wo, act), k_new, v_new
+    if layout is None:
+        return merge_heads(out, attn.wo, act), k_new, v_new
+    out = out.narrow(1, model.rank * hl, hl)
+    y = row_parallel(out.transpose(1, 2).reshape(b, 1, hl * cfg.hd),
+                     attn.wo.reshape(hl * cfg.hd, -1), cfg, model)
+    return y, k_new, v_new
 
 
 # ---------------------------------------------------------------------------
@@ -604,10 +638,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     their own type (the reference's ``preferred_element_type=float32``).
     On the card bf16 operands go to ``torch.mm(..., out_dtype=float32)``
     as they are (``_ProductF32``, which also differentiates it), so the
-    weights are never copied to float32; the CPU has no such product, so
-    there the operands are upcast first."""
+    weights are never copied to float32 (a meta tensor, the dry-run's,
+    takes that route too); the CPU has no such product, so there the
+    operands are upcast first."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+    if (x.is_cuda or x.is_meta) and x.dtype == w.dtype == torch.bfloat16:
         y = _ProductF32.apply(x2, w)
     else:
         y = torch.mm(x2.to(F32), w.to(F32))
@@ -618,7 +653,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a (n, i, k) @ b (n, k, j)`` with a float32 result, as
     ``matmul_f32``: on the card bf16 operands go to ``torch.bmm(...,
     out_dtype=float32)``; the CPU upcasts them first."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    if (a.is_cuda or a.is_meta) and a.dtype == b.dtype == torch.bfloat16:
         return _ProductF32.apply(a, b)
     return torch.bmm(a.to(F32), b.to(F32))
 
@@ -697,7 +732,8 @@ def embed_tokens(emb: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_logits(emb: Embedding, x: torch.Tensor) -> torch.Tensor:
-    """Float32 logits from a float32 product (any leading dims)."""
+    """Float32 logits from a float32 product (any leading dims); with the
+    head this rank's vocab columns, its columns of the logits."""
     return torch.matmul(x.to(F32), emb.head_f32())
 
 

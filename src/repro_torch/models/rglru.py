@@ -94,7 +94,7 @@ def _gates(block: RGLRU, xc: torch.Tensor, model=None):
     pre = [torch.matmul(xf, w.to(F32)) for w in (block.w_r, block.w_i)]
     vecs = (block.b_r, block.b_i, block.lam)
     if model is not None:
-        pre = reduce_scatter_to_model(torch.stack(pre), model, 3)
+        pre = reduce_scatter_to_model(torch.stack(pre), model, xf.dim())
         n = xf.shape[-1]
         vecs = [copy_to_model(t, model).narrow(0, model.rank * n, n)
                 for t in vecs]
@@ -139,23 +139,32 @@ def rglru_block_apply(block: RGLRU, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def rglru_block_decode(block: RGLRU, x: torch.Tensor, cfg: ModelConfig,
-                       cache: RGLRUCache) -> Tuple[torch.Tensor, RGLRUCache]:
+                       cache: RGLRUCache, model=None
+                       ) -> Tuple[torch.Tensor, RGLRUCache]:
     """One token, x (b, 1, d) -> (out (b, 1, d), the next cache).  The
     next conv window is float32, as the reference's concatenate promotes
-    it."""
+    it.  ``model``: the model group, where the block holds this rank's
+    slices and ``cache`` its channels (as ``rglru_block_apply``)."""
+    tp = on_model_axis(block.in_x.shape[1], cfg.lru_width or cfg.d_model,
+                       model)
+    model = model if tp else None
+    if tp:
+        x = copy_to_model(x, model)
     xb = matmul_f32(x, block.in_x)[:, 0]
     gate = gelu(matmul_f32(x, block.in_gate))[:, 0]
     conv_in = torch.cat([cache.conv.to(F32), xb[:, :, None]], dim=2)
     xc = (conv_in * block.conv_w.to(F32)).sum(-1) + block.conv_b.to(F32)
-    a, bterm = _gates(block, xc)
+    a, bterm = _gates(block, xc, model)
     h = a * cache.h + bterm
     y = (h * gate).to(cfg.act_dtype)
-    out = matmul_f32(y, block.out).to(cfg.act_dtype)
+    out = row_parallel(y, block.out, cfg, model, shardmap=False)
     return out[:, None], RGLRUCache(h, conv_in[:, :, 1:])
 
 
-def init_rglru_cache(cfg: ModelConfig, batch: int, *, device) -> RGLRUCache:
-    w = cfg.lru_width or cfg.d_model
+def init_rglru_cache(cfg: ModelConfig, batch: int, *, device, m: int = 1
+                     ) -> RGLRUCache:
+    """Zero state; ``m``: a model rank's channels of ``m``."""
+    w = (cfg.lru_width or cfg.d_model) // m
     return RGLRUCache(
         h=torch.zeros((batch, w), dtype=F32, device=device),
         conv=torch.zeros((batch, w, CONV - 1), dtype=cfg.act_dtype,

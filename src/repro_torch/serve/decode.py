@@ -33,6 +33,21 @@ The conv windows follow the reference's types: a prefill seeds them in
 reference's concatenate of the window and the float32 input promotes),
 for good.
 
+On a model axis (``prefill`` / ``decode_step`` with ``model=``, the
+model group's ``Comm``, and ``slices=``, the rank's
+``distributed.sharding.model_slices`` under ``launch.mesh.serve_rules``,
+from which the model was built) every layer runs its part as training
+runs it (heads, MLP and recurrent width, vocab and experts sliced; a
+layer with no slice whole on every rank), and the KV caches' sequence
+is split over the model ranks: rank i holds slots ``[i S/m, (i+1)
+S/m)`` of every K/V head (``"cache_seq"``), ``prefill`` seeds each
+rank's block, ``decode_step`` writes a new entry on the rank that owns
+its slot ``pos % S`` and attends over every rank's block
+(``models.layers.attention_decode``).  The recurrent states follow the
+rules: the RG-LRU's ``h`` and conv window hold the rank's channels, the
+SSM's state and whisper's cross K/V are whole on every rank.  With the
+head's vocab sliced the logits are the rank's vocab columns.
+
 The reference's states are immutable pytrees; here they are updated in
 place (``decode_step``, ``reset_slot``, ``slots.write_slot``), since a
 copy of a full-width cache is gigabytes.  So nothing may keep a second
@@ -119,9 +134,24 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return max_seq if cfg.window is None else min(cfg.window, max_seq)
 
 
+def _axis(model) -> Tuple[int, int]:
+    """(m, rank) of the model group ``model`` (None: (1, 0))."""
+    return (1, 0) if model is None else (model.size, model.rank)
+
+
+def cache_block(S: int, m: int) -> int:
+    """The slots of a cache of S a model rank holds."""
+    if S % m:
+        raise ValueError(f"a cache of {S} slots does not split over {m} "
+                         "model ranks")
+    return S // m
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-                  device, n_layers: Optional[int] = None) -> KVCache:
-    S = cache_len(cfg, max_seq)
+                  device, n_layers: Optional[int] = None, m: int = 1
+                  ) -> KVCache:
+    """Empty cache; ``m``: a model rank's block of the slots of ``m``."""
+    S = cache_block(cache_len(cfg, max_seq), m)
     L = cfg.n_layers if n_layers is None else n_layers
     shape = (L, batch, cfg.n_kv_heads, S, cfg.hd)
     return KVCache(
@@ -132,20 +162,58 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         pos=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
-                ) -> KVCache:
+def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                model=None) -> KVCache:
     """Write (L, b, hkv, 1, hd) entries at each row's current position
-    (ring slot ``pos % S``) and advance ``pos``, in place."""
+    (ring slot ``pos % S``) and advance ``pos``, in place.  On the model
+    group ``model`` the cache is this rank's block of the slots, and a
+    row's entry is written where its slot lies in that block."""
     L, b, hkv, S, hd = cache.k.shape
-    slot = (cache.pos % S).long()
+    m, r = _axis(model)
+    slot = (cache.pos % (S * m)).long()
     bi = torch.arange(b, device=cache.k.device)
+    k_rows = k_new[:, :, :, 0, :].movedim(0, 1)
+    v_rows = v_new[:, :, :, 0, :].movedim(0, 1)
+    pos = cache.pos
+    if model is not None:       # the rows whose slot is this rank's
+        mine = slot // S == r
+        slot = slot % S
+        keep = mine[:, None, None, None]
+        k_rows = torch.where(keep, k_rows, cache.k[:, bi, :, slot, :])
+        v_rows = torch.where(keep, v_rows, cache.v[:, bi, :, slot, :])
+        pos = torch.where(mine, pos, cache.stored_pos[bi, slot])
     # advanced indices (bi, slot) separated by slices: the indexed view is
     # (b, L, hkv, hd), the advanced dims first (as in NumPy and JAX)
-    cache.k[:, bi, :, slot, :] = k_new[:, :, :, 0, :].movedim(0, 1)
-    cache.v[:, bi, :, slot, :] = v_new[:, :, :, 0, :].movedim(0, 1)
-    cache.stored_pos[bi, slot] = cache.pos
+    cache.k[:, bi, :, slot, :] = k_rows
+    cache.v[:, bi, :, slot, :] = v_rows
+    cache.stored_pos[bi, slot] = pos
     cache.pos += 1
     return cache
+
+
+def _seed_kv(cache: KVCache, li: int, k: torch.Tensor, v: torch.Tensor,
+             model=None) -> None:
+    """Seed layer ``li`` of ``cache`` (all rows) with a prompt's rotated
+    K/V (b, hkv, s, hd) and ``stored_pos`` with its positions: slot g
+    holds position g where S >= s; a sliding-window ring keeps the last S
+    positions, position p at slot ``p % S``.  On the model group
+    ``model``, only this rank's block of the slots."""
+    S_loc = cache.k.shape[3]
+    s = k.shape[2]
+    m, r = _axis(model)
+    S = S_loc * m
+    g = r * S_loc + torch.arange(S_loc, device=k.device)
+    if S >= s:
+        valid = g < s
+        p = torch.clamp(g, max=s - 1)
+    else:       # the last S positions: slot g holds the p with p % S == g
+        valid = torch.ones_like(g, dtype=torch.bool)
+        p = s - S + (g - (s - S)) % S
+    drop = ~valid[:, None]
+    cache.k[li] = k.index_select(2, p).masked_fill_(drop, 0)
+    cache.v[li] = v.index_select(2, p).masked_fill_(drop, 0)
+    cache.stored_pos.copy_(torch.where(valid, p, -1).to(torch.int32)
+                           .expand_as(cache.stored_pos))
 
 
 # ---------------------------------------------------------------------------
@@ -153,66 +221,51 @@ def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def decoder_prefill(model: DecoderLM, tokens: torch.Tensor,
+def decoder_prefill(lm: DecoderLM, tokens: torch.Tensor,
                     cfg: ModelConfig, *, max_seq: int,
-                    patch_embeds: Optional[torch.Tensor] = None
+                    patch_embeds: Optional[torch.Tensor] = None, model=None
                     ) -> Tuple[torch.Tensor, KVCache]:
     """Forward over the prompt (b, s) -- after the VLM's patch embeddings
     (b, n_p, d), if given -- : last-position logits (b, vocab) float32 and
-    a cache seeded with the K/V of all n_p + s positions."""
-    x, pos, pos3 = decoder_inputs(model, tokens, cfg, patch_embeds)
+    a cache seeded with the K/V of all n_p + s positions.  ``model``: the
+    model group (the module docstring)."""
+    x, pos, pos3 = decoder_inputs(lm, tokens, cfg, patch_embeds, model)
     b, s, _ = x.shape
-    ks: List[torch.Tensor] = []
-    vs: List[torch.Tensor] = []
-    for layer in model.layers:
+    cache = init_kv_cache(cfg, b, max_seq, device=x.device,
+                          m=_axis(model)[0])
+    for li, layer in enumerate(lm.layers):
         h = rmsnorm(x, layer.ln_attn)
         y, (k, v) = attention_apply(layer.attn, h, cfg, pos=pos, pos3=pos3,
-                                    causal=True, return_kv=True)
-        ks.append(k)
-        vs.append(v)
-        x = block_ffn(layer, x + y, cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x[:, -1])
-
-    cache = init_kv_cache(cfg, b, max_seq, device=x.device)
-    S = cache.k.shape[3]
-    if S >= s:
-        for li, (k, v) in enumerate(zip(ks, vs)):
-            cache.k[li, :, :, :s] = k
-            cache.v[li, :, :, :s] = v
-        cache.stored_pos[:, :s] = torch.arange(s, dtype=torch.int32,
-                                               device=x.device)
-    else:   # sliding-window ring: keep the last S positions
-        ring_pos = torch.arange(s - S, s, device=x.device)
-        slot = ring_pos % S
-        for li, (k, v) in enumerate(zip(ks, vs)):
-            cache.k[li][:, :, slot] = k[:, :, s - S:]
-            cache.v[li][:, :, slot] = v[:, :, s - S:]
-        cache.stored_pos[:, slot] = ring_pos.to(torch.int32)
+                                    causal=True, return_kv=True, model=model)
+        _seed_kv(cache, li, k, v, model)
+        x = block_ffn(layer, x + y, cfg, model=model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x[:, -1])
     cache.pos.fill_(s)
     return logits, cache
 
 
 @torch.no_grad()
-def decoder_decode_step(model: DecoderLM, cache: KVCache,
-                        tokens: torch.Tensor, cfg: ModelConfig
+def decoder_decode_step(lm: DecoderLM, cache: KVCache,
+                        tokens: torch.Tensor, cfg: ModelConfig, model=None
                         ) -> Tuple[torch.Tensor, KVCache]:
     """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
     float32; ``cache`` advances in place.  Every layer attends to the
-    cache as it was before the step; the new entries are written after."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    cache as it was before the step; the new entries are written after.
+    ``model``: the model group (the module docstring)."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     ks, vs = [], []
-    for li, layer in enumerate(model.layers):
+    for li, layer in enumerate(lm.layers):
         h = rmsnorm(x, layer.ln_attn)
         y, k_new, v_new = attention_decode(
             layer.attn, h, cfg, cache_k=cache.k[li], cache_v=cache.v[li],
-            stored_pos=cache.stored_pos, pos=cache.pos)
+            stored_pos=cache.stored_pos, pos=cache.pos, model=model)
         ks.append(k_new)
         vs.append(v_new)
-        x = block_ffn(layer, x + y, cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x)
-    _write_slot(cache, torch.stack(ks), torch.stack(vs))
+        x = block_ffn(layer, x + y, cfg, model=model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x)
+    _write_slot(cache, torch.stack(ks), torch.stack(vs), model)
     return logits, cache
 
 
@@ -278,41 +331,43 @@ def _promote_conv(cache) -> None:
 
 
 @torch.no_grad()
-def ssm_prefill(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, SSMState]:
+def ssm_prefill(lm: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
+                model=None) -> Tuple[torch.Tensor, SSMState]:
     """Forward over the prompt (b, s): last-position logits (b, vocab)
-    float32 and the state after it (conv windows in ``act_dtype``)."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    float32 and the state after it (conv windows in ``act_dtype``).
+    ``model``: the model group (the mixers run whole on every rank)."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     b, s = tokens.shape
     caches = init_ssm_cache(cfg, b, device=x.device, n_layers=cfg.n_layers)
-    for li, layer in enumerate(model.layers):
+    for li, layer in enumerate(lm.layers):
         y, c = mamba2_apply(layer.mixer, rmsnorm(x, layer.ln), cfg,
                             return_cache=True)
         caches.state[li] = c.state
         caches.conv[li] = c.conv
         x = x + y
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x[:, -1])
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x[:, -1])
     return logits, SSMState(caches, torch.full((b,), s, dtype=torch.int32,
                                                device=x.device))
 
 
 @torch.no_grad()
-def ssm_decode_step(model: SSMLM, state: SSMState, tokens: torch.Tensor,
-                    cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
+def ssm_decode_step(lm: SSMLM, state: SSMState, tokens: torch.Tensor,
+                    cfg: ModelConfig, model=None
+                    ) -> Tuple[torch.Tensor, SSMState]:
     """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
-    float32; ``state`` advances in place."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    float32; ``state`` advances in place.  ``model``: the model group."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     caches = state.layers
     _promote_conv(caches)
-    for li, layer in enumerate(model.layers):
+    for li, layer in enumerate(lm.layers):
         y, c = mamba2_decode(layer.mixer, rmsnorm(x, layer.ln), cfg,
                              SSMCache(caches.state[li], caches.conv[li]))
         caches.state[li] = c.state
         caches.conv[li] = c.conv
         x = x + y
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x)
     state.pos += 1
     return logits, state
 
@@ -322,76 +377,69 @@ def ssm_decode_step(model: SSMLM, state: SSMState, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def hybrid_prefill(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
-                   *, max_seq: int) -> Tuple[torch.Tensor, HybridState]:
+def hybrid_prefill(lm: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
+                   *, max_seq: int, model=None
+                   ) -> Tuple[torch.Tensor, HybridState]:
     """Forward over the prompt (b, s): last-position logits (b, vocab)
     float32 and the state after it.  An attention layer's ring keeps the
-    last S = min(window, max_seq) positions, written through the inverse
-    of the permutation ``pos % S`` as the reference does."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    last S = min(window, max_seq) positions, position p at slot ``p %
+    S`` (``_seed_kv``), as the reference writes it.  ``model``: the model
+    group (the RG-LRU and its cache on the rank's channels)."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     b, s = tokens.shape
     dev = x.device
+    m = _axis(model)[0]
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     caches: List = []
-    for layer, kind in zip(model.layers, hybrid_layer_kinds(cfg)):
+    for layer, kind in zip(lm.layers, hybrid_layer_kinds(cfg)):
         h = rmsnorm(x, layer.ln_mix)
         if kind == "attn":
             y, (k, v) = attention_apply(layer.attn, h, cfg, pos=pos,
-                                        causal=True, return_kv=True)
-            c = init_kv_cache(cfg, b, max_seq, device=dev, n_layers=1)
-            S = c.k.shape[3]
-            if S >= s:
-                c.k[0, :, :, :s] = k
-                c.v[0, :, :, :s] = v
-                c.stored_pos[:, :s] = torch.arange(s, dtype=torch.int32,
-                                                   device=dev)
-            else:
-                # slot = pos % S is a permutation of 0 .. S-1 over the last
-                # S positions: write them through its inverse
-                ring_pos = torch.arange(s - S, s, device=dev)
-                inv = torch.argsort(ring_pos % S)
-                c.k[0] = k[:, :, s - S:][:, :, inv]
-                c.v[0] = v[:, :, s - S:][:, :, inv]
-                c.stored_pos.copy_(ring_pos[inv].to(torch.int32).expand(b, S))
+                                        causal=True, return_kv=True,
+                                        model=model)
+            c = init_kv_cache(cfg, b, max_seq, device=dev, n_layers=1, m=m)
+            _seed_kv(c, 0, k, v, model)
             c.pos.fill_(s)
         else:
-            y, c = rglru_block_apply(layer.rglru, h, cfg, return_cache=True)
+            y, c = rglru_block_apply(layer.rglru, h, cfg, return_cache=True,
+                                     model=model)
         caches.append(c)
         x = x + y
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x[:, -1])
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x[:, -1])
     return logits, HybridState(tuple(caches), torch.full(
         (b,), s, dtype=torch.int32, device=dev))
 
 
 @torch.no_grad()
-def hybrid_decode_step(model: HybridLM, state: HybridState,
-                       tokens: torch.Tensor, cfg: ModelConfig
+def hybrid_decode_step(lm: HybridLM, state: HybridState,
+                       tokens: torch.Tensor, cfg: ModelConfig, model=None
                        ) -> Tuple[torch.Tensor, HybridState]:
     """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
     float32; ``state`` advances in place.  An attention layer's cache
     takes the state's positions before its entry is written (the
-    reference sets the layer's ``pos`` from the state's)."""
-    x = embed_tokens(model.embed, tokens, cfg)
-    for layer, kind, c in zip(model.layers, hybrid_layer_kinds(cfg),
+    reference sets the layer's ``pos`` from the state's).  ``model``:
+    the model group."""
+    x = embed_tokens(lm.embed, tokens, cfg, model)
+    for layer, kind, c in zip(lm.layers, hybrid_layer_kinds(cfg),
                               state.layers):
         h = rmsnorm(x, layer.ln_mix)
         if kind == "attn":
             y, k_new, v_new = attention_decode(
                 layer.attn, h, cfg, cache_k=c.k[0], cache_v=c.v[0],
-                stored_pos=c.stored_pos, pos=state.pos)
+                stored_pos=c.stored_pos, pos=state.pos, model=model)
             c.pos.copy_(state.pos)
-            _write_slot(c, k_new[None], v_new[None])
+            _write_slot(c, k_new[None], v_new[None], model)
         else:
             _promote_conv(c)
-            y, c2 = rglru_block_decode(layer.rglru, h, cfg, c)
+            y, c2 = rglru_block_decode(layer.rglru, h, cfg, c, model)
             c.h.copy_(c2.h)
             c.conv.copy_(c2.conv)
         x = x + y
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x)
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x)
     state.pos += 1
     return logits, state
 
@@ -402,69 +450,69 @@ def hybrid_decode_step(model: HybridLM, state: HybridState,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def encdec_prefill(model: EncDecLM, frames: torch.Tensor,
-                   tokens: torch.Tensor, cfg: ModelConfig, *, max_seq: int
-                   ) -> Tuple[torch.Tensor, EncDecState]:
+def encdec_prefill(lm: EncDecLM, frames: torch.Tensor,
+                   tokens: torch.Tensor, cfg: ModelConfig, *, max_seq: int,
+                   model=None) -> Tuple[torch.Tensor, EncDecState]:
     """The encoder over ``frames`` (b, s_enc, d), then the decoder over
     the prompt (b, s): last-position logits (b, vocab) float32 and the
     state with the prompt's self-attention K/V and every layer's cross
-    K/V (the encoder's output projected once)."""
-    enc = encoder_apply(model, frames, cfg)
+    K/V (the encoder's output projected once; every K/V head on every
+    rank of a model group ``model``)."""
+    enc = encoder_apply(lm, frames, cfg, model)
     b, s = tokens.shape
     dev, act = enc.device, cfg.act_dtype
-    x = embed_tokens(model.embed, tokens, cfg) + _sinusoid(
+    x = embed_tokens(lm.embed, tokens, cfg, model) + _sinusoid(
         s, cfg.d_model, act, dev)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
-    cache = init_kv_cache(cfg, b, max_seq, device=dev)
+    cache = init_kv_cache(cfg, b, max_seq, device=dev, m=_axis(model)[0])
     shape = (cfg.n_layers, b, cfg.n_kv_heads, enc.shape[1], cfg.hd)
     cross_k = torch.empty(shape, dtype=act, device=dev)
     cross_v = torch.empty(shape, dtype=act, device=dev)
-    for li, layer in enumerate(model.dec_layers):
+    for li, layer in enumerate(lm.dec_layers):
         h = rmsnorm(x, layer.ln_self)
         y, (k, v) = attention_apply(layer.self_attn, h, cfg, pos=pos,
                                     causal=True, return_kv=True,
-                                    use_rope=False)
-        cache.k[li, :, :, :s] = k
-        cache.v[li, :, :, :s] = v
+                                    use_rope=False, model=model)
+        _seed_kv(cache, li, k, v, model)
         x = x + y
         h = rmsnorm(x, layer.ln_cross)
         cross_k[li] = project_heads(enc, layer.cross_attn.wk, act)
         cross_v[li] = project_heads(enc, layer.cross_attn.wv, act)
         x = x + attention_apply(layer.cross_attn, h, cfg, pos=pos,
                                 causal=False,
-                                kv_override=(cross_k[li], cross_v[li]))
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x[:, -1])
-    cache.stored_pos[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
+                                kv_override=(cross_k[li], cross_v[li]),
+                                model=model)
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x[:, -1])
     cache.pos.fill_(s)
     return logits, EncDecState(cache, cross_k, cross_v, _pos(b, s, dev))
 
 
 @torch.no_grad()
-def encdec_decode_step(model: EncDecLM, state: EncDecState,
-                       tokens: torch.Tensor, cfg: ModelConfig
+def encdec_decode_step(lm: EncDecLM, state: EncDecState,
+                       tokens: torch.Tensor, cfg: ModelConfig, model=None
                        ) -> Tuple[torch.Tensor, EncDecState]:
     """One token for every row: tokens (b, 1) -> logits (b, 1, vocab)
-    float32; ``state`` advances in place.
+    float32; ``state`` advances in place.  ``model``: the model group.
 
     Two of the reference's choices are kept: every row adds the
     sinusoid of row 0's position (``state.pos[0]``), and that position
     indexes a table of S + 1 rows, which JAX clamps to its last row once
     the position passes S (a 'cheap' session's rows start at ``max_seq -
     1``); here the index is clamped explicitly."""
-    x = embed_tokens(model.embed, tokens, cfg)
+    x = embed_tokens(lm.embed, tokens, cfg, model)
     cache = state.self_kv
-    S = cache.k.shape[3]
+    S = cache.k.shape[3] * _axis(model)[0]
     pe = _sinusoid(S + 1, cfg.d_model, cfg.act_dtype, x.device)
-    x = x + pe[state.pos[0].clamp(0, S).long()]
+    x = x + pe.index_select(0, state.pos[:1].clamp(0, S).long())
     ks, vs = [], []
-    for li, layer in enumerate(model.dec_layers):
+    for li, layer in enumerate(lm.dec_layers):
         h = rmsnorm(x, layer.ln_self)
         y, k_new, v_new = attention_decode(
             layer.self_attn, h, cfg, cache_k=cache.k[li],
             cache_v=cache.v[li], stored_pos=cache.stored_pos, pos=cache.pos,
-            use_rope=False)
+            use_rope=False, model=model)
         ks.append(k_new)
         vs.append(v_new)
         x = x + y
@@ -472,11 +520,11 @@ def encdec_decode_step(model: EncDecLM, state: EncDecState,
         x = x + attention_apply(layer.cross_attn, h, cfg,
                                 pos=cache.pos[:, None], causal=False,
                                 kv_override=(state.cross_k[li],
-                                             state.cross_v[li]))
-        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg)
-    x = rmsnorm(x, model.ln_f)
-    logits = lm_logits(model.embed, x)
-    _write_slot(cache, torch.stack(ks), torch.stack(vs))
+                                             state.cross_v[li]), model=model)
+        x = x + mlp_apply(layer.mlp, rmsnorm(x, layer.ln_mlp), cfg, model)
+    x = rmsnorm(x, lm.ln_f)
+    logits = lm_logits(lm.embed, x)
+    _write_slot(cache, torch.stack(ks), torch.stack(vs), model)
     state.pos += 1
     return logits, state
 
@@ -485,34 +533,48 @@ def encdec_decode_step(model: EncDecLM, state: EncDecState,
 # dispatch by family
 # ---------------------------------------------------------------------------
 
-def prefill(model, batch: Dict, cfg: ModelConfig, *, max_seq: int
-            ) -> Tuple[torch.Tensor, State]:
+def _model_pair(model, slices) -> None:
+    if (model is None) != (slices is None):
+        raise ValueError("model and slices come together: a model group's "
+                         "rank serves its slices")
+
+
+def prefill(lm, batch: Dict, cfg: ModelConfig, *, max_seq: int, model=None,
+            slices: Optional[Dict] = None) -> Tuple[torch.Tensor, State]:
     """Last-position logits (b, vocab) float32 and the batch's state after
     its prompts ``batch['tokens']`` (b, s); the encoder-decoder also takes
     ``batch['frames']`` (b, s_enc, d) and the decoders the VLM's
-    ``batch['patch_embeds']`` (b, n_p, d)."""
+    ``batch['patch_embeds']`` (b, n_p, d).  ``model`` and ``slices``: the
+    model group and this rank's slices, from which ``lm`` was built (the
+    module docstring)."""
     _served(cfg)
+    _model_pair(model, slices)
     if cfg.family == "ssm":
-        return ssm_prefill(model, batch["tokens"], cfg)
+        return ssm_prefill(lm, batch["tokens"], cfg, model)
     if cfg.family == "hybrid":
-        return hybrid_prefill(model, batch["tokens"], cfg, max_seq=max_seq)
+        return hybrid_prefill(lm, batch["tokens"], cfg, max_seq=max_seq,
+                              model=model)
     if cfg.family == "encdec":
-        return encdec_prefill(model, batch["frames"], batch["tokens"], cfg,
-                              max_seq=max_seq)
-    return decoder_prefill(model, batch["tokens"], cfg, max_seq=max_seq,
-                           patch_embeds=batch.get("patch_embeds"))
+        return encdec_prefill(lm, batch["frames"], batch["tokens"], cfg,
+                              max_seq=max_seq, model=model)
+    return decoder_prefill(lm, batch["tokens"], cfg, max_seq=max_seq,
+                           patch_embeds=batch.get("patch_embeds"),
+                           model=model)
 
 
-def decode_step(model, state: State, tokens: torch.Tensor, cfg: ModelConfig
+def decode_step(lm, state: State, tokens: torch.Tensor, cfg: ModelConfig,
+                *, model=None, slices: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, State]:
+    """One token for every row (``model``, ``slices``: as ``prefill``)."""
     _served(cfg)
+    _model_pair(model, slices)
     if cfg.family == "ssm":
-        return ssm_decode_step(model, state, tokens, cfg)
+        return ssm_decode_step(lm, state, tokens, cfg, model)
     if cfg.family == "hybrid":
-        return hybrid_decode_step(model, state, tokens, cfg)
+        return hybrid_decode_step(lm, state, tokens, cfg, model)
     if cfg.family == "encdec":
-        return encdec_decode_step(model, state, tokens, cfg)
-    return decoder_decode_step(model, state, tokens, cfg)
+        return encdec_decode_step(lm, state, tokens, cfg, model)
+    return decoder_decode_step(lm, state, tokens, cfg, model)
 
 
 def _pos(batch: int, value: int, device) -> torch.Tensor:
@@ -520,46 +582,53 @@ def _pos(batch: int, value: int, device) -> torch.Tensor:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device) -> State:
+                      device, model=None) -> State:
     """The reference's dry-run state: every row's positions pre-wound
     (``pos = max_seq - 1``; a KV cache's ``stored_pos = arange(S)``, a
     hybrid attention layer's ring the last S positions) over zero K/V,
     zero cross K/V of ``cfg.enc_seq`` frames and zero recurrent state.
-    The 'cheap' prefill oracle starts from it."""
+    The 'cheap' prefill oracle starts from it.  ``model``: the model
+    group, whose rank holds its block of each cache's slots and its
+    channels of each RG-LRU state."""
     _served(cfg)
+    m, r = _axis(model)
     if cfg.family == "encdec":
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.hd)
         state = EncDecState(
-            init_kv_cache(cfg, batch, max_seq, device=device),
+            init_kv_cache(cfg, batch, max_seq, device=device, m=m),
             torch.zeros(shape, dtype=cfg.act_dtype, device=device),
             torch.zeros(shape, dtype=cfg.act_dtype, device=device),
             _pos(batch, 0, device))
         for i in range(batch):
-            reset_slot(state, i, cfg, wound_to=max_seq)
+            reset_slot(state, i, cfg, wound_to=max_seq, model=model)
         return state
     if cfg.family == "ssm":
         return SSMState(init_ssm_cache(cfg, batch, device=device,
                                        n_layers=cfg.n_layers),
                         _pos(batch, max_seq - 1, device))
     if cfg.family == "hybrid":
-        state = init_serve_state(cfg, batch, max_seq, device=device)
+        state = init_serve_state(cfg, batch, max_seq, device=device,
+                                 model=model)
         for i in range(batch):
-            reset_slot(state, i, cfg, wound_to=max_seq)
+            reset_slot(state, i, cfg, wound_to=max_seq, model=model)
         return state
-    c = init_kv_cache(cfg, batch, max_seq, device=device)
+    c = init_kv_cache(cfg, batch, max_seq, device=device, m=m)
+    S = c.k.shape[3]
     c.pos.fill_(max_seq - 1)
-    c.stored_pos.copy_(torch.arange(c.k.shape[3], dtype=torch.int32,
+    c.stored_pos.copy_(torch.arange(r * S, (r + 1) * S, dtype=torch.int32,
                                     device=device).expand_as(c.stored_pos))
     return c
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                     device) -> State:
+                     device, model=None) -> State:
     """Empty decode state: pos = 0, no stored positions, zero recurrent
     state (the 'full' and 'packed' prefills seed each row).  The
     encoder-decoder has none, as in the reference: a prefill of its row
-    needs encoder frames, which a serving request does not carry."""
+    needs encoder frames, which a serving request does not carry.
+    ``model``: as ``init_decode_state``."""
     _served(cfg)
+    m = _axis(model)[0]
     if cfg.family == "encdec":
         raise ValueError(f"init_serve_state: family {cfg.family!r} "
                          "unsupported (encdec prefill needs frames; use "
@@ -570,10 +639,12 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                         _pos(batch, 0, device))
     if cfg.family == "hybrid":
         return HybridState(tuple(
-            init_kv_cache(cfg, batch, max_seq, device=device, n_layers=1)
-            if kind == "attn" else init_rglru_cache(cfg, batch, device=device)
+            init_kv_cache(cfg, batch, max_seq, device=device, n_layers=1,
+                          m=m)
+            if kind == "attn"
+            else init_rglru_cache(cfg, batch, device=device, m=m)
             for kind in hybrid_layer_kinds(cfg)), _pos(batch, 0, device))
-    return init_kv_cache(cfg, batch, max_seq, device=device)
+    return init_kv_cache(cfg, batch, max_seq, device=device, m=m)
 
 
 def _reset_kv_row(c: KVCache, i: int, first: Optional[int],
@@ -593,36 +664,40 @@ def _reset_kv_row(c: KVCache, i: int, first: Optional[int],
 
 
 def reset_slot(state: State, i: int, cfg: ModelConfig, *,
-               wound_to: Optional[int] = None) -> State:
+               wound_to: Optional[int] = None, model=None) -> State:
     """Reset batch row ``i`` in place: zero K/V and recurrent state, and
     the positions of an empty row (``stored_pos = -1``, ``pos = 0``) --
     or, with ``wound_to = max_seq``, those of ``init_decode_state
-    (max_seq)``'s rows.
+    (max_seq)``'s rows (``model``: of this model rank's block).
 
     A freed slot still holds its last request's K/V, state and
     positions; admitting a new request without clearing them leaks the
     old context into it.  The reference copies the row from a pristine
     state; here the values are written directly."""
     _served(cfg)
+    m, r = _axis(model)
     pos = 0 if wound_to is None else wound_to - 1
+
+    def first(c: KVCache, start: int) -> Optional[int]:
+        return None if wound_to is None else start + r * c.k.shape[3]
     if cfg.family == "ssm":
         state.layers.state[:, i].zero_()
         state.layers.conv[:, i].zero_()
     elif cfg.family == "encdec":
-        _reset_kv_row(state.self_kv, i, None if wound_to is None else 0, pos)
+        _reset_kv_row(state.self_kv, i, first(state.self_kv, 0), pos)
         state.cross_k[:, i].zero_()
         state.cross_v[:, i].zero_()
     elif cfg.family == "hybrid":
         for c in state.layers:
             if isinstance(c, KVCache):
-                S = c.k.shape[3]
+                S = c.k.shape[3] * m
                 _reset_kv_row(c, i, None if wound_to is None
-                              else wound_to - S, pos)
+                              else first(c, wound_to - S), pos)
             else:
                 c.h[i].zero_()
                 c.conv[i].zero_()
     else:
-        _reset_kv_row(state, i, None if wound_to is None else 0, pos)
+        _reset_kv_row(state, i, first(state, 0), pos)
         return state
     state.pos[i] = pos
     return state

@@ -26,7 +26,13 @@ from .compress import CompressState, ef_compress_grads
 from .optimizer import (F32, AdamWConfig, OptState, Shard, _chunks,
                         adamw_update, device_clock)
 
-__all__ = ["device_clock", "gather_bytes", "make_train_step", "sum_grads"]
+__all__ = ["count_diff", "device_clock", "gather_bytes", "make_train_step",
+           "sum_grads"]
+
+
+def count_diff(after: Dict, before: Dict) -> Dict:
+    """Each counter's growth from ``before`` to ``after``."""
+    return {k: v - before[k] for k, v in after.items()}
 
 
 def sum_grads(grads: Dict[str, torch.Tensor], data) -> int:
@@ -83,7 +89,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     rank's ``distributed.sharding.model_slices``, from which the model
     was built), the step runs the model-parallel forward and backward;
     metrics add the bytes this rank handed to the model group's
-    all-reduces in the step (``"model_bytes"``).
+    all-reduces and reduce-scatters in the step (``"model_bytes"``, the
+    figure PRs before the by-kind count reported) and the model group's
+    bytes by kind (``"model_bytes_by_kind"``: ``Comm.bytes_by_kind``'s
+    result-shape accounting, which also counts the head_dim layout's
+    forward all-gathers of q and k and their backward reduce-scatters)
+    with the host seconds of each kind (``"model_s_by_kind"``).
 
     A dict passed as ``times`` receives the seconds of the forward +
     backward (``"grad"``), the gradient all-reduce (``"reduce"``, 0
@@ -111,6 +122,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         dev = next(iter(params.values())).device
         if model is not None:
             sent0, spent0 = model.reduce_bytes, model.reduce_s
+            kinds0 = dict(model.bytes_by_kind), dict(model.seconds_by_kind)
         t0 = device_clock(dev) if times is not None else 0.0
         with torch.enable_grad():
             loss = loss_fn(lm, batch, cfg, data=data, model=model)
@@ -144,6 +156,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             metrics["gather_bytes"] = gather_bytes(params, shards, data.rank)
         if model is not None:
             metrics["model_bytes"] = model.reduce_bytes - sent0
+            metrics["model_bytes_by_kind"] = count_diff(model.bytes_by_kind,
+                                                        kinds0[0])
+            metrics["model_s_by_kind"] = count_diff(model.seconds_by_kind,
+                                                    kinds0[1])
             if times is not None:
                 times["model"] = model.reduce_s - spent0
         if compress:

@@ -1176,3 +1176,120 @@ def model_axis_world(comm, attention_cases, rglru_cases, elastic_args):
             "rglru": {k: _rglru_case(comm, *c)
                       for k, c in rglru_cases.items()},
             "elastic": elastic_hybrid(comm, *elastic_args)}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_serve_model_axis.py
+# ---------------------------------------------------------------------------
+
+def _serve_case(comm, arch, overrides, heads, m, weights, batch, steps,
+                max_seq):
+    """Prefill and decode steps of one SMOKE config on a model group of
+    ``m`` ranks (this rank's block of the world) under
+    ``launch.mesh.serve_rules`` (``heads``: with the heads on "model"):
+    the logits in the one-rank layout (a sliced head's vocab columns
+    gathered over the group) and the collective bytes by kind."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import Mesh, serve_rules
+    from repro_torch.serve import decode_step, prefill
+    cfg = get_smoke(arch).replace(**overrides)
+    model = sub_world(comm, m)
+    rules = serve_rules(cfg, m)
+    if heads:
+        rules.update(heads="model")
+    lm, slices = sliced_model(cfg, weights, Mesh(None, model), rules)
+    head = slices["embed.head"]
+
+    def whole(logits):
+        if head is None:
+            return logits.numpy().copy()
+        return model.all_gather(logits.movedim(-1, 0)).movedim(
+            0, -1).numpy().copy()
+    before = dict(model.bytes_by_kind)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    logits, state = prefill(lm, tb, cfg, max_seq=max_seq, model=model,
+                            slices=slices)
+    out = [whole(logits)]
+    for tok in steps:
+        logits, state = decode_step(lm, state, torch.as_tensor(tok), cfg,
+                                    model=model, slices=slices)
+        out.append(whole(logits))
+    return {"logits": out,
+            "sliced": sorted(n for n, s in slices.items() if s is not None),
+            "bytes": {k: v - before[k]
+                      for k, v in model.bytes_by_kind.items()}}
+
+
+def serve_model_axis_world(comm, cases):
+    """``key: (arch, overrides, heads, m, weights, batch, steps,
+    max_seq)`` -> ``_serve_case``'s result on this rank."""
+    return {k: _serve_case(comm, *c) for k, c in cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dryrun.py, test_torch_analysis.py
+# ---------------------------------------------------------------------------
+
+def dryrun_real_cell(comm, arch, shape, mesh_shape):
+    """One cell of ``launch.dryrun`` run for real on this rank of a
+    ``mesh_shape`` (d, m) mesh: the FLOPs the flop counter counts, the
+    bytes of each collective kind (data and model groups together), and
+    the parameter and moment bytes this rank holds.  Remat recomputes
+    each layer whole (no early stop), as the caller's meta count does:
+    the CPU's bf16 products take another route than the card's and the
+    meta device's, and with early stop the two would recompute
+    different tails of a layer."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ProductionMesh, make_mesh
+    d, m = mesh_shape
+    mesh = make_mesh(comm, d, m)
+    cell = dryrun.build_cell(
+        arch, shape, multi_pod=False, unroll=False,
+        cfg_override=get_smoke(arch), rank=comm.rank, device="cpu",
+        mesh=ProductionMesh((d, m), ("data", "model")),
+        comms=(mesh.data, mesh.model))
+    args = {k: dryrun.nbytes(cell.args[k]) for k in ("params", "opt")
+            if k in cell.args}
+    flops = FlopCounterMode(display=False)
+    with flops, set_checkpoint_early_stop(False):
+        cell.step()
+    coll = dryrun.collective_counts(cell)
+    coll.pop("by_group")
+    return {"flops": flops.get_total_flops(), "collectives": coll,
+            "args": args}
+
+
+def profiled_model_step(comm, arch, trace_dir):
+    """One train step of ``arch``'s SMOKE config on a 1 x ``comm.size``
+    mesh under the launcher's rules, under the torch profiler (shapes
+    recorded): the step's ``model_bytes_by_kind``, the model group's
+    counters over the step, and the path of this rank's Chrome trace."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import random_batch
+    from repro_torch.distributed.sharding import model_slices
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.models import init_model
+    from repro_torch.train import AdamWConfig, init_opt_state, \
+        make_train_step
+    cfg = get_smoke(arch)
+    m = comm.size
+    slices = model_slices(cfg, train_rules(cfg, m), m, comm.rank)
+    lm = init_model(cfg, seed=0, device="cpu", slices=slices)
+    ocfg = AdamWConfig()
+    step = make_train_step(cfg, ocfg, model=comm, slices=slices)
+    batch = {k: torch.as_tensor(v)
+             for k, v in random_batch(cfg, b=2, s=32, seed=3).items()}
+    before = dict(comm.bytes_by_kind)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        _, _, metrics = step(lm, init_opt_state(lm, ocfg), batch)
+    path = os.path.join(trace_dir, f"rank{comm.rank}.json")
+    p.export_chrome_trace(path)
+    return {"by_kind": metrics["model_bytes_by_kind"],
+            "counters": {k: v - before[k]
+                         for k, v in comm.bytes_by_kind.items()},
+            "trace": path, "batch": (2, 32)}
