@@ -215,9 +215,27 @@ CUDA toolkit's nvcc.  It
     plain blocked attention with SDPA's time beside it; the roofline rows
     of the four cells under the H100's constants with the measured step
     beside each;
-28. prints the kernel table as one JSON line (with each rank's launches
+28. runs the deprecated shims and the examples, each run's launch
+    counts from 0 and every kernel input it made held against the plain
+    version: (28a, after phase 5, on its 8M points) ``DynamicLoadBalancer``
+    at p = 1,024, hsfc sorted and k-section with old parts, against
+    ``Balancer`` on the card, parts bit for bit and the ``info`` metrics
+    equal, one deprecation warning; (28b, a task of the rank pool)
+    ``DistributedBalancer`` on phase 10's points over 4 ranks, each
+    rank's parts bit for bit ``Balancer(backend='sharded')``'s; (28c,
+    before phase 6's model is freed) ``ServeEngine`` over phase 6's
+    trace against ``ServeSession`` with the equal spec, tokens and
+    rebalances equal; (28d) ``solve_helmholtz_adaptive`` and
+    ``solve_parabolic_adaptive`` at the quickstart's size against
+    ``AdaptiveSession`` with the equal spec, ``StepStats`` equal field by
+    field but the timings; (28e) ``examples/torch``: quickstart,
+    moe_balance and train_lm (60 steps, then resumed from its
+    checkpoint) in this process, parallel_fem's and serve_continuous's
+    rank functions as tasks of the rank pool, their printed lines
+    logged;
+29. prints the kernel table as one JSON line (with each rank's launches
     on main path 4 as ``launches_sharded_serving``, each path of phases
-    14-27 in ``launches_by_path``, the flash kernel's d = 256 reading as
+    14-28 in ``launches_by_path``, the flash kernel's d = 256 reading as
     ``at_head_dim_256``, whisper's as ``at_encoder``, ``at_cross_prefill``
     and ``at_cross_decode``, qwen2-vl's as ``at_qwen2_vl`` and the
     dry-run prefill's as ``at_dryrun_prefill``), the card's name and
@@ -227,8 +245,8 @@ Ranks: with 4 or more cards, one rank per card over NCCL; with fewer,
 the 4 ranks share cuda:0 and their collectives go through gloo, staged
 through host memory (the script prints which).  The 4 rank processes
 start once, at phase 10, and run every multi-rank phase up to phase 26
-(``RankPool``).  The kernels are built before any rank starts, so the
-ranks only load the library.
+and 28b / 28e (``RankPool``).  The kernels are built before any rank
+starts, so the ranks only load the library.
 
 A failed check is printed and the run goes on to the next phase; at the
 end, any failure makes the script exit 1 without the last two lines.
@@ -745,21 +763,41 @@ def recorded_calls(module, name, keep):
         setattr(module, name, fn)
 
 
+#: a kernel's sums of float (not integer) weights against the plain
+#: version's in float64: within this share of sum |w| (phase 12's limit)
+FLOAT_SUM_RTOL = 1e-6
+
+
+def sums_agree(got, plain, w):
+    """A kernel's sums ``got`` of the weights ``w`` against ``plain(dtype)``,
+    the plain version with its weights in ``dtype``: equal bits where the
+    weights are integers (every float32 sum of them is exact below 2^24),
+    else within FLOAT_SUM_RTOL * sum |w| of the float64 sums (the kernel
+    adds in its own order, and the plain float32 version in another)."""
+    import torch
+    if torch.equal(w, w.round()):
+        return torch.equal(got, plain(torch.float32))
+    want = plain(torch.float64)
+    return float((got.double() - want).abs().max()) <= FLOAT_SUM_RTOL * float(
+        w.double().abs().sum())
+
+
 def hist_agreement(seq):
     """The histogram kernel against its plain version on every recorded
-    input on the card, as the op calls each (equal bits: integer
-    weights): {inputs, equal, n, m} with the item and cut counts seen."""
+    input on the card, as the op calls each (``sums_agree``: equal bits
+    on integer weights): {inputs, equal, floats, n, m} with the inputs of
+    float weights and the item and cut counts seen."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.core.partition1d import weight_below
     from repro_torch.kernels.ksection_hist import ksection_hist_cuda
-    f32, equal = torch.float32, True
+    f32, equal, floats = torch.float32, True, 0
     on_card = [x for x in seq if x[0].is_cuda]
     for keys, w, cuts in on_card:
-        got = ksection_hist_cuda(keys.to(f32).contiguous(),
-                                 w.to(f32).contiguous(),
-                                 cuts.to(f32).contiguous())
-        equal &= torch.equal(got, ref.ksection_histogram_ref(keys, w, cuts))
-    return dict(inputs=len(on_card), equal=equal,
+        keys, w, cuts = (x.to(f32).contiguous() for x in (keys, w, cuts))
+        equal &= sums_agree(ksection_hist_cuda(keys, w, cuts),
+                            lambda dt: weight_below(keys, w.to(dt), cuts), w)
+        floats += not torch.equal(w, w.round())
+    return dict(inputs=len(on_card), equal=equal, floats=floats,
                 n=sorted({int(x[0].shape[0]) for x in on_card}),
                 m=sorted({int(x[2].shape[0]) for x in on_card}))
 
@@ -770,9 +808,12 @@ def check_hist_agreement(agree, launched, label):
           f"against {launched} ksection_hist launches")
     check(agree["equal"], f"{label}: ksection_hist != its plain version "
           "at the balancer's shapes")
+    floats = agree.get("floats", 0)
     log(f"{label}: ksection_hist against its plain version on each of the "
         f"path's {launched} inputs (items n in {agree['n']}, cuts m in "
-        f"{agree['m']}): equal bit for bit")
+        f"{agree['m']}): equal bit for bit"
+        + (f" ({floats} inputs of float weights: within {FLOAT_SUM_RTOL} "
+           "of sum |w| of the float64 sums)" if floats else ""))
 
 
 def check_scan_agreement(inputs, launched, label):
@@ -1130,16 +1171,29 @@ def replay_balance(res, session, dev):
             f"t_kernels={tk:.4f}s t_plain={tp:.4f}s")
 
 
-def standalone_dlb(dev, n=8_000_000):
+def dlb_points(n, seed, dev):
+    """The standalone DLB steps' inputs (phases 5, 10 and 28a-b): ``n``
+    seeded points in a 10 x 1 x 1 box and integer weights 1-2, on
+    ``dev``."""
     import numpy as np
     import torch
-    from repro_torch.core import BalanceSpec
-    from repro_torch.core.sfc import bounding_box, sfc_keys
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     coords = torch.as_tensor(
         (rng.random((n, 3)) * np.array([10.0, 1.0, 1.0])).astype(np.float32),
         device=dev)
     w = torch.as_tensor(rng.integers(1, 3, n).astype(np.float32), device=dev)
+    return coords, w
+
+
+def standalone_dlb(dev, n=8_000_000, keep=None):
+    """Phase 5; ``keep``, a dict, receives the points and weights (for
+    phase 28a, which runs before they are freed)."""
+    import torch
+    from repro_torch.core import BalanceSpec
+    from repro_torch.core.sfc import bounding_box, sfc_keys
+    coords, w = dlb_points(n, 0, dev)
+    if keep is not None:
+        keep.update(coords=coords, w=w)
     for method in ("hsfc", "msfc"):
         for oneD in ("sorted", "ksection"):
             spec = BalanceSpec(p=1024, method=method, oneD=oneD)
@@ -1396,15 +1450,11 @@ def sharded_dlb_rank(comm, n, seed):
     integer weights, hsfc; the old partition is the host balance at unit
     weights.  Each oneD runs once to warm up, then timed; the result is
     held against the host backend on the same card."""
-    import numpy as np
     import torch
     from repro_torch.core import Balancer, BalanceSpec
     from repro_torch.kernels import ops
     dev = comm.device
-    rng = np.random.default_rng(seed)
-    coords = torch.as_tensor((rng.random((n, 3)) * np.array([10.0, 1.0, 1.0])
-                              ).astype(np.float32), device=dev)
-    w = torch.as_tensor(rng.integers(1, 3, n).astype(np.float32), device=dev)
+    coords, w = dlb_points(n, seed, dev)
     old = Balancer(BalanceSpec(p=SHARDED_P, method="hsfc"), device=dev
                    ).balance(torch.ones_like(w), coords=coords).parts
     out = {}
@@ -4673,11 +4723,11 @@ def train_ssm_mesh(dev):
 # phase 26: the port's telemetry smoke on the card, and the graph baseline
 # ---------------------------------------------------------------------------
 
-#: the wrapper each of the smoke's kernels is launched through, in
-#: ``kernels.ops``'s namespace, and what a call keeps for the check: its
-#: inputs, or None where the wrapper returns without a launch (nothing
-#: to compute: no items, no elements)
-SMOKE_KERNEL_CALLS = {
+#: the wrapper each kernel is launched through, in ``kernels.ops``'s
+#: namespace, and what a call keeps for the check: its inputs, or None
+#: where the wrapper returns without a launch (nothing to compute: no
+#: items, no elements)
+KERNEL_CALLS = {
     "sfc_keys": ("sfc_keys_cuda", lambda grid, **kw: (
         (grid.clone(), kw) if grid.shape[0] else None)),
     "prefix_scan": ("exclusive_scan_cuda", lambda x: (
@@ -4688,53 +4738,123 @@ SMOKE_KERNEL_CALLS = {
     "fem_matvec": ("fem_matvec_cuda", lambda tets, kel, u, n_out, plan=None: (
         (tets.clone(), kel.clone(), u.clone(), n_out)
         if tets.shape[0] and n_out else None)),
+    "flash_attention": ("flash_attention_cuda", lambda q, k, v, **kw: (
+        q.clone(), k.clone(), v.clone(), kw)),
 }
 GREEDY_P = 64
 
 
-def telemetry_smoke_rank(comm):
-    """One rank of phase 26: ``repro_torch.telemetry.smoke.rank_run``
-    (the 3-step sharded adaptive session and the 16-request sharded
-    serve trace under this rank's tracer) with the launch counts from 0;
-    every input of the four kernels it launches is kept, and after the
-    run each kernel is held against its plain version on each of them
-    (sfc_keys, prefix_scan, ksection_hist bit for bit; fem_matvec within
-    1e-5 of max |y|, another summation order)."""
+@contextlib.contextmanager
+def kept_kernel_inputs():
+    """While the block runs, every input the path hands the wrappers of
+    KERNEL_CALLS is kept (the calls run as before, so the launch counts
+    stay the path's own); yields {kernel: [kept inputs]}."""
+    from repro_torch.kernels import ops
+    with contextlib.ExitStack() as stack:
+        yield {k: stack.enter_context(recorded_calls(ops, fn, keep))
+               for k, (fn, keep) in KERNEL_CALLS.items()}
+
+
+def kernel_agreement(seen):
+    """Each kernel against its plain version on every input kept by
+    ``kept_kernel_inputs`` (on the device they were kept on): sfc_keys
+    bit for bit, prefix_scan and ksection_hist by ``sums_agree`` (bit for
+    bit on integer weights); fem_matvec as its worst
+    error over max |y| (another summation order); flash_attention as its
+    worst error over its limit (bf16: every element within 2^-7 |want| +
+    1e-3; float32: the max within ATTN_F32_RTOL of max |want|).  Returns
+    plain data: {inputs: {kernel: count}, kernel: result}."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fem_matvec import fem_matvec_cuda
-    from repro_torch.kernels.sfc_keys import sfc_keys_cuda
-    from repro_torch.telemetry import smoke
-    dev = torch.device(comm.device)
-    ops.reset_launch_counts()
-    with contextlib.ExitStack() as stack:
-        seen = {k: stack.enter_context(recorded_calls(ops, fn, keep))
-                for k, (fn, keep) in SMOKE_KERNEL_CALLS.items()}
-        t0 = time.perf_counter()
-        out = smoke.rank_run(comm)
-        sync(dev)
-        out["wall"] = time.perf_counter() - t0
-    out["launches"] = ops.launch_counts()
     seen = {k: [x for x in v if x is not None] for k, v in seen.items()}
     agree = {"inputs": {k: len(v) for k, v in seen.items()}}
     agree["sfc_keys"] = all(
-        torch.equal(sfc_keys_cuda(g, **kw).to(torch.int64),
+        torch.equal(ops.sfc_keys_cuda(g, **kw).to(torch.int64),
                     (ref.hilbert_keys_ref if kw.get("curve", "hilbert")
                      == "hilbert" else ref.morton_keys_ref)(
                          g, kw.get("bits", 10)))
         for g, kw in seen["sfc_keys"])
     agree["prefix_scan"] = all(
-        torch.equal(ops.exclusive_scan_cuda(x), ref.exclusive_scan_ref(x))
+        sums_agree(ops.exclusive_scan_cuda(x),
+                   lambda dt: ref.exclusive_scan_ref(x.to(dt)), x)
         for x in seen["prefix_scan"])
     agree["ksection_hist"] = hist_agreement(seen["ksection_hist"])
     worst = 0.0
     for tets, kel, u, n_out in seen["fem_matvec"]:
         want = ref.fem_matvec_kel_ref(tets, kel, u, n_out)
-        got = fem_matvec_cuda(tets, kel, u, n_out)
+        got = ops.fem_matvec_cuda(tets, kel, u, n_out)
         worst = max(worst, float((got - want).abs().max())
                     / max(float(want.abs().max()), 1e-30))
     agree["fem_matvec"] = worst
-    out["agree"] = agree
+    worst = 0.0
+    for q, k, v, kw in seen["flash_attention"]:
+        got = ops.flash_attention_cuda(q, k, v, **kw).float()
+        want = ref.mha_ref(q, k, v, **kw).float()
+        diff = (got - want).abs()
+        if q.dtype == torch.bfloat16:
+            worst = max(worst, float(
+                (diff / (ATTN_RTOL * want.abs() + ATTN_ATOL)).max()))
+        else:
+            worst = max(worst, float(diff.max()) / (
+                ATTN_F32_RTOL * max(float(want.abs().max()), 1.0)))
+    agree["flash_attention"] = worst
+    return agree
+
+
+def check_kernel_agreement(agree, counts, label, expect=()):
+    """The checks on ``kernel_agreement``'s result for a path whose launch
+    counts (set to 0 just before it) are ``counts``: one kept input a
+    launch, every kernel equal to its plain version within its limit
+    (fem_matvec within 1e-5 of max |y|), and each kernel of ``expect``
+    launched at least once.  Logs the reading."""
+    for name in KERNEL_CALLS:
+        check(agree["inputs"][name] == counts[name], f"{label}: {name} kept "
+              f"{agree['inputs'][name]} inputs for {counts[name]} launches")
+    for name in expect:
+        check(counts[name] > 0, f"{label}: {name} was not launched")
+    check(agree["sfc_keys"], f"{label}: sfc_keys != its plain version")
+    check(agree["prefix_scan"], f"{label}: prefix_scan != its plain version")
+    if counts["ksection_hist"]:
+        check_hist_agreement(agree["ksection_hist"], counts["ksection_hist"],
+                             label)
+    check(agree["fem_matvec"] <= 1e-5, f"{label}: fem_matvec off by "
+          f"{agree['fem_matvec']:.3e} of max |y|")
+    check(agree["flash_attention"] <= 1.0, f"{label}: flash_attention at "
+          f"{agree['flash_attention']:.3f} of its limit")
+    log(f"  {label}: launches {counts}; every input held against the plain "
+        f"version: sfc_keys equal bit for bit, prefix_scan and ksection_hist "
+        f"bit for bit on integer weights (else within {FLOAT_SUM_RTOL} of "
+        f"sum |w| of the float64 sums), fem_matvec within "
+        f"{agree['fem_matvec']:.3e} of max |y| (limit 1e-5), flash_attention "
+        f"at {agree['flash_attention']:.4f} of its limit")
+
+
+def counted_run(dev, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counts from 0 and every kernel
+    input kept, the device ``dev`` synchronized around it; then each
+    kernel held against its plain version on the kept inputs.  Returns
+    (result, launch counts, ``kernel_agreement``, seconds), all but the
+    result plain data (a rank can return them)."""
+    from repro_torch.kernels import ops
+    gc.collect()
+    sync(dev)
+    ops.reset_launch_counts()
+    with kept_kernel_inputs() as seen:
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    return out, ops.launch_counts(), kernel_agreement(seen), wall
+
+
+def telemetry_smoke_rank(comm):
+    """One rank of phase 26: ``repro_torch.telemetry.smoke.rank_run``
+    (the 3-step sharded adaptive session and the 16-request sharded
+    serve trace under this rank's tracer) through ``counted_run``."""
+    from repro_torch.telemetry import smoke
+    out, launches, agree, wall = counted_run(comm.device, smoke.rank_run,
+                                             comm)
+    out.update(launches=launches, agree=agree, wall=wall)
     return out
 
 
@@ -4796,22 +4916,9 @@ def telemetry_smoke_on_card(dev, step0):
         f"{ {k: totals[k] for k in sorted(totals)} }; wall by rank "
         f"{[round(o['wall'], 3) for o in outs]} s")
     for r, o in enumerate(outs):
-        a, c = o["agree"], o["launches"]
-        for name in ("sfc_keys", "prefix_scan", "ksection_hist",
-                     "fem_matvec"):
-            check(c[name] > 0, f"rank {r}: {name} was not launched on the "
-                  "telemetry smoke's path")
-            check(a["inputs"][name] == c[name], f"rank {r}: {name} kept "
-                  f"{a['inputs'][name]} inputs for {c[name]} launches")
-        check(a["sfc_keys"] and a["prefix_scan"],
-              f"rank {r}: sfc_keys or prefix_scan != its plain version")
-        check_hist_agreement(a["ksection_hist"], c["ksection_hist"],
-                             f"phase 26 rank {r}")
-        check(a["fem_matvec"] <= 1e-5, f"rank {r}: fem_matvec off by "
-              f"{a['fem_matvec']:.3e} of max |y|")
-        log(f"  rank {r}: launches {c}; sfc_keys and prefix_scan equal to "
-            f"their plain versions bit for bit on each input, fem_matvec "
-            f"within {a['fem_matvec']:.3e} of max |y| (limit 1e-5)")
+        check_kernel_agreement(o["agree"], o["launches"], f"phase 26 rank {r}",
+                               expect=("sfc_keys", "prefix_scan",
+                                       "ksection_hist", "fem_matvec"))
     graph = graph_versus_sfc(step0) if step0 is not None else None
     return dict(launches=[o["launches"] for o in outs], graph=graph,
                 totals=totals)
@@ -5103,6 +5210,352 @@ def production_dryrun(dev, procs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the deprecated shims and the examples (examples/torch)
+# ---------------------------------------------------------------------------
+
+LEGACY_P = 1024
+LEGACY_INFO = ("imbalance", "TotalV", "MaxV", "retained")
+#: the quickstart's size: p = 16, 5 steps, 30,000 tets; the parabolic
+#: driver 3 steps
+DRIVER_ARGS = {
+    "solve_helmholtz_adaptive": dict(p=16, max_steps=5, max_tets=30_000,
+                                     tol=1e-6),
+    "solve_parabolic_adaptive": dict(p=16, n_steps=3, max_tets=30_000,
+                                     tol=1e-6)}
+STAT_TIMES = ("t_solve", "t_estimate", "t_refine", "t_balance", "t_transfer",
+              "t_matvec_interior", "t_matvec_halo")
+TRAIN_LM_STEPS = 60
+#: the multi-rank examples' rank functions, as RankPool tasks
+EXAMPLE_RANK_FN = {"parallel_fem": "fem_rank",
+                   "serve_continuous": "serve_rank"}
+
+
+@contextlib.contextmanager
+def warns_once(label):
+    """The block must emit exactly one DeprecationWarning (the shims warn
+    once per process: the registry is reset first)."""
+    import warnings
+    from repro_torch import deprecation
+    deprecation.reset()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        yield
+    dep = [w for w in rec if issubclass(w.category, DeprecationWarning)]
+    check(len(dep) == 1, f"{label}: {len(dep)} deprecation warnings, not 1 "
+          f"({[str(w.message) for w in dep]})")
+
+
+def counted(label, dev, fn, *args, expect=(), **kw):
+    """``counted_run`` in this process, its agreement checked
+    (``check_kernel_agreement``).  Returns (result, launch counts,
+    seconds)."""
+    out, counts, agree, wall = counted_run(dev, fn, *args, **kw)
+    check_kernel_agreement(agree, counts, label, expect)
+    return out, counts, wall
+
+
+def legacy_balancers(dev, points):
+    """Phase 28a: ``DynamicLoadBalancer`` on phase 5's 8M points and
+    integer weights at p = LEGACY_P, hsfc x {sorted, ksection}, with the
+    old parts of a first balance at unit weights, against
+    ``Balancer(spec).balance`` on the card: parts, part weights and remap
+    bit for bit, the info dict's metrics equal; the warning fires once
+    for the two shims."""
+    import torch
+    from repro_torch.core import Balancer, BalanceSpec, DynamicLoadBalancer
+    coords, w = points["coords"], points["w"]
+    n = int(w.shape[0])
+    old = Balancer(BalanceSpec(p=LEGACY_P, method="hsfc"), device=dev
+                   ).balance(torch.ones_like(w), coords=coords).parts
+    out = {}
+    with warns_once("phase 28a"):
+        shims = {oneD: DynamicLoadBalancer(LEGACY_P, "hsfc", oneD=oneD,
+                                           device=dev)
+                 for oneD in ("sorted", "ksection")}
+    for oneD, shim in shims.items():
+        shim.balance(w, coords=coords, old_parts=old)             # warm-up
+        r, counts, wall = counted(
+            f"phase 28a DynamicLoadBalancer hsfc/{oneD}", dev, shim.balance, w,
+            coords=coords, old_parts=old,
+            expect=("sfc_keys", "prefix_scan" if oneD == "sorted"
+                    else "ksection_hist"))
+        want = Balancer(BalanceSpec(p=LEGACY_P, method="hsfc", oneD=oneD),
+                        device=dev).balance(w, coords=coords, old_parts=old)
+        check(torch.equal(r.parts, want.parts), f"phase 28a {oneD}: parts "
+              "differ from Balancer's")
+        check(torch.equal(r.info["remap_perm"], want.remap_perm)
+              and (r.info["part_weights"]
+                   == want.part_weights.cpu().numpy()).all(),
+              f"phase 28a {oneD}: remap or part weights differ")
+        for key, field in zip(LEGACY_INFO, ("imbalance", "total_v", "max_v",
+                                            "retained")):
+            check(r.info[key] == float(getattr(want, field)),
+                  f"phase 28a {oneD}: info[{key!r}] {r.info[key]} != "
+                  f"{float(getattr(want, field))}")
+        log(f"phase 28a DynamicLoadBalancer hsfc/{oneD} n={n} p={LEGACY_P} "
+            f"with old parts: parts, remap and part weights equal to "
+            f"Balancer's bit for bit; imbalance={r.info['imbalance']:.6f} "
+            f"TotalV={r.info['TotalV']:.0f} MaxV={r.info['MaxV']:.0f}; "
+            f"t_partition={r.info['t_partition']:.4f} s, call {wall:.4f} s "
+            f"(kept inputs included)")
+        out[oneD] = counts
+    return out
+
+
+def legacy_sharded_rank(comm, n, seed):
+    """Phase 28b, one rank: phase 10's points (the same seed), old parts
+    from the host balance at unit weights; ``DistributedBalancer`` and
+    ``Balancer(backend='sharded')`` on them, hsfc x {sorted, ksection},
+    the shim's launches counted from 0 and its kernel inputs kept for the
+    check; the two shims warn once."""
+    import torch
+    from repro_torch.core import Balancer, BalanceSpec
+    from repro_torch.distributed import DistributedBalancer
+    dev = comm.device
+    coords, w = dlb_points(n, seed, dev)
+    old = Balancer(BalanceSpec(p=SHARDED_P, method="hsfc"), device=dev
+                   ).balance(torch.ones_like(w), coords=coords).parts
+    with warns_once(f"phase 28b rank {comm.rank}"):
+        shims = {oneD: DistributedBalancer(SHARDED_P, "hsfc", comm=comm,
+                                           oneD=oneD)
+                 for oneD in ("sorted", "ksection")}
+    out = {}
+    for oneD, shim in shims.items():
+        want = Balancer(BalanceSpec(p=SHARDED_P, method="hsfc", oneD=oneD,
+                                    backend="sharded"), comm=comm
+                        ).balance(w, coords=coords, old_parts=old)
+        r, counts, agree, _ = counted_run(dev, shim.balance, w,
+                                          coords=coords, old_parts=old)
+        out[oneD] = dict(
+            launches=counts, agree=agree,
+            equal=bool(torch.equal(r.parts, want.parts)),
+            info={k: r.info[k] for k in LEGACY_INFO + (
+                "capacity", "mig_items", "mig_overflow")},
+            want=dict(imbalance=float(want.imbalance),
+                      TotalV=float(want.total_v)),
+            t=r.info["t_partition"])
+    return out
+
+
+def legacy_sharded(n=8_000_000):
+    """Phase 28b: ``DistributedBalancer`` as a task of the rank pool on
+    phase 10's 8M points, p = SHARDED_P: each rank's parts bit for bit
+    equal to ``Balancer(backend='sharded')``'s on the same input."""
+    outs, backend = start_world(legacy_sharded_rank, n, 0, join_s=900.0)
+    res = {}
+    for oneD in ("sorted", "ksection"):
+        for r, o in enumerate(outs):
+            x = o[oneD]
+            check(x["equal"], f"phase 28b {oneD} rank {r}: parts differ "
+                  "from Balancer(backend='sharded')'s")
+            check(x["info"]["imbalance"] == x["want"]["imbalance"]
+                  and x["info"]["TotalV"] == x["want"]["TotalV"]
+                  and x["info"]["mig_items"] == n
+                  and x["info"]["mig_overflow"] == 0,
+                  f"phase 28b {oneD} rank {r}: info {x['info']}")
+            check_kernel_agreement(
+                x["agree"], x["launches"],
+                f"phase 28b DistributedBalancer hsfc/{oneD} rank {r}",
+                expect=("sfc_keys", "prefix_scan" if oneD == "sorted"
+                        else "ksection_hist"))
+        x = outs[0][oneD]
+        log(f"phase 28b DistributedBalancer hsfc/{oneD} n={n} p={SHARDED_P} "
+            f"({backend}): parts equal to Balancer(backend='sharded')'s on "
+            f"every rank; info {x['info']}; t_partition by rank "
+            f"{[round(o[oneD]['t'], 4) for o in outs]} s")
+        res[oneD] = [o[oneD]["launches"] for o in outs]
+    return res
+
+
+def legacy_serve_engine(serve, dev):
+    """Phase 28c: ``ServeEngine`` at llama3-8b width (phase 6's model and
+    trace; slots 16, max_seq 2,048, 4 groups) against ``ServeSession``
+    with the equal ``ServeSpec`` on the card: tokens and migration log
+    equal; every ksection_hist launch held against the plain histogram."""
+    import torch
+    from repro_torch.core import BalanceSpec
+    from repro_torch.serve import (ServeEngine, ServeSession, ServeSpec,
+                                   run_trace)
+    cfg, model, trace = serve["cfg"], serve["model"], serve["trace"]
+    with warns_once("phase 28c"):
+        engine = ServeEngine(model, cfg, slots=16, max_seq=2048, n_groups=4,
+                             device=dev)
+    spec = ServeSpec(slots=16, groups=4, max_seq=2048, rebalance_every=16,
+                     prefill="cheap", decode="replicated", rebalance="tags",
+                     balance=BalanceSpec(p=4, method="linear",
+                                         oneD="ksection", warm_start=True))
+    check(engine.spec == spec, f"phase 28c: the engine's spec {engine.spec}")
+    runs, launches = {}, {}
+    for label in ("ServeEngine", "ServeSession"):
+        sess = engine if label == "ServeEngine" else ServeSession(
+            model, cfg, spec, device=dev)
+        engine = None
+        reqs, submit = [], sess.submit
+        sess.submit = lambda r: (reqs.append(r), submit(r))[1]
+        torch.cuda.reset_peak_memory_stats()
+        m, counts, wall = counted(f"phase 28c {label}", dev, run_trace,
+                                  sess, trace, expect=("ksection_hist",))
+        check(m["completed"] == len(trace), f"phase 28c {label}: "
+              f"{m['completed']} of {len(trace)} requests completed")
+        runs[label] = ([r.out for r in reqs], m["migration_log"])
+        launches[label] = counts
+        log_serve(f"phase 28c {label}, cheap prefill", m, counts,
+                  torch.cuda.max_memory_allocated())
+        del sess.submit, sess
+        free_memory()
+    check(runs["ServeEngine"] == runs["ServeSession"],
+          "phase 28c: ServeEngine's tokens or rebalances differ from "
+          "ServeSession's")
+    log(f"phase 28c: ServeEngine's tokens of {len(trace)} requests and "
+        f"{len(runs['ServeEngine'][1])} rebalances equal ServeSession's")
+    return launches["ServeEngine"]
+
+
+def legacy_fem_drivers(dev):
+    """Phase 28d: the deprecated FEM drivers on the card at quickstart's
+    size against ``AdaptiveSession`` with the equal spec on the card:
+    ``StepStats`` equal field by field, timings aside."""
+    import dataclasses
+    from repro_torch.core import BalanceSpec
+    from repro_torch.fem import (AdaptSpec, AdaptiveSession,
+                                 solve_helmholtz_adaptive,
+                                 solve_parabolic_adaptive, cylinder_mesh,
+                                 unit_cube_mesh)
+    cases = {
+        "solve_helmholtz_adaptive": (
+            solve_helmholtz_adaptive,
+            lambda: cylinder_mesh(8, 2, length=4.0, radius=0.5),
+            AdaptSpec(problem="helmholtz", theta=0.5, trigger="imbalance",
+                      imbalance_trigger=1.05,
+                      balance=BalanceSpec(p=16, method="hsfc"),
+                      max_steps=5, max_tets=30_000, tol=1e-6)),
+        "solve_parabolic_adaptive": (
+            solve_parabolic_adaptive,
+            lambda: unit_cube_mesh(3),
+            AdaptSpec(problem="parabolic", theta=0.4, coarsen_frac=0.15,
+                      trigger="always",
+                      balance=BalanceSpec(p=16, method="hsfc"), dt=0.01,
+                      n_steps=3, max_tets=30_000, tol=1e-6))}
+    out = {}
+    for name, (driver, mesh, spec) in cases.items():
+        kw = DRIVER_ARGS[name]
+        with warns_once(f"phase 28d {name}"):
+            res, counts, wall = counted(
+                f"phase 28d {name}", dev, driver, mesh(), device=dev,
+                expect=("sfc_keys", "prefix_scan", "fem_matvec"), **kw)
+        check(res.spec == spec, f"phase 28d {name}: spec {res.spec}")
+        want = AdaptiveSession(spec, device=dev).run(mesh())
+        stats = [{k: v for k, v in dataclasses.asdict(s).items()
+                  if k not in STAT_TIMES} for s in res.stats]
+        check(stats == [{k: v for k, v in dataclasses.asdict(s).items()
+                         if k not in STAT_TIMES} for s in want.stats],
+              f"phase 28d {name}: StepStats differ from AdaptiveSession's")
+        last = res.stats[-1]
+        log(f"phase 28d {name} {kw}: {len(stats)} steps, StepStats equal to "
+            f"AdaptiveSession's field by field (timings aside); last step "
+            f"tets={last.n_tets} err_l2={last.err_l2:.6e} cg_iters="
+            f"{last.cg_iters} imbalance={last.imbalance:.6f}; "
+            f"repartitions={res.n_repartitions}; {wall:.2f} s")
+        out[name] = counts
+    return out
+
+
+def load_example(name):
+    """The port's ``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    mod_name = f"torch_example_{name}"
+    if mod_name not in sys.modules:
+        path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[mod_name]
+
+
+def example_rank(comm, name):
+    """Phase 28e, one rank of a multi-rank example: its rank function on
+    this rank's card through ``counted_run``."""
+    fn = getattr(load_example(name), EXAMPLE_RANK_FN[name])
+    out, launches, agree, wall = counted_run(comm.device, fn, comm,
+                                             comm.device, echo=False)
+    out.update(launches=launches, agree=agree, wall=wall)
+    return out
+
+
+def examples_multi_rank():
+    """Phase 28e, the multi-rank examples: parallel_fem's and
+    serve_continuous's rank functions as tasks of the rank pool, their
+    printed lines logged (rank 0's; every rank's must be equal)."""
+    # serve_continuous's SMOKE config leaves use_pallas off, as the
+    # reference's does: its full prefill runs the plain attention
+    expect = {"parallel_fem": ("sfc_keys", "prefix_scan", "fem_matvec"),
+              "serve_continuous": ("ksection_hist",)}
+    res = {}
+    for name in EXAMPLE_RANK_FN:
+        outs, backend = start_world(example_rank, name, join_s=900.0)
+        for line in outs[0]["lines"]:
+            log(f"  [{name}] {line}")
+        # what every rank must agree on (serving's lines carry times)
+        same = (("stats", "gap_session", "gap_rep") if name == "parallel_fem"
+                else ("outputs", "migration_log", "completed"))
+        check(all(o[k] == outs[0][k] for o in outs for k in same),
+              f"phase 28e {name}: the ranks' {same} differ")
+        for r, o in enumerate(outs):
+            check_kernel_agreement(o["agree"], o["launches"],
+                                   f"phase 28e {name} rank {r}", expect[name])
+        if name == "serve_continuous":
+            check(outs[0]["completed"] == outs[0]["requests"] == 24,
+                  "phase 28e serve_continuous: requests unfinished")
+        log(f"phase 28e {name} ({backend}, {SHARDED_P} ranks): wall by rank "
+            f"{[round(o['wall'], 3) for o in outs]} s")
+        res[name] = [o["launches"] for o in outs]
+    return res
+
+
+def examples_in_process(dev):
+    """Phase 28e, the one-process examples on the card: quickstart (its
+    full configuration), moe_balance, and train_lm for TRAIN_LM_STEPS
+    steps then resumed from its checkpoint in a temporary directory; the
+    printed lines logged, each run's kernels held against their plain
+    versions."""
+    import math
+    import tempfile
+    res = {}
+    say = lambda line: log(f"  [example] {line}")   # noqa: E731
+    q, res["quickstart.py"], _ = counted(
+        "phase 28e quickstart", dev, load_example("quickstart").main,
+        ["--device", dev], out=say,
+        expect=("sfc_keys", "prefix_scan", "ksection_hist", "fem_matvec"))
+    check(len(q["methods"]) == 5 and q["dlb"]["sorted"] < 1.05,
+          f"phase 28e quickstart: {q['methods'].keys()}, {q['dlb']}")
+    m, res["moe_balance.py"], _ = counted(
+        "phase 28e moe_balance", dev, load_example("moe_balance").main,
+        ["--device", dev], out=say)
+    check(m["aux"][1] > m["aux"][0] and len(m["dispatch"]) == 9,
+          f"phase 28e moe_balance: {m['aux']}")
+    train = load_example("train_lm").main
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--device", dev, "--ckpt", ckpt]
+        t, res["train_lm.py"], wall = counted(
+            "phase 28e train_lm", dev, train,
+            argv + ["--steps", str(TRAIN_LM_STEPS)], out=say,
+            expect=("prefix_scan",))
+        t2, res["train_lm.py --resume"], _ = counted(
+            "phase 28e train_lm --resume", dev, train,
+            argv + ["--steps", str(TRAIN_LM_STEPS), "--resume"], out=say,
+            expect=("prefix_scan",))
+    check(t["start"] == 0 and len(t["losses"]) == TRAIN_LM_STEPS
+          and t2["start"] == 50 and len(t2["losses"]) == TRAIN_LM_STEPS - 50
+          and all(math.isfinite(x) for x in t["losses"] + t2["losses"]),
+          f"phase 28e train_lm: starts {t['start']}, {t2['start']}")
+    log(f"phase 28e train_lm: {TRAIN_LM_STEPS} steps in {wall:.2f} s, loss "
+        f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; resumed at step "
+        f"{t2['start']}, {len(t2['losses'])} steps")
+    return res
+
+
 SRC = "src/repro_torch/kernels/csrc/"
 # the source of the kernel each row times and counts: the path's attention
 # is bf16, so flash_attention's row is the tensor-core kernel
@@ -5135,10 +5588,10 @@ def phase(name, fn, *args):
     return out
 
 
-def fem_kernel_rows(res, session, balanced, dev):
+def fem_kernel_rows(res, session, balanced, dev, points):
     """Phases 3-5 of the FEM path: its kernels at the session's shapes,
     the fixed-order segment sum's cost, the balance replay and the
-    standalone DLB step."""
+    standalone DLB step (whose inputs ``points`` receives)."""
     import torch
     from repro_torch.core.sfc import sfc_keys
     # keys and histogram at the shapes of the session's last
@@ -5155,7 +5608,7 @@ def fem_kernel_rows(res, session, balanced, dev):
     rows["fem_matvec"] = compare_matvec(res.mesh, dev)
     compare_sums(res.mesh, dev)
     replay_balance(res, session, dev)
-    standalone_dlb(dev)
+    standalone_dlb(dev, keep=points)
     return rows
 
 
@@ -5206,11 +5659,17 @@ def main():
                 run_session, dev)
     phase("phase 2b: small session, card twice and against CPU",
           small_session_agreement, dev)
-    rows = {}
+    rows, points = {}, {}
     if fem is not None:
         rows.update(phase("phases 3-5: FEM kernels, balance replay, "
                           "standalone DLB", fem_kernel_rows, fem[0], fem[1],
-                          fem[3], dev) or {})
+                          fem[3], dev, points) or {})
+    legacy = None
+    if points:
+        legacy = phase("phase 28a: DynamicLoadBalancer on phase 5's 8M points"
+                       f" (p = {LEGACY_P}) against Balancer on the card",
+                       legacy_balancers, dev, points)
+        points.clear()
     serve = phase("phases 6-7: serving at llama3-8b width (main path 2: "
                   "packed; then packed against full)", serve_full_width, dev)
     phase("phase 8: serving at smoke size, card against CPU",
@@ -5232,11 +5691,14 @@ def main():
                          compare_scan, dev, sharded["scanned"])
         if scan_row is not None:
             rows["prefix_scan"] = scan_row
-    served = None
+    served = engine = None
     if serve is not None:
         served = phase("phase 13: sharded serving with KV migration at "
                        "llama3-8b width (main path 4)", sharded_serving,
                        serve)
+        engine = phase("phase 28c: ServeEngine at llama3-8b width (phase 6's"
+                       " model and trace) against ServeSession",
+                       legacy_serve_engine, serve, dev)
         serve.pop("model")          # the card's memory for phases 14-17
         free_memory()
         log(f"after freeing phase 6's model: "
@@ -5355,6 +5817,13 @@ def main():
         "validated); greedy graph growing against k-section",
         telemetry_smoke_on_card, dev,
         None if fem is None else fem[3].get("step0"))
+    legacy_sharded_run = phase(
+        f"phase 28b: DistributedBalancer on phase 10's 8M points over "
+        f"{SHARDED_P} ranks against Balancer(backend='sharded')",
+        legacy_sharded)
+    examples_ranks = phase("phase 28e: examples/torch/parallel_fem.py and "
+                           "serve_continuous.py, their rank functions on the "
+                           "rank pool", examples_multi_rank)
     stop_world()
     log(f"phase 26: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
@@ -5366,12 +5835,22 @@ def main():
                 production_dryrun, dev, dry_procs)
     log(f"phase 27: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
+    t_new = time.perf_counter()
+    drivers = phase("phase 28d: the deprecated FEM drivers at quickstart's "
+                    "size against AdaptiveSession on the card",
+                    legacy_fem_drivers, dev)
+    examples = phase("phase 28e: examples/torch/quickstart.py, moe_balance.py"
+                     f" and train_lm.py ({TRAIN_LM_STEPS} steps, then resumed)"
+                     " on the card", examples_in_process, dev)
+    log(f"phases 28d-e: {time.perf_counter() - t_new:.1f} s; command time so "
+        f"far: {time.perf_counter() - t_start:.1f} s")
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,
                         whisper, whisper_sharded, vlm, vlm_sharded, training,
                         packing, dp, tp, ep, hybrid_mesh, ssm_mesh, tsmoke,
-                        dry)
+                        dry, legacy, engine, legacy_sharded_run, drivers,
+                        examples_ranks, examples)
             or tsmoke["graph"] is None
             or len(rows) < len(REPLACES)):
         log(f"FAILED phases: {FAILED}")
@@ -5431,7 +5910,19 @@ def main():
              f"= {PACK_ROWS}, {PACK_SEEDS} seeds x 2)":
                  packing["pack_launches"],
              "llama3_8b prefill_32k dry-run cell, rank 0 of the 16 x 16 mesh "
-             "(2 of 32 heads, 2 rows, 3 steps)": dry["prefill_launches"]}
+             "(2 of 32 heads, 2 rows, 3 steps)": dry["prefill_launches"],
+             **{f"DynamicLoadBalancer hsfc/{oneD}, 8M points, p = {LEGACY_P}"
+                " (28a)": c for oneD, c in legacy.items()},
+             **{f"DistributedBalancer hsfc/{oneD}, 8M points over "
+                f"{SHARDED_P} ranks (28b, per rank)": c
+                for oneD, c in legacy_sharded_run.items()},
+             "ServeEngine llama3_8b cheap (phase 6's trace, 28c)": engine,
+             **{f"{name} {DRIVER_ARGS[name]} (28d)": c
+                for name, c in drivers.items()},
+             **{f"examples/torch/{name}.py (28e, per rank)": c
+                for name, c in examples_ranks.items()},
+             **{f"examples/torch/{name} (28e)": c
+                for name, c in examples.items()}}
     # the flash kernel at the hybrid's head dim and at whisper's encoder
     # and cross-attention shapes, beside its main-path row
     d256 = dict(hybrid["row"], shape="b=1 hq=10 hkv=1 s=6144 d=256 causal "

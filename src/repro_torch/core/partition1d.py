@@ -152,6 +152,14 @@ def ksection_splitters_counted(
     return torch.sort(blo).values, rounds
 
 
+def ksection_splitters(targets: torch.Tensor, blo: torch.Tensor,
+                       bhi: torch.Tensor, hist_fn: Callable, *, k: int,
+                       iters: int, tol: float = 0.0) -> torch.Tensor:
+    """Splitters-only wrapper of :func:`ksection_splitters_counted`."""
+    return ksection_splitters_counted(
+        targets, blo, bhi, hist_fn, k=k, iters=iters, tol=tol)[0]
+
+
 def warm_start_boxes(prev, lo, hi, targets: torch.Tensor, hist_fn, *,
                      k: int = 8, tight_frac: Optional[float] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

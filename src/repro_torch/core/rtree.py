@@ -86,6 +86,9 @@ class RefinementForest:
                 stack.append(int(c0[n]))
         return np.asarray(out, np.int64)
 
+    def leaf_count(self) -> int:
+        return int((self.child0 == -1).sum())
+
 
 def rtk_partition_forest(forest: RefinementForest, weights_by_node: np.ndarray,
                          p: int) -> np.ndarray:

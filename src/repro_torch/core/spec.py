@@ -364,6 +364,14 @@ class Balancer:
             if v is not None:
                 get_stage(spec.backend, stage, v)
 
+    @classmethod
+    def from_spec(cls, spec: BalanceSpec, *, device=None,
+                  comm=None) -> "Balancer":
+        """The reference's constructor name: ``Balancer(spec, device,
+        comm=comm)`` (where the JAX package takes ``devices``, a
+        sharded spec takes ``comm``)."""
+        return cls(spec, device, comm=comm)
+
     # -- the pipeline ---------------------------------------------------------
     def balance_fn(self, weights, coords, old_parts=None, keys=None,
                    warm=None) -> BalanceResult:
@@ -554,3 +562,13 @@ class Balancer:
                                keys=keys, warm_splitters=warm_splitters)
             sw.block_on(res.parts)
         return res, {"t_balance": sw.dur_s}
+
+
+def compute_cut(parts, adjacency) -> torch.Tensor:
+    """Communication proxy: element-adjacency links crossing parts.
+
+    Companion metric kept outside ``BalanceResult`` (it needs the element
+    graph, which the pipeline never sees)."""
+    parts = torch.as_tensor(parts)
+    return _metrics.cut_links(
+        parts, torch.as_tensor(adjacency, device=parts.device).long())

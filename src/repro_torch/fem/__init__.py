@@ -4,12 +4,14 @@
 balance loop and ``AdaptiveSession`` runs it on one device, or on one
 rank per part of a process group (``backend='sharded'``: ``halo`` and
 ``parallel`` hold the owned-vertex exchange and the distributed
-operators).
+operators).  The old ``solve_*_adaptive`` drivers are deprecated thin
+wrappers over the session.
 """
 from .adapt import (ADAPT_STAGES, TRIGGERS, AdaptSpec, AdaptiveResult,
                     AdaptiveSession, SessionState, StepStats,
-                    adapt_stage_variants, get_adapt_stage,
+                    adapt_stage_variants, get_adapt_stage, peak_init,
                     register_adapt_stage, resolve_adapt_variants,
+                    solve_helmholtz_adaptive, solve_parabolic_adaptive,
                     transfer_p1)
 from .assemble import (P1Elements, build_elements, element_gradients,
                        load_vector, mass_matvec, operator_diagonal,

@@ -20,6 +20,8 @@ a ``torch.distributed`` process group (``comm=``):
 * ``AdaptiveSession`` -- runs the loop on ``device`` (default CUDA; no
   fallback to the CPU), times each stage with a clock that waits for the
   device, and emits one ``StepStats`` per step.
+* ``solve_helmholtz_adaptive`` / ``solve_parabolic_adaptive`` -- the
+  deprecated driver functions, thin wrappers over the session.
 
 The mesh and its refinement stay on the host (numpy, the JAX package's
 order); element geometry, the solve (PCG over the hand-written
@@ -48,7 +50,7 @@ from typing import Any, Callable, ClassVar, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import deprecation, telemetry
 from ..core import Balancer, BalanceSpec, imbalance
 from ..core.metrics import cut_links
 from ..core.sfc import refresh_key_cache
@@ -57,7 +59,7 @@ from ..device import resolve_device
 from .assemble import build_elements, load_vector, mass_matvec
 from .estimate import doerfler_mark, threshold_coarsen_mark, zz_estimate
 from .mesh import TET_FACES, Mesh
-from .problems import ProblemSetup, get_problem
+from .problems import ParabolicProblem, ProblemSetup, get_problem
 from .refine import coarsen, refine
 from .solve import solve_dirichlet
 
@@ -909,8 +911,87 @@ class AdaptiveSession:
 
 
 # ---------------------------------------------------------------------------
+# Deprecated driver wrappers
+# ---------------------------------------------------------------------------
+
+# one shared key for both legacy drivers, as in the JAX package: the old
+# machinery warned once per process across the pair, not once per driver
+_DEPRECATION_KEY = "fem.adapt.legacy_drivers"
+
+
+def _warn_deprecated_once(name: str) -> None:
+    """Emit the legacy-driver DeprecationWarning once per process."""
+    deprecation.warn_once(
+        _DEPRECATION_KEY,
+        f"{name} is deprecated; build an AdaptSpec and use "
+        "repro_torch.fem.AdaptiveSession(spec).run(mesh) instead")
+
+
+def _reset_deprecation_warning() -> None:
+    """Testing hook: allow the once-per-process warning to fire again."""
+    deprecation.reset(_DEPRECATION_KEY)
+
+
+def solve_helmholtz_adaptive(mesh: Mesh, *, p: int = 16,
+                             method: str = "hsfc",
+                             theta: float = 0.5,
+                             max_steps: int = 10,
+                             max_tets: int = 200_000,
+                             imbalance_trigger: float = 1.05,
+                             tol: float = 1e-8,
+                             backend: str = "host",
+                             verbose: bool = False, device=None,
+                             comm=None) -> AdaptiveResult:
+    """DEPRECATED -- paper Example 3.1 via ``AdaptiveSession``.
+
+    Equivalent to ``AdaptiveSession(AdaptSpec(problem='helmholtz', ...),
+    device=device, comm=comm).run(mesh)``; the keywords map 1:1 onto the
+    spec's fields."""
+    _warn_deprecated_once("solve_helmholtz_adaptive")
+    spec = AdaptSpec(problem="helmholtz", theta=theta, trigger="imbalance",
+                     imbalance_trigger=imbalance_trigger,
+                     balance=BalanceSpec(p=p, method=method, backend=backend),
+                     backend=backend, max_steps=max_steps, max_tets=max_tets,
+                     tol=tol)
+    return AdaptiveSession(spec, device=device, comm=comm,
+                           verbose=verbose).run(mesh)
+
+
+def solve_parabolic_adaptive(mesh: Mesh, *, p: int = 16,
+                             method: str = "hsfc", dt: float = 0.01,
+                             n_steps: int = 20, theta: float = 0.4,
+                             max_tets: int = 120_000,
+                             coarsen_frac: float = 0.15,
+                             tol: float = 1e-8,
+                             backend: str = "host",
+                             verbose: bool = False, device=None,
+                             comm=None) -> AdaptiveResult:
+    """DEPRECATED -- paper Example 3.2 via ``AdaptiveSession``.
+
+    The previous step's partition is threaded into every balance call, so
+    the Oliker--Biswas remap and the migration metrics are live."""
+    _warn_deprecated_once("solve_parabolic_adaptive")
+    spec = AdaptSpec(problem="parabolic", theta=theta,
+                     coarsen_frac=coarsen_frac, trigger="always",
+                     balance=BalanceSpec(p=p, method=method, backend=backend),
+                     backend=backend, dt=dt, n_steps=n_steps,
+                     max_tets=max_tets, tol=tol)
+    return AdaptiveSession(spec, device=device, comm=comm,
+                           verbose=verbose).run(mesh)
+
+
+# ---------------------------------------------------------------------------
 # Solution transfer
 # ---------------------------------------------------------------------------
+
+def peak_init(mesh: Mesh, prob: ParabolicProblem,
+              device=None) -> torch.Tensor:
+    """The parabolic problem's solution at t = 0 on the mesh's vertices
+    (float32, on ``device``: default CUDA)."""
+    verts = torch.as_tensor(mesh.verts.astype(np.float32),
+                            device=resolve_device(device))
+    return prob.exact(verts, 0.0)
+
 
 def transfer_p1(u_old: np.ndarray, active_before: np.ndarray,
                 mesh: Mesh) -> np.ndarray:

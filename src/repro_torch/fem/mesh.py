@@ -90,6 +90,11 @@ class Mesh:
     def barycenters(self) -> np.ndarray:
         return self.verts[self.tets].mean(axis=1)
 
+    def volumes(self) -> np.ndarray:
+        x = self.verts[self.tets]
+        b = x[:, 1:] - x[:, :1]
+        return np.abs(np.linalg.det(b)) / 6.0
+
     def boundary_vertices(self) -> np.ndarray:
         """Vertex ids on the boundary (faces used by exactly one leaf tet)."""
         t = self.tets

@@ -9,7 +9,8 @@ from .rglru import (RGLRU, RGLRUCache, init_rglru_cache, rglru_block_apply,
 from .ssm import (Mamba2, SSMCache, init_ssm_cache, mamba2_apply,
                   mamba2_decode, ssd_forward)
 from .transformer import (Block, DecBlock, DecoderLM, EncBlock, EncDecLM,
-                          HybridBlock, HybridLM, SSMBlock, SSMLM, block_ffn,
+                          HybridBlock, HybridLM, SSMBlock, SSMLM, block_decode,
+                          block_ffn,
                           decoder_hidden, decoder_inputs, decoder_loss,
                           encdec_hidden, encdec_loss, encoder_apply,
                           hybrid_hidden, hybrid_layer_kinds, hybrid_loss,
@@ -18,7 +19,7 @@ from .transformer import (Block, DecBlock, DecoderLM, EncBlock, EncDecLM,
 __all__ = ["Block", "DecBlock", "DecoderLM", "EncBlock", "EncDecLM",
            "FAMILIES", "HybridBlock", "HybridLM",
            "MoE", "Mamba2", "ModelConfig", "RGLRU", "RGLRUCache", "SSMBlock",
-           "SSMCache", "SSMLM", "block_ffn", "decoder_hidden",
+           "SSMCache", "SSMLM", "block_decode", "block_ffn", "decoder_hidden",
            "decoder_inputs", "decoder_loss", "dispatch_quality",
            "dispatch_spec", "encdec_hidden", "encdec_loss", "encoder_apply",
            "hidden_fn", "hybrid_hidden", "hybrid_layer_kinds", "hybrid_loss",

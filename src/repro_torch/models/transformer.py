@@ -48,8 +48,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embedding, attention_apply,
-                     copy_to_model, embed_tokens, mlp_apply, on_model_axis,
-                     ones_param, project_heads, rmsnorm, vocab_ce)
+                     attention_decode, copy_to_model, embed_tokens,
+                     mlp_apply, on_model_axis, ones_param, project_heads,
+                     rmsnorm, vocab_ce)
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, rglru_block_apply
 from .ssm import Mamba2, mamba2_apply
@@ -87,6 +88,21 @@ def block_ffn(block: Block, x: torch.Tensor, cfg: ModelConfig, *,
         y = mlp_apply(block.mlp, h, cfg, model)
         aux = torch.zeros((), dtype=F32, device=x.device)
     return (x + y, aux) if with_aux else x + y
+
+
+def block_decode(block: Block, x: torch.Tensor, cfg: ModelConfig, *, pos,
+                 cache_k, cache_v, stored_pos):
+    """One decode step of a block: ``attention_decode`` of ``rmsnorm(x)``
+    against the cache, then the MLP or MoE (``block_ffn``).  Returns
+    ``(x, k_new, v_new)``.  ``stored_pos`` (b, S) is the cache's
+    position per slot, which ``attention_decode`` needs: the JAX
+    package's ``block_decode`` does not pass it, and so raises
+    ``TypeError`` on every call."""
+    h = rmsnorm(x, block.ln_attn)
+    y, k_new, v_new = attention_decode(block.attn, h, cfg, cache_k=cache_k,
+                                       cache_v=cache_v, stored_pos=stored_pos,
+                                       pos=pos)
+    return block_ffn(block, x + y, cfg), k_new, v_new
 
 
 def remat(cfg: ModelConfig, body, *args):

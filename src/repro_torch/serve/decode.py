@@ -89,6 +89,11 @@ class KVCache:
     pos: torch.Tensor          # (b,) int32 next position
 
 
+def kv_cache_spec_axes():
+    """The logical axes of the K / V caches' dims, (L, b, hkv, S, hd)."""
+    return (None, "batch", "kv_heads", "seq", "head_dim")
+
+
 @dataclasses.dataclass
 class SSMState:
     layers: SSMCache           # stacked over the layers: (L, b, ...)

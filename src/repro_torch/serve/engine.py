@@ -19,8 +19,10 @@ runs on a process group of one rank per request group (``comm=``, a
 ``distributed.Comm``): every rank runs the same host loop in lockstep and
 holds only its group's KV slots; decode is one call per rank per step,
 joined by one all_gather of the argmax tokens; ``rebalance='kv'``
-migrates KV slots between the ranks.  The deprecated ``ServeEngine``
-shim waits for the tail (ROADMAP.md, queue 1, item 12).
+migrates KV slots between the ranks.  The old single-device simulation
+survives as the stage variants ``prefill='cheap'`` /
+``decode='replicated'`` / ``rebalance='tags'`` and behind the deprecated
+``ServeEngine`` constructor shim.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import telemetry
-from ..core import Balancer
+from .. import deprecation, telemetry
+from ..core import Balancer, BalanceSpec
 from ..data.packing import first_fit_pack
 from ..device import resolve_device
 from ..models.config import ModelConfig
@@ -308,7 +310,7 @@ class ServeSession:
         self.queue: List[Request] = []
         self.step_count = 0
         self.migration_log: List[Dict] = []
-        self.balancer = Balancer(spec.balance, device=self.device)
+        self.balancer = self._build_balancer(spec.balance)
         self._decode = self._migrator = None
         if sharded:
             self._decode = make_sharded_decode(cfg, comm)
@@ -387,6 +389,10 @@ class ServeSession:
                 if self.active[s] is None]
 
     # -- admission -----------------------------------------------------------
+    def _build_balancer(self, bspec: BalanceSpec) -> Balancer:
+        """The rebalance stage's balancer, on the session's device."""
+        return Balancer(bspec, device=self.device)
+
     def submit(self, req: Request) -> None:
         if req.t_submit is None:
             req.t_submit = time.perf_counter()
@@ -673,3 +679,67 @@ class ServeSession:
                 and max_steps > 0:
             self.step()
             max_steps -= 1
+
+
+# ---------------------------------------------------------------------------
+# Deprecated shim: the old ServeEngine constructor
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_KEY = "ServeEngine"
+
+
+def _warn_deprecated_once() -> None:
+    """Emit the legacy-API DeprecationWarning once per process."""
+    deprecation.warn_once(
+        _DEPRECATION_KEY,
+        "ServeEngine(slots=..., n_groups=...) is deprecated; build a "
+        "repro_torch.serve.ServeSpec and use ServeSession(model, cfg, spec) "
+        "instead")
+
+
+def _reset_deprecation_warning() -> None:
+    """Testing hook: allow the once-per-process warning to fire again."""
+    deprecation.reset(_DEPRECATION_KEY)
+
+
+class ServeEngine(ServeSession):
+    """DEPRECATED shim over ``ServeSession`` (old kwargs map 1:1).
+
+    Keeps the old engine's semantics: cheap prefill, single-device
+    replicated decode, and tag-only rebalancing (group labels move, KV
+    stays put).  Migration guide::
+
+        ServeEngine(model, cfg, slots=8, n_groups=4, ...)
+            -> ServeSession(model, cfg,
+                            ServeSpec(slots=8, groups=4, ...))
+
+    The engine runs on ``device`` (default CUDA).  ``comm`` is the group
+    of a sharded balancer (``backend='sharded'``, or a ``balance_spec``
+    with that backend): ``n_groups`` ranks, each of which runs the same
+    engine on ``comm.device`` and balances its shard of the requests."""
+
+    def __init__(self, model: torch.nn.Module, cfg: ModelConfig, *,
+                 slots: int = 8, max_seq: int = 256, n_groups: int = 4,
+                 rebalance_every: int = 16, backend: str = "host",
+                 balance_spec: Optional[BalanceSpec] = None, device=None,
+                 comm=None):
+        _warn_deprecated_once()
+        if balance_spec is None:
+            balance_spec = BalanceSpec(p=n_groups, method="linear",
+                                       oneD="ksection", warm_start=True,
+                                       backend=backend)
+        if comm is not None and balance_spec.backend != "sharded":
+            raise ValueError("comm= is the group of a sharded balancer "
+                             "(backend='sharded'); the engine itself runs "
+                             "on one device")
+        spec = ServeSpec(slots=slots, groups=n_groups, max_seq=max_seq,
+                         rebalance_every=rebalance_every, prefill="cheap",
+                         decode="replicated", rebalance="tags",
+                         balance=balance_spec)
+        self._balance_comm = comm
+        if device is None and comm is not None:
+            device = comm.device
+        super().__init__(model, cfg, spec, device=device)
+
+    def _build_balancer(self, bspec: BalanceSpec) -> Balancer:
+        return Balancer(bspec, device=self.device, comm=self._balance_comm)

@@ -161,6 +161,10 @@ class NullTracer:
     def tick(self, step: int, **attrs) -> None:
         pass
 
+    def traced(self, name: Optional[str] = None, *, block: bool = False,
+               **attrs) -> Callable:
+        return traced(name, block=block, **attrs)
+
 
 class Tracer:
     """Collects ``SpanEvent``s and a ``MetricsRegistry`` for one run.
@@ -200,6 +204,11 @@ class Tracer:
     def tick(self, step: int, **attrs) -> None:
         """Per-step counter snapshot (timestamped for counter tracks)."""
         self.metrics.tick(step, ts_us=self.now_us(), **attrs)
+
+    def traced(self, name: Optional[str] = None, *, block: bool = False,
+               **attrs) -> Callable:
+        """Decorator twin of ``span`` bound to THIS tracer."""
+        return traced(name, block=block, tracer=self, **attrs)
 
 
 _ACTIVE: Any = NullTracer()

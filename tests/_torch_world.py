@@ -1293,3 +1293,97 @@ def profiled_model_step(comm, arch, trace_dir):
             "counters": {k: v - before[k]
                          for k, v in comm.bytes_by_kind.items()},
             "trace": path, "batch": (2, 32)}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_legacy.py
+# ---------------------------------------------------------------------------
+
+LEGACY_INFO_KEYS = ("imbalance", "cut", "TotalV", "MaxV", "retained",
+                    "mig_weight_in", "mig_weight_out", "mig_items",
+                    "mig_overflow", "capacity", "backend")
+
+
+def legacy_info_of(res):
+    """The deterministic part of a legacy result: its parts and the
+    ``info`` entries that are not times."""
+    info = res.info
+    out = {k: info[k] for k in LEGACY_INFO_KEYS if k in info}
+    out["keys"] = sorted(info)
+    out["part_weights"] = np.asarray(info["part_weights"])
+    if "remap_perm" in info:
+        out["remap_perm"] = np.asarray(_np(info["remap_perm"]))
+    return np.asarray(_np(res.parts)), out
+
+
+def legacy_world(comm, coords, w, old, cases, serve_case):
+    """The deprecated multi-device shims on this rank: each case
+    ``(shim, method, oneD, use_old)`` runs ``DistributedBalancer`` or the
+    sharded ``DynamicLoadBalancer``; then the refusals; then
+    ``serve_case`` (cfg, weights, trace keywords) through ``ServeEngine``
+    with its balancer sharded over the group."""
+    import warnings
+    from repro_torch.core import DynamicLoadBalancer
+    from repro_torch.distributed import DistributedBalancer
+    warnings.simplefilter("ignore", DeprecationWarning)
+    out = {"cases": []}
+    kw = dict(coords=torch.as_tensor(coords))
+    for shim, method, oneD, use_old in cases:
+        if shim == "distributed":
+            b = DistributedBalancer(comm.size, method, comm=comm, oneD=oneD)
+        else:
+            b = DynamicLoadBalancer(comm.size, method, oneD=oneD,
+                                    backend="sharded", comm=comm)
+        r = b.balance(torch.as_tensor(w),
+                      old_parts=torch.as_tensor(old) if use_old else None,
+                      **kw)
+        out["cases"].append(legacy_info_of(r))
+    errors = []
+    for make in (lambda: DistributedBalancer(comm.size, "rtk", comm=comm),
+                 lambda: DistributedBalancer(comm.size, comm=comm).balance(
+                     torch.as_tensor(w))):
+        try:
+            make()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    cfg, weights, trace_kw = serve_case
+    from repro_torch.serve import ServeEngine, bursty_trace, run_trace
+    eng = ServeEngine(model_from_numpy(cfg, weights), cfg, slots=8,
+                      max_seq=64, n_groups=comm.size, rebalance_every=4,
+                      backend="sharded", comm=comm)
+    reqs, submit = [], eng.submit
+    eng.submit = lambda r: (reqs.append(r), submit(r))[1]
+    m = run_trace(eng, bursty_trace(24, vocab=cfg.vocab, **trace_kw))
+    out["serve"] = ([r.out for r in reqs], m["migration_log"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_examples_world.py
+# ---------------------------------------------------------------------------
+
+def load_example(name):
+    """The port's ``examples/torch/<name>.py`` as a module (the examples
+    are scripts, not a package)."""
+    import importlib.util
+    import pathlib
+    import sys
+    mod_name = f"torch_example_{name}"
+    if mod_name not in sys.modules:
+        path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+                / "torch" / f"{name}.py")
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[mod_name]
+
+
+def examples_world(comm):
+    """The rank bodies of the two multi-rank examples, on this CPU rank."""
+    return {"parallel_fem": load_example("parallel_fem").fem_rank(
+                comm, "cpu", echo=False),
+            "serve_continuous": load_example("serve_continuous").serve_rank(
+                comm, "cpu", echo=False)}

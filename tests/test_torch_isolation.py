@@ -19,8 +19,9 @@ from repro_torch.serve import ServeSession, ServeSpec
 import _torch_world as W
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE_FILES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLE_FILES
 
 
 def _imported_modules(path: Path):
@@ -47,13 +48,70 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.data, repro_torch.models, "
             "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
             "repro_torch.launch.mesh, repro_torch.distributed.sharding, "
-            "repro_torch.telemetry.smoke, repro_torch.core.graph_greedy; "
+            "repro_torch.telemetry.smoke, repro_torch.core.graph_greedy, "
+            "repro_torch.deprecation, repro_torch.core.balancer, "
+            "repro_torch.distributed.balancer, repro_torch.launch, "
+            "importlib.util; "
+            "[importlib.util.spec_from_file_location(p.stem, p).loader"
+            ".exec_module(importlib.util.module_from_spec("
+            "importlib.util.spec_from_file_location(p.stem, p))) "
+            "for p in map(__import__('pathlib').Path, sys.argv[1:])]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code,
+                          *map(str, EXAMPLE_FILES)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert len(EXAMPLE_FILES) == 5
+
+
+def test_legacy_shims_and_examples_stand_alone_and_default_to_cuda(tmp_path):
+    """The deprecated shims and the examples are among the files checked
+    above; the shims' entry points (``DynamicLoadBalancer``,
+    ``ServeEngine``, the FEM drivers, ``peak_init``) and the examples'
+    ``main`` run on CUDA unless asked for the CPU, and without a card the
+    default raises (no fallback)."""
+    import warnings
+    from repro_torch.core import DynamicLoadBalancer
+    from repro_torch.fem import (ParabolicProblem, peak_init,
+                                 solve_helmholtz_adaptive,
+                                 solve_parabolic_adaptive, unit_cube_mesh)
+    from repro_torch.serve import ServeEngine
+    assert {"deprecation.py", "balancer.py"} <= {p.name for p in PORT_FILES}
+    assert {"quickstart.py", "parallel_fem.py", "serve_continuous.py",
+            "moe_balance.py", "train_lm.py"} == {p.name for p in EXAMPLE_FILES}
+    cfg = get_smoke("llama3_8b").replace(n_layers=1, d_model=32, d_ff=64,
+                                         vocab=64)
+    w, xyz = torch.ones(64), torch.rand(64, 3)
+    mesh = unit_cube_mesh(1)
+    warnings.simplefilter("ignore", DeprecationWarning)
+    if torch.cuda.is_available():
+        assert DynamicLoadBalancer(4).balance(w, coords=xyz).parts.is_cuda
+        assert ServeEngine(init_model(cfg), cfg).device.type == "cuda"
+        assert peak_init(mesh, ParabolicProblem()).is_cuda
+        return
+    model = init_model(cfg, device="cpu")
+    calls = [lambda: DynamicLoadBalancer(4).balance(w, coords=xyz),
+             lambda: ServeEngine(model, cfg),
+             lambda: solve_helmholtz_adaptive(mesh, max_steps=1),
+             lambda: solve_parabolic_adaptive(mesh, n_steps=1),
+             lambda: peak_init(mesh, ParabolicProblem())]
+    for name in ("quickstart", "moe_balance", "train_lm"):
+        calls.append(lambda name=name: W.load_example(name).main(
+            ["--ckpt", str(tmp_path / "ck")] if name == "train_lm" else []))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    for name in ("parallel_fem", "serve_continuous"):
+        with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+            W.load_example(name).main([])
+    assert not (tmp_path / "ck").exists()
+    assert DynamicLoadBalancer(4, device="cpu").balance(
+        w, coords=xyz).parts.device.type == "cpu"
+    assert ServeEngine(model, cfg, device="cpu").device.type == "cpu"
+    assert peak_init(mesh, ParabolicProblem(), device="cpu").device.type \
+        == "cpu"
 
 
 def test_entry_points_default_to_cuda(tmp_path):
