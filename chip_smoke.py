@@ -43,8 +43,8 @@ CUDA toolkit's nvcc.  It
 8. runs a smoke-size packed session in float32 with the kernels on the
    card and with the plain versions on the CPU, from the same weights;
 9. holds both attention kernels against their plain versions (with
-   SDPA's time as the yardstick; flash in bf16 on the tensor cores and
-   in float32 on CUDA cores; packed in bf16 on the tensor cores, on the
+   SDPA's time as the yardstick; flash in bf16 on wgmma and in float32
+   on CUDA cores; packed in bf16 on wgmma, on the
    session's fullest buffer and on a full buffer of long requests) and
    profiles one packed admission plus eight decode steps;
 10. runs the standalone sharded DLB step: 8M points over 4 ranks
@@ -401,8 +401,8 @@ WRAPPER_KERNELS = {
     "ksection_hist": ("prep_kernel", "bucket_kernel"),
     "fem_matvec": ("element_pass", "vertex_pass"),
     "prefix_scan": ("scan_kernel",),
-    "flash_attention": ("flash_kernel", "flash_tc_kernel"),
-    "serve_prefill": ("packed_kernel", "packed_tc_kernel")}
+    "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
+    "serve_prefill": ("packed_kernel", "packed_wgmma_kernel")}
 
 
 def kernels_launched(launches):
@@ -516,6 +516,15 @@ def nvidia_smi_line():
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def attention_padded():
+    """The bf16 attention launches whose inputs the wrappers copied to a
+    padded head dim, in this process (a running total: no configuration
+    has such a head dim, so every path's stays 0)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.serve_prefill import packed_attention_cuda
+    return flash_attention_cuda.padded + packed_attention_cuda.padded
 
 
 # ---------------------------------------------------------------------------
@@ -1267,8 +1276,12 @@ def _pool_rank(rank, backend, init_file, devices, tasks, results):
             ops.reset_launch_counts()
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
+            padded = attention_padded()
             try:
                 out = (rank, True, task[0](Comm(device=device), *task[1]))
+                if attention_padded() != padded:
+                    out = (rank, False, "bf16 attention inputs were copied "
+                           "to a padded head dim on this path")
             except Exception:
                 out = (rank, False, traceback.format_exc())
             del task
@@ -5558,8 +5571,8 @@ def examples_in_process(dev):
 
 SRC = "src/repro_torch/kernels/csrc/"
 # the source of the kernel each row times and counts: the path's attention
-# is bf16, so flash_attention's row is the tensor-core kernel
-SOURCES = {"flash_attention": "flash_attention_tc.cu"}
+# is bf16, so flash_attention's row is the wgmma kernel
+SOURCES = {"flash_attention": "flash_attention_wgmma.cu"}
 REPLACES = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
             "ksection_hist": "src/repro/kernels/ksection_hist.py:95",
             "fem_matvec": "src/repro/kernels/fem_matvec.py:108",
@@ -5844,6 +5857,10 @@ def main():
                      " on the card", examples_in_process, dev)
     log(f"phases 28d-e: {time.perf_counter() - t_new:.1f} s; command time so "
         f"far: {time.perf_counter() - t_start:.1f} s")
+    # the rank pool's tasks check their own (_pool_rank)
+    phase("the bf16 attention kernels read every path's inputs unpadded",
+          lambda: check(attention_padded() == 0, f"{attention_padded()} "
+                        "bf16 attention launches padded their inputs"))
     if (FAILED or fem is None or serve is None or sharded is None
             or served is None
             or None in (swa, dense, phi, grok, mamba, mamba_sharded, hybrid,

@@ -18,10 +18,10 @@ Kernels (the TPU kernel each replaces is named in its source):
   prefix_scan    exclusive prefix sum (Algorithm 1's S_i), one pass with a
                  look-back over tile aggregates, deterministic
   flash_attention  causal / sliding-window / GQA attention (full prefill);
-                 bf16 on tensor cores, float32 on CUDA cores
+                 bf16 on wgmma fed by TMA through a warp-specialised K/V
+                 ring (csrc/attention_wgmma.cuh), float32 on CUDA cores
   serve_prefill  segment-masked causal attention over a packed buffer;
-                 bf16 on tensor cores (the body shared with flash attention,
-                 csrc/attention_tc.cuh), float32 on CUDA cores
+                 bf16 on the same wgmma body, float32 on CUDA cores
 
 ``build.py`` compiles ``csrc/*.cu`` with nvcc at first use on a CUDA
 tensor; nothing is built at import.

@@ -19,9 +19,9 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu",
-           "prefix_scan.cu", "flash_attention.cu", "flash_attention_tc.cu",
+           "prefix_scan.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
            "serve_prefill.cu")
-HEADERS = ("attention_tile.cuh", "attention_tc.cuh")
+HEADERS = ("attention_tile.cuh", "attention_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -109,12 +109,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
                                           i, i, p]
     lib.repro_flash_attention.restype = i
-    lib.repro_flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                             f, i, i, p]
-    lib.repro_flash_attention_tc.restype = i
-    lib.repro_packed_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
-                                           f, p]
+    lib.repro_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                i, f, i, i, i, p]
+    lib.repro_flash_attention_wgmma.restype = i
+    lib.repro_flash_attention_wgmma_smem.argtypes = [i, i]
+    lib.repro_flash_attention_wgmma_smem.restype = i
+    lib.repro_packed_attention.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
+                                           p]
     lib.repro_packed_attention.restype = i
+    lib.repro_packed_attention_wgmma.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                 f, f, i, p]
+    lib.repro_packed_attention_wgmma.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,7 +5,7 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
 // flash_attention_pallas (_flash_kernel) for float32 inputs; bf16 inputs
-// run the tensor-core kernel of flash_attention_tc.cu.
+// run the wgmma kernel of flash_attention_wgmma.cu.
 //
 // What bounds it: the operations.  Causal attention over s tokens does
 // about 2 s^2 d multiply-adds per head against 4 s d values moved, so at

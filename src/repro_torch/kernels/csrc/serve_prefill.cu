@@ -15,10 +15,10 @@
 // head over the per-request causal bands.  Full buffers of long requests
 // come close to the operations' bound as well.
 //
-// bf16 runs on the tensor cores: the FlashAttention-2 body of
-// attention_tc.cuh (mma.sync, K/V tiles of 64 double-buffered by
-// cp.async, online softmax in registers, P split into two bf16 halves
-// for P V) under PackedPolicy, which gives
+// bf16 runs on wgmma: the body of attention_wgmma.cuh (a TMA producer
+// warp feeding a 4-stage K/V ring of 64-key tiles, one consumer
+// warpgroup of 64 query rows on wgmma, online softmax in registers, P
+// split into two bf16 halves for P V) under PackedPolicy, which gives
 //
 //   * the key tiles a query tile visits: each key tile's range of ids
 //     (pads as -1) is computed once by the CTA in one parallel pass over
@@ -27,8 +27,6 @@
 //     requests in order, so the visited tiles are those of the tile's own
 //     requests, and the key loop starts at the first of them; any other
 //     layout stays correct (a range that meets is only a superset);
-//   * per warp, a tile outside its rows' id range or above its diagonal
-//     is skipped;
 //   * the per-element mask only on tiles that straddle a request edge,
 //     the diagonal or the ragged end: a tile wholly below a warp's
 //     diagonal whose 64 keys carry the one id of the warp's 16 rows is
@@ -38,17 +36,17 @@
 //     score.
 //
 // A query tile of pad rows only writes zeros with 16-byte stores and
-// exits.  Any C runs: the ragged last tile is masked.
+// exits.  Any C runs: the ragged last tile is masked, and TMA zero-fills
+// past C.  The query tile is 64 rows (one consumer warpgroup): the
+// buffers hold short requests.
 //
 // Launch order: the heads of a query tile, then the next tile, from the
 // buffer's start, so the real tiles (the engine packs from the start) run
-// first and the pad tiles fill in last; each head's tiles from the
-// buffer's end, the order before, was slower on the card at the path's
-// buffer and at a full one.  One CTA per (head, query tile): a variant
-// whose CTA took the 4 query heads of a kv head, loading each K/V tile
-// once for all 4, was clearly slower at both, and one K/V stage with 3
-// or 4 CTAs an SM instead of two stages and 2 was no better: there a
-// CTA's latency, not the bytes it loads, sets the time.
+// first and the pad tiles fill in last.  One CTA per (head, query tile),
+// two an SM (the ring is 2 stages deep at head dim 128, 4 at 64): at the
+// engine's buffers a CTA's latency, not the bytes it loads, sets the
+// time, and on the card a second CTA an SM hid it better than a deeper
+// ring.
 //
 // float32 inputs (the smoke-size card-against-CPU check) run the
 // CUDA-core kernel on attention_tile.cuh: one CTA per (head, 64-row
@@ -59,7 +57,7 @@
 #include <climits>
 #include <stdint.h>
 
-#include "attention_tc.cuh"
+#include "attention_wgmma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -175,25 +173,34 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* seg,
 
 }  // namespace f32
 
-// --- bf16: tensor cores (attention_tc.cuh) -----------------------------------
+// --- bf16: wgmma (attention_wgmma.cuh) -----------------------------------------
 
-namespace tc {
+namespace wg {
 
-using namespace attn_tc;
+using namespace attn_wg;
+
+constexpr int BQ = 64;                 // query rows a CTA: one consumer group
+constexpr int BK = 64;                 // keys a tile
+constexpr int NT = threads<1>();       // the consumer group, the producer
+// The ring: as many stages as leave room for two CTAs an SM (each under
+// 116 KB of shared memory and 168 registers a thread): a buffer's
+// requests are short, so a CTA visits few key tiles, and a second CTA's
+// loads and set-up hide the first one's latency.
+template <int DP>
+using PackedRing = Ring<BK, DP == 64 ? 4 : 2>;
+constexpr int SLABS = BQ / 16;
 
 // The segment-causal mask of one query tile.  Shared arrays: the tile's
 // query ids (-1 past C), per key tile the smallest and largest id over
 // its 64 keys (pads and keys past C as -1), the visited key tiles in
-// order, and per warp the range of its rows' real ids and their one id
-// (-2 unless all 16 rows are real and of one request).
+// order, and per 16-row slab its rows' one id (-2 unless all 16 rows are
+// real and of one request).
 struct PackedPolicy {
   const int* __restrict__ seg;
   const int* seg_q;
   const int* tile_lo;
   const int* tile_hi;
   const int* live;
-  const int* w_lo;
-  const int* w_hi;
   const int* w_one;
   int n, C, q0;
   float scale_log2, cap_log2, scale_over_cap;   // cap_log2 0: no soft cap
@@ -202,17 +209,11 @@ struct PackedPolicy {
   __device__ __forceinline__ int tile_start(int t) const {
     return live[t] * BK;
   }
-  __device__ __forceinline__ bool warp_sees(int j0, int warp, int,
-                                            int i_hi) const {
-    const int t = j0 / BK;
-    return w_hi[warp] >= 0 && j0 <= i_hi && tile_hi[t] >= w_lo[warp] &&
-           tile_lo[t] <= w_hi[warp];
-  }
-  __device__ __forceinline__ bool warp_full(int j0, int warp, int i_lo,
+  __device__ __forceinline__ bool warp_full(int j0, int slab, int i_lo,
                                             int) const {
     const int t = j0 / BK;
-    return j0 + BK - 1 <= i_lo && j0 + BK <= C && w_one[warp] >= 0 &&
-           tile_lo[t] == w_one[warp] && tile_hi[t] == w_one[warp];
+    return j0 + BK - 1 <= i_lo && j0 + BK <= C && w_one[slab] >= 0 &&
+           tile_lo[t] == w_one[slab] && tile_hi[t] == w_one[slab];
   }
   __device__ __forceinline__ bool visible(int i, int j) const {
     if (j > i || j >= C) return false;
@@ -237,16 +238,24 @@ __device__ __forceinline__ void zero_fill(bf16* p, size_t count) {
   for (size_t i = head + nv * 8 + threadIdx.x; i < count; i += NT) p[i] = z;
 }
 
+// Dynamic shared memory: attend's, then three ints a key tile.
 template <int DP>
-__global__ void __launch_bounds__(NT)
-packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ o, int hq, int hkv, int C, int d,
-                 float scale_log2, float cap_log2, float scale_over_cap,
-                 int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__host__ __device__ constexpr size_t packed_smem(int C) {
+  return smem_bytes<DP, 1, PackedRing<DP>>() +
+         3 * sizeof(int) * (size_t)((C + BK - 1) / BK);
+}
+
+template <int DP>
+__global__ void __maxnreg__(168)
+packed_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const int* __restrict__ seg, bf16* __restrict__ o, int hq,
+                    int hkv, int C, int d, float scale_log2, float cap_log2,
+                    float scale_over_cap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ int seg_q[BQ];
-  __shared__ int w_lo[WARPS], w_hi[WARPS], w_one[WARPS];
+  __shared__ int w_lo[SLABS], w_hi[SLABS], w_one[SLABS];
   __shared__ int n_live;
   // all heads of a query tile, then the next tile, from the buffer's
   // start: the engine packs requests from the start, so the real tiles
@@ -255,20 +264,20 @@ packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.y * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t qoff = (size_t)h * C * d;
-  const size_t koff = (size_t)hk * C * d;
   const int ntl = (C + BK - 1) / BK;
-  int* tile_lo = reinterpret_cast<int*>(smem_raw + smem_bytes<DP>());
+  int* tile_lo =
+      reinterpret_cast<int*>(smem_raw + smem_bytes<DP, 1, PackedRing<DP>>());
   int* tile_hi = tile_lo + ntl;
   int* live = tile_hi + ntl;
 
   // one round of loads: the query tile's ids, and the id range of every
-  // key tile up to the diagonal (warp w takes tiles w, w + 4, ...; a
-  // lane reads keys lane and lane + 32 of each, coalesced)
+  // key tile up to the diagonal (warp w takes tiles w, w + 8, ...; a lane
+  // reads keys lane and lane + 32 of each, coalesced)
   if (threadIdx.x < BQ)
     seg_q[threadIdx.x] = q0 + (int)threadIdx.x < C ? seg[q0 + threadIdx.x] : -1;
   const int ntv = (min(C, q0 + BQ) + BK - 1) / BK;
 #pragma unroll 4
-  for (int t = warp; t < ntv; t += WARPS) {
+  for (int t = warp; t < ntv; t += NT / 32) {
     const int j = t * BK + lane;
     const int a = j < C ? seg[j] : -1;
     const int b = j + 32 < C ? seg[j + 32] : -1;
@@ -284,7 +293,7 @@ packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();
-  {                 // each warp: its 16 rows' id range and their one id
+  if (warp < SLABS) {     // each slab: its 16 rows' id range and one id
     const int si = seg_q[warp * 16 + (lane & 15)];
     int lo = si >= 0 ? si : INT_MAX, hi = si, mn = si;
 #pragma unroll
@@ -302,7 +311,7 @@ packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   int q_lo = INT_MAX, q_hi = -1;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
+  for (int w = 0; w < SLABS; ++w) {
     q_lo = min(q_lo, w_lo[w]);
     q_hi = max(q_hi, w_hi[w]);
   }
@@ -310,12 +319,7 @@ packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     zero_fill(o + qoff + (size_t)q0 * d, (size_t)min(BQ, C - q0) * d);
     return;
   }
-
-  // the query tile's load runs while warp 0 lists the tiles to visit
-  const bool vq = vec != 0;
-  load_q_tile<DP>(smem_raw, q + qoff, q0, C, d, vq);
-  cp_async_commit();
-  if (warp == 0) {
+  if (warp == 0) {                 // the key tiles to visit, in order
     int count = 0;
     for (int t0 = 0; t0 < ntv; t0 += 32) {
       const int t = t0 + lane;
@@ -328,65 +332,69 @@ packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  const PackedPolicy pol{seg, seg_q, tile_lo, tile_hi, live, w_lo, w_hi,
-                         w_one, n_live, C, q0, scale_log2, cap_log2,
-                         scale_over_cap};
-  attend<DP, PackedPolicy, true>(pol, smem_raw, q + qoff, k + koff, v + koff,
-                                 o + qoff, q0, C, C, d, vq);
+  const PackedPolicy pol{seg, seg_q, tile_lo, tile_hi, live, w_one, n_live,
+                         C, q0, scale_log2, cap_log2, scale_over_cap};
+  attend<DP, 1, PackedRing<DP>>(pol, smem_raw, &tq, &tk, &tv, h, hk, o + qoff, q0, C, d);
 }
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const int* seg,
            void* o, int hq, int hkv, int C, int d, float sl, float cl,
-           float soc, int vec, cudaStream_t stream) {
-  auto kern = packed_tc_kernel<DP>;
-  const int ntl = (C + BK - 1) / BK;
-  const size_t bytes = smem_bytes<DP>() + 3 * sizeof(int) * (size_t)ntl;
-  if (bytes > 200 * 1024) return (int)cudaErrorInvalidValue;
+           float soc, cudaStream_t stream) {
+  const size_t bytes = packed_smem<DP>(C);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, d, C, hq, BQ) || !encode_map(&tk, k, d, C, hkv, BK) ||
+      !encode_map(&tv, v, d, C, hkv, BK))
+    return (int)cudaErrorInvalidValue;
+  auto kern = packed_wgmma_kernel<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, (C + BQ - 1) / BQ);
-  kern<<<grid, NT, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, static_cast<bf16*>(o), hq, hkv, C, d,
-      sl, cl, soc, vec);
+  kern<<<grid, NT, bytes, stream>>>(tq, tk, tv, seg, static_cast<bf16*>(o),
+                                    hq, hkv, C, d, sl, cl, soc);
   return (int)cudaGetLastError();
 }
 
-int dispatch_d(const void* q, const void* k, const void* v, const int* seg,
-               void* o, int hq, int hkv, int C, int d, float scale,
-               float softcap, cudaStream_t st) {
-  const int vec = d % 8 == 0 && (uintptr_t)q % 16 == 0 &&
-                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
-  const float sl = scale * LOG2E;
-  const float cl = softcap > 0.f ? softcap * LOG2E : 0.f;
-  const float soc = softcap > 0.f ? scale / softcap : 0.f;
-  if (d <= 16) return launch<16>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, vec, st);
-  if (d <= 32) return launch<32>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, vec, st);
-  if (d <= 64) return launch<64>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, vec, st);
-  return launch<128>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, vec, st);
-}
-
-}  // namespace tc
+}  // namespace wg
 
 }  // namespace
 
 // q: (hq, C, d); k, v: (hkv, C, d); seg: (C,) int32; o: (hq, C, d); all
-// contiguous, q / k / v / o of one type: dtype 0 = float32 (CUDA cores),
-// 1 = bfloat16 (tensor cores).  hq % hkv == 0, 1 <= d <= 128, softcap <= 0
-// for none.  Returns cudaGetLastError() after the launch.
+// contiguous float32 (CUDA cores).  hq % hkv == 0, 1 <= d <= 128, softcap
+// <= 0 for none.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_packed_attention(const void* q, const void* k,
                                       const void* v, const int* seg, void* o,
                                       int hq, int hkv, int C, int d,
-                                      int dtype, float scale, float softcap,
+                                      float scale, float softcap,
                                       void* stream) {
   if (C <= 0 || hq <= 0) return 0;
   if (d < 1 || d > 128 || hkv < 1 || hq % hkv) return (int)cudaErrorInvalidValue;
+  return f32::dispatch_d(q, k, v, seg, o, hq, hkv, C, d, scale, softcap,
+                         (cudaStream_t)stream);
+}
+
+// The same for bfloat16 on wgmma, at 16-byte aligned addresses with
+// 8 <= d <= 128 and d % 8 == 0 (TMA's row stride: the wrapper pads other
+// head dims).  rows: the query rows a CTA takes, the launch plan's (64).
+// Returns cudaErrorInvalidValue for inputs outside these rules, a tensor
+// map the driver refuses or a buffer whose key-tile table does not fit
+// in shared memory, else the error of cudaFuncSetAttribute or
+// cudaGetLastError() after the launch.
+extern "C" int repro_packed_attention_wgmma(const void* q, const void* k,
+                                            const void* v, const int* seg,
+                                            void* o, int hq, int hkv, int C,
+                                            int d, float scale, float softcap,
+                                            int rows, void* stream) {
+  if (C <= 0 || hq <= 0) return 0;
+  if (d < 8 || d > 128 || d % 8 || hkv < 1 || hq % hkv || rows != wg::BQ)
+    return (int)cudaErrorInvalidValue;
+  const float sl = scale * attn_wg::LOG2E;
+  const float cl = softcap > 0.f ? softcap * attn_wg::LOG2E : 0.f;
+  const float soc = softcap > 0.f ? scale / softcap : 0.f;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return f32::dispatch_d(q, k, v, seg, o, hq, hkv, C, d, scale, softcap, st);
-  if (dtype == 1)
-    return tc::dispatch_d(q, k, v, seg, o, hq, hkv, C, d, scale, softcap, st);
-  return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return wg::launch<64>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, st);
+  return wg::launch<128>(q, k, v, seg, o, hq, hkv, C, d, sl, cl, soc, st);
 }

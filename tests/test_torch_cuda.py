@@ -521,6 +521,13 @@ def _qkv(rng, qshape, kshape, dtype, device):
     (1, 10, 1, 300, 256, True, 64),        # recurrentgemma's MQA of 10, d 256
     (1, 10, 1, 2300, 256, True, 2048),     # its window of 2048, passed
     (2, 3, 3, 77, 200, False, None),       # 128 < d < 256, ragged
+    (1, 4, 2, 129, 128, True, None),       # a last CTA of one row
+    (1, 4, 2, 191, 64, False, None),       # ... of 63 rows
+    (1, 4, 2, 2049, 128, True, None),      # 128-row CTAs: the last one's
+    (1, 2, 1, 2111, 120, True, 300),       # second group without rows,
+    (1, 2, 2, 2150, 128, False, None),     # or with some
+    (1, 4, 1, 333, 120, True, None),       # d 120 zero-filled by TMA
+    (1, 4, 2, 150, 196, True, None),       # d 196: the counted pad
 ])
 def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
                                       window):
@@ -544,6 +551,8 @@ def test_flash_attention_kernel_close(cuda, dtype, b, hq, hkv, s, d, causal,
     (1, 4, 2, 300, 77, 32),        # fewer keys than queries, GQA
     (2, 4, 4, 65, 129, 16),        # ragged query and key tiles
     (1, 8, 2, 3, 1, 128),          # one key
+    (2, 4, 2, 129, 100, 128),      # keys not a multiple of the key tile
+    (1, 4, 4, 2100, 70, 80),       # 128-row CTAs over 70 keys
 ])
 def test_flash_attention_cross_lengths_close(cuda, dtype, b, hq, hkv, sq,
                                              skv, d):
@@ -610,6 +619,8 @@ def _pack(rng, C, lengths, gap):
     (512, 8, 2, 80, (200, 100, 150), 4, None),    # d 80 (danube-1.8b)
     (512, 8, 2, 80, (300, 190), 0, 30.0),         # d 80 with a soft cap
     (2048, 48, 8, 128, (128,) * 7, 0, 30.0),      # grok's heads and cap
+    (512, 8, 2, 128, (100, 60, 200), 0, None),    # requests across 128 rows
+    (600, 4, 2, 120, (70, 190, 150), 3, 20.0),    # d 120 zero-filled
 ])
 def test_packed_attention_kernel_close(cuda, dtype, C, hq, hkv, d, lengths,
                                        gap, softcap):
@@ -689,11 +700,12 @@ def test_refused_flash_launch_raises(cuda):
     x = torch.zeros((1, 1, 8, 300), dtype=torch.bfloat16, device=cuda)
     o = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
-    for entry in (lib.repro_flash_attention_tc, lib.repro_flash_attention):
+    for entry, rows in ((lib.repro_flash_attention_wgmma, (64,)),
+                        (lib.repro_flash_attention, ())):
         for s_kv, d, causal in ((8, 300, 1), (5, 8, 1)):
             err = entry(x.data_ptr(), x.data_ptr(), x.data_ptr(),
                         o.data_ptr(), 1, 1, 1, 8, s_kv, d, 1.0, causal, 0,
-                        stream)
+                        *rows, stream)
             assert err != 0
             with pytest.raises(RuntimeError, match="CUDA error"):
                 build.check(err, "flash_attention")
@@ -714,6 +726,98 @@ def test_flash_attention_head_dim_256_runs_on_tensor_cores(cuda):
     assert torch.equal(got, again)
     _assert_close(got, ref.mha_ref(q, k, v, causal=True, window=2048),
                   torch.bfloat16)
+
+
+def test_refused_wgmma_launches_raise(cuda):
+    """The wgmma entries refuse what the launch plan never asks: a head
+    dim not a multiple of 8 (TMA's row stride), 128 rows a CTA outside
+    head dims 65..128, an unbuilt row count."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    x = torch.zeros((1, 1, 256, 256), dtype=torch.bfloat16, device=cuda)
+    o = torch.empty_like(x)
+    seg = torch.zeros(256, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    p = (x.data_ptr(), x.data_ptr(), x.data_ptr())
+    for d, rows in ((100, 64), (64, 128), (256, 128), (128, 96)):
+        assert lib.repro_flash_attention_wgmma(
+            *p, o.data_ptr(), 1, 1, 1, 256, 256, d, 1.0, 1, 0, rows,
+            stream) != 0
+    for d, rows in ((100, 64), (136, 64), (128, 128)):
+        assert lib.repro_packed_attention_wgmma(
+            *p, seg.data_ptr(), o.data_ptr(), 1, 1, 256, d, 1.0, 0.0, rows,
+            stream) != 0
+
+
+def test_attention_plan_matches_the_kernels(cuda):
+    """The launch plan's shared memory is what the flash kernel asks for
+    at each (head dim, rows) pair it is built for."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import TILES, attention_plan
+    lib = build.library()
+    for dp, rows in TILES:
+        plan = attention_plan(dp, 4096 if rows == 128 else 64)
+        assert plan.rows == rows
+        assert lib.repro_flash_attention_wgmma_smem(dp, rows) == \
+            plan.smem_bytes
+    assert lib.repro_flash_attention_wgmma_smem(256, 128) == -1
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,s_kv,d,causal,window", [
+    (1, 32, 8, 1024, 1024, 128, True, None),    # 64-row CTAs
+    (1, 4, 2, 2500, 2500, 128, True, None),     # 128-row CTAs
+    (1, 4, 2, 2500, 2500, 120, True, 700),      # a window, d 120
+    (4, 4, 4, 200, 1500, 64, False, None),      # cross-attention
+])
+def test_flash_attention_bf16_repeats_bits(cuda, b, hq, hkv, s, s_kv, d,
+                                           causal, window):
+    """Two calls give the same bits (no atomics; a fixed order of sums)."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = _qkv(rng, (b, hq, s, d), (b, hkv, s_kv, d), torch.bfloat16,
+                   cuda)
+    first = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    for _ in range(2):
+        assert torch.equal(first, ops.flash_attention_op(
+            q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("d,padded", [(100, True), (196, True), (8, False),
+                                      (80, False), (120, False),
+                                      (200, False), (256, False)])
+def test_attention_pads_only_off_multiples_of_8(cuda, d, padded):
+    """Head dims off a multiple of 8 are copied to the kernel's head dim
+    (and counted); the others, 80, 120 and 200 included, reach the kernel
+    as they are, TMA zero-filling past d."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, (1, 4, 160, d), (1, 2, 160, d), torch.bfloat16,
+                   cuda)
+    before = flash_attention_cuda.padded
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    assert flash_attention_cuda.padded == before + padded
+    assert got.shape == q.shape and got.is_contiguous()
+    _assert_close(got, ref.mha_ref(q, k, v, causal=True), torch.bfloat16)
+    if d <= 128:
+        seg = torch.as_tensor(_pack(rng, 160, (90, 50), 4), device=cuda)
+        before = packed_attention_cuda.padded
+        got = ops.packed_attention_op(q[0], k[0], v[0], seg)
+        assert packed_attention_cuda.padded == before + padded
+        _assert_close(got, ref.packed_attention_ref(q[0], k[0], v[0], seg),
+                      torch.bfloat16)
+
+
+def test_attention_pads_misaligned_inputs(cuda):
+    """A contiguous view that starts off a 16-byte boundary is copied
+    first (TMA's base address rule), and counted."""
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, (1, 2, 97, 64), (1, 2, 97, 64), torch.bfloat16,
+                   cuda)
+    qs, ks, vs = (t.reshape(-1)[1:].reshape(-1)[:2 * 96 * 64]
+                  .reshape(1, 2, 96, 64) for t in (q, k, v))
+    assert qs.data_ptr() % 16 and qs.is_contiguous()
+    before = flash_attention_cuda.padded
+    got = ops.flash_attention_op(qs, ks, vs, causal=True)
+    assert flash_attention_cuda.padded == before + 1
+    _assert_close(got, ref.mha_ref(qs, ks, vs, causal=True), torch.bfloat16)
 
 
 # --- the serving path on the card --------------------------------------------

@@ -21,7 +21,7 @@ import _torch_world as W
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE_FILES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + EXAMPLE_FILES
+    ROOT / "chip_smoke.py", ROOT / "attention_rows.py"] + EXAMPLE_FILES
 
 
 def _imported_modules(path: Path):
