@@ -1,0 +1,9 @@
+"""ms a repartition on the card in the program's span
+``balance/part_weights``: the final part-weight sum and imbalance,
+between CUDA events recorded on the stream as it opens and closes
+(``bench.program``); nothing without a card."""
+from bench import program
+
+
+def read(ctx):
+    return program.stage_reading(ctx, "device_ms", "part_weights")

@@ -1,0 +1,8 @@
+"""ms a repartition on the host clock in the program's span
+``balance/partition1d``: the partition1d stage (the k-section), no sync
+at either end (``bench.program``)."""
+from bench import program
+
+
+def read(ctx):
+    return program.stage_reading(ctx, "host_ms", "partition1d")

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import telemetry
 from ..segment import segment_sum_any_order
 
 
@@ -125,29 +126,40 @@ def ksection_splitters_counted(
     Stops after ``iters`` rounds or once no box is both wider than
     ``tol`` and still shrinking (float32 resolution).  The splitter is
     the lower bound of each converged box.  Returns ``(splitters,
-    rounds)``; the loop condition is checked on the host each round."""
+    rounds)``; the loop condition is checked on the host each round.
+
+    Traced: ``ksection/sync`` around each check of the loop condition,
+    and ``ksection/round`` (attribute ``round``) around each round the
+    check lets run.  The loop keeps its untraced shape: every tensor
+    lives as long as it does without spans, so the caching allocator
+    places the next repartition's blocks where it would untraced."""
     fdt = targets.dtype
     q = targets.shape[0]
     frac = torch.arange(1, k + 1, dtype=fdt, device=targets.device) / (k + 1)
+    tr = telemetry.get_tracer()
     prev_w = torch.full_like(targets, float("inf"))
     rounds = 0
     while rounds < iters:
         width = bhi - blo
         working = (width > tol) & (width < prev_w)
-        if not bool(working.any()):
+        with tr.span("ksection/sync"):
+            tr.count("host_syncs")
+            go = bool(working.any())
+        if not go:
             break
-        cand = _fma_f32(bhi - blo, frac, blo)
-        below = hist_fn(cand.reshape(-1)).reshape(q, k)
-        le = below <= targets[:, None]
-        new_lo = torch.where(
-            le.any(dim=1),
-            torch.where(le, cand, float("-inf")).amax(dim=1), blo)
-        gt = ~le
-        new_hi = torch.where(
-            gt.any(dim=1),
-            torch.where(gt, cand, float("inf")).amin(dim=1), bhi)
-        prev_w = bhi - blo
-        blo, bhi = torch.maximum(new_lo, blo), torch.minimum(new_hi, bhi)
+        with tr.span("ksection/round", round=rounds):
+            cand = _fma_f32(bhi - blo, frac, blo)
+            below = hist_fn(cand.reshape(-1)).reshape(q, k)
+            le = below <= targets[:, None]
+            new_lo = torch.where(
+                le.any(dim=1),
+                torch.where(le, cand, float("-inf")).amax(dim=1), blo)
+            gt = ~le
+            new_hi = torch.where(
+                gt.any(dim=1),
+                torch.where(gt, cand, float("inf")).amin(dim=1), bhi)
+            prev_w = bhi - blo
+            blo, bhi = torch.maximum(new_lo, blo), torch.minimum(new_hi, bhi)
         rounds += 1
     return torch.sort(blo).values, rounds
 
@@ -178,6 +190,8 @@ def warm_start_boxes(prev, lo, hi, targets: torch.Tensor, hist_fn, *,
         tight_frac = 1.0 / ((k + 1) ** 2)
     nlo = torch.clamp(torch.cat([lo[None], prev[:-1]]), lo, hi)
     nhi = torch.clamp(torch.cat([prev[1:], hi[None]]), lo, hi)
+    # a blocking copy from the host: the host waits for the stream
+    telemetry.get_tracer().count("host_syncs")
     m = (nhi - nlo) * torch.tensor(tight_frac, dtype=fdt, device=dev)
     tlo = torch.clamp(prev - m, lo, hi)
     thi = torch.clamp(prev + m, lo, hi)
@@ -203,7 +217,9 @@ def ksection(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
     ``use_pallas`` (the hand-written kernel on CUDA tensors, the plain
     ``weight_below`` on CPU ones).  ``warm`` seeds the boxes from a
     previous step's (p-1,) splitters.  Keys are cast to float32, as in
-    the JAX package (neighbouring 30-bit keys may collide)."""
+    the JAX package (neighbouring 30-bit keys may collide).  Traced:
+    ``ksection/warm_start`` (the extra histogram call), the rounds, and
+    ``ksection/assign`` (the parts and their weights)."""
     fdt = torch.float32
     dev = keys.device
     kf = keys.to(fdt)
@@ -218,16 +234,19 @@ def ksection(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
         hist_fn = functools.partial(ops.ksection_histogram_op,
                                     use_pallas=use_pallas)
     hfn = lambda cuts: hist_fn(kf, w, cuts)  # noqa: E731
+    tr = telemetry.get_tracer()
     if warm is not None:
-        blo, bhi = warm_start_boxes(warm, lo_s, hi_s, targets, hfn, k=k)
+        with tr.span("ksection/warm_start"):
+            blo, bhi = warm_start_boxes(warm, lo_s, hi_s, targets, hfn, k=k)
     else:
         blo = lo_s.expand(p - 1).clone()
         bhi = hi_s.expand(p - 1).clone()
     splitters, rounds = ksection_splitters_counted(
         targets, blo, bhi, hfn, k=k, iters=iters, tol=tol)
-    parts = torch.searchsorted(splitters.contiguous(), kf.contiguous(),
-                               right=True)
-    part_weights = segment_sum_any_order(w, parts, p)
+    with tr.span("ksection/assign"):
+        parts = torch.searchsorted(splitters.contiguous(), kf.contiguous(),
+                                   right=True)
+        part_weights = segment_sum_any_order(w, parts, p)
     return Partition1DResult(parts, splitters, part_weights, rounds)
 
 

@@ -304,8 +304,13 @@ def _remap_greedy_host(spec: BalanceSpec, old_parts, new_parts, weights):
     """Oliker--Biswas relabelling on the device, with the identity guard.
     Padded items (``old_parts == pad_part``) fall outside S."""
     p = spec.p
-    S = similarity_matrix(old_parts, new_parts, weights, p, p)
-    perm = guarded_greedy_perm(S)
+    tr = telemetry.get_tracer()
+    with tr.span("remap/similarity"):
+        S = similarity_matrix(old_parts, new_parts, weights, p, p)
+    # one span for the greedy loop's p rounds: a span a round would cost
+    # more than it shows
+    with tr.span("remap/greedy"):
+        perm = guarded_greedy_perm(S)
     return perm[new_parts], perm
 
 
@@ -376,35 +381,46 @@ class Balancer:
     def balance_fn(self, weights, coords, old_parts=None, keys=None,
                    warm=None) -> BalanceResult:
         """The pipeline on already padded device tensors.  Sharded: this
-        rank's ``(C,)`` shard in, this rank's shard of the parts out."""
+        rank's ``(C,)`` shard in, this rank's shard of the parts out.
+        Host: each stage in a span ``balance/<stage>`` (and the final
+        part weights in ``balance/part_weights``), none of them blocking."""
         if self.spec.backend == "sharded":
             return self._sharded_apply(weights, coords, old_parts, keys, warm)
         spec = self.spec
         p = spec.p
+        tr = telemetry.get_tracer()
+        dev = weights.device
         kv = self._variants["keys"]
-        if keys is not None and kv is not None:
-            k = get_stage("host", "keys", "cached")(spec, coords, weights,
-                                                   keys=keys)
-        else:
-            k = (get_stage("host", "keys", kv)(spec, coords, weights)
-                 if kv is not None else None)
-        out = get_stage("host", "partition1d", self._variants["partition1d"])(
-            spec, k, weights, coords, warm=warm)
+        with tr.span("balance/keys", allocator=dev):
+            if keys is not None and kv is not None:
+                k = get_stage("host", "keys", "cached")(spec, coords, weights,
+                                                       keys=keys)
+            else:
+                k = (get_stage("host", "keys", kv)(spec, coords, weights)
+                     if kv is not None else None)
+        with tr.span("balance/partition1d", allocator=dev):
+            out = get_stage("host", "partition1d",
+                            self._variants["partition1d"])(
+                spec, k, weights, coords, warm=warm)
         new, p1d_aux = out if isinstance(out, tuple) else (out, {})
-        perm = torch.arange(p, device=weights.device)
-        zero = torch.zeros((), dtype=torch.float32, device=weights.device)
+        perm = torch.arange(p, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
         total_v, max_v, retained = zero, zero, zero
         if old_parts is not None:
             if spec.use_remap:
-                new, perm = get_stage("host", "remap", "greedy")(
+                with tr.span("balance/remap", allocator=dev):
+                    new, perm = get_stage("host", "remap", "greedy")(
+                        spec, old_parts, new, weights)
+            with tr.span("balance/migrate", allocator=dev):
+                mv = get_stage("host", "migrate", "metrics")(
                     spec, old_parts, new, weights)
-            mv = get_stage("host", "migrate", "metrics")(
-                spec, old_parts, new, weights)
             total_v, max_v, retained = (mv["total_v"], mv["max_v"],
                                         mv["retained"])
-        pw = segment_sum_any_order(weights, new, p)
+        with tr.span("balance/part_weights", allocator=dev):
+            pw = segment_sum_any_order(weights, new, p)
+            imbalance = _metrics.imbalance_of_part_weights(pw)
         return BalanceResult(parts=new, part_weights=pw,
-                             imbalance=_metrics.imbalance_of_part_weights(pw),
+                             imbalance=imbalance,
                              total_v=total_v, max_v=max_v, retained=retained,
                              remap_perm=perm, migration=None,
                              splitters=p1d_aux.get("splitters"),
@@ -504,8 +520,9 @@ class Balancer:
         call's splitters are used.  Sharded: every rank passes the same
         global inputs and gets the same global parts."""
         tr = telemetry.get_tracer()
-        with tr.span("balance", block=True, backend=self.spec.backend,
-                     method=self.spec.method, oneD=self.spec.oneD) as sp:
+        with tr.span("balance", block=True, allocator=self.device,
+                     backend=self.spec.backend, method=self.spec.method,
+                     oneD=self.spec.oneD) as sp:
             w, xyz, old, ks, n = self._pad(weights, coords, old_parts, keys)
             warm = warm_splitters
             if warm is None and self.spec.warm_start:
@@ -536,21 +553,21 @@ class Balancer:
         return dataclasses.replace(res, parts=self.comm.all_gather(res.parts))
 
     def _publish_quality(self, tr, res: BalanceResult) -> None:
-        """Publish the paper's partition-quality metrics for one call."""
+        """Publish the paper's partition-quality metrics for one call,
+        the four scalars read from the device in one copy."""
+        imbalance, total_v, max_v, retained = torch.stack(
+            [res.imbalance, res.total_v, res.max_v, res.retained]).tolist()
         m = tr.metrics
         m.gauge("imbalance",
-                help="max part weight / mean part weight").set(
-                    float(res.imbalance))
+                help="max part weight / mean part weight").set(imbalance)
         m.counter("repartitions", help="balance() calls").inc()
         m.counter("migration_total_v", unit="weight",
                   help="paper TotalV: weight moved between parts").inc(
-                      float(res.total_v))
+                      total_v)
         m.gauge("migration_max_v", unit="weight",
-                help="paper MaxV: heaviest single-part inflow").set(
-                    float(res.max_v))
+                help="paper MaxV: heaviest single-part inflow").set(max_v)
         m.counter("migration_retained", unit="weight",
-                  help="weight that stayed on its part").inc(
-                      float(res.retained))
+                  help="weight that stayed on its part").inc(retained)
 
     def balance_timed(self, weights, *, coords=None, old_parts=None,
                       keys=None, warm_splitters=None

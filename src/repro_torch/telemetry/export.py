@@ -10,9 +10,12 @@ the checks of order and nesting hold within each ``(pid, tid)`` track,
 since the ranks' clocks run side by side.
 
 Chrome-trace: ``{"traceEvents": [...]}`` with ``"ph": "X"`` complete
-events for spans (ts/dur in microseconds), ``"ph": "C"`` counter events
-per metric per tick, and ``"ph": "M"`` process/thread metadata — load
-the file at https://ui.perfetto.dev or chrome://tracing.
+events for spans (ts/dur in microseconds, the enclosing span's event
+index as ``args.parent``), ``"ph": "C"`` counter events per metric per
+tick, and ``"ph": "M"`` process/thread metadata — load the file at
+https://ui.perfetto.dev or chrome://tracing.  Spans a device tracer
+timed on the card (``Tracer.resolve``) appear a second time, at their
+device interval, on a ``device`` thread track of the same pid.
 
 JSONL: one self-describing JSON object per line — a ``meta`` header,
 one ``span`` line per completed span, one ``counters`` line per tick,
@@ -48,7 +51,7 @@ def _num(x) -> bool:
 def chrome_trace(tracer, *, pid: int = 0, tid: int = 0) -> Dict[str, Any]:
     """Build a Chrome-trace document from ``tracer`` (spans + counters),
     its events under ``pid`` / ``tid`` (a rank's own pid in a multi-rank
-    trace)."""
+    trace); device intervals, where there are any, under ``tid + 1``."""
     events: List[Dict[str, Any]] = [
         {"ph": "M", "name": "process_name", "pid": pid, "tid": tid,
          "args": {"name": "repro_torch"}},
@@ -62,7 +65,20 @@ def chrome_trace(tracer, *, pid: int = 0, tid: int = 0) -> Dict[str, Any]:
             "ph": "X", "name": ev.name, "cat": "span",
             "ts": ev.ts_us, "dur": ev.dur_us,
             "pid": pid, "tid": tid,
-            "args": dict(ev.attrs),
+            "args": dict(ev.attrs, parent=ev.parent),
+        })
+    on_device = sorted((e for e in tracer.events
+                        if e.device_ts_us is not None),
+                       key=lambda e: (e.device_ts_us, -e.device_dur_us))
+    if on_device:
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid + 1, "args": {"name": "device"}})
+    for ev in on_device:
+        events.append({
+            "ph": "X", "name": ev.name, "cat": "span.device",
+            "ts": ev.device_ts_us, "dur": ev.device_dur_us,
+            "pid": pid, "tid": tid + 1,
+            "args": dict(ev.attrs, parent=ev.parent),
         })
     for row in tracer.metrics.ticks:
         ts = row.get("ts_us", 0.0)

@@ -16,6 +16,22 @@ clock stops, so a span covers the device work it launched.
   active at each call; ``block=True`` waits for the CUDA tensors it
   returns before the clock stops.
 
+An enabled tracer also gives, with no synchronisation inside a span:
+
+* ``Tracer(device=True)`` -- each span records a CUDA event on the
+  current stream at enter and at exit; ``resolve()`` synchronises once
+  and fills ``SpanEvent.device_ts_us`` / ``device_dur_us`` on the
+  tracer's host epoch (a reference event recorded, with one sync, when
+  the tracer starts).  Without a card they stay ``None``.
+* while ``torch.profiler`` records, each span is also a
+  ``record_function`` range, so it lies on the profiler's clock beside
+  the kernels it launched.
+* ``span(..., allocator=device)`` -- on a CUDA device the span's
+  ``allocator_calls`` (``cudaMalloc`` + ``cudaFree``) and
+  ``alloc_retries``, the rise of the caching allocator's counts across it.
+* ``count(name, n)`` -- adds ``n`` to the attribute ``name`` of every open
+  span (``host_syncs`` at each site that blocks on the card).
+
 Single-threaded by design, like the control plane it instruments.
 """
 from __future__ import annotations
@@ -23,9 +39,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import torch
+from torch.autograd.profiler import record_function
 
 from .metrics import MetricsRegistry, NullMetricsRegistry
 
@@ -59,14 +76,29 @@ def block_until_ready(value: Any) -> Any:
     return value
 
 
+def _allocator_counts(device: torch.device) -> Tuple[int, int]:
+    """(cudaMalloc + cudaFree calls, allocation retries) of the caching
+    allocator on ``device`` so far."""
+    st = torch.cuda.memory.memory_stats_as_nested_dict(device)
+    return (st.get("num_device_alloc", 0) + st.get("num_device_free", 0),
+            st.get("num_alloc_retries", 0))
+
+
 @dataclasses.dataclass
 class SpanEvent:
-    """One completed span, times in microseconds since the tracer epoch."""
+    """One completed span, times in microseconds since the tracer epoch.
+
+    ``parent`` is the index in ``Tracer.events`` of the enclosing span's
+    event (-1 at the top, and until the enclosing span has exited); the
+    device interval is filled by ``Tracer.resolve`` on a device tracer."""
     name: str
     ts_us: float
     dur_us: float
     depth: int
     attrs: Dict[str, Any]
+    parent: int = -1
+    device_ts_us: Optional[float] = None
+    device_dur_us: Optional[float] = None
 
 
 class Span:
@@ -79,10 +111,11 @@ class Span:
     """
 
     __slots__ = ("_tracer", "name", "attrs", "_block", "_outs",
-                 "_t0", "_t1", "depth")
+                 "_t0", "_t1", "depth", "_allocator", "_alloc0", "_range",
+                 "_ev0", "_children")
 
     def __init__(self, tracer: Optional["Tracer"], name: str, block: bool,
-                 attrs: Dict[str, Any]):
+                 attrs: Dict[str, Any], allocator=None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
@@ -90,6 +123,9 @@ class Span:
         self._outs: List[Any] = []
         self._t0 = self._t1 = 0.0
         self.depth = 0
+        self._allocator = allocator
+        self._alloc0 = self._range = self._ev0 = None
+        self._children: List[int] = []
 
     def block_on(self, value):
         """Designate ``value`` as an output to wait for before the clock
@@ -155,8 +191,15 @@ class NullTracer:
         self.metrics = NullMetricsRegistry()
         self.events: List[SpanEvent] = []
 
-    def span(self, name: str, *, block: bool = False, **attrs) -> _NullSpan:
+    def span(self, name: str, *, block: bool = False, allocator=None,
+             **attrs) -> _NullSpan:
         return _NULL_SPAN
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
+    def resolve(self) -> List[SpanEvent]:
+        return self.events
 
     def tick(self, step: int, **attrs) -> None:
         pass
@@ -170,24 +213,58 @@ class Tracer:
     """Collects ``SpanEvent``s and a ``MetricsRegistry`` for one run.
 
     Times are relative to the tracer's construction, in microseconds;
-    ``tick(step)`` snapshots every registered counter and gauge."""
+    ``tick(step)`` snapshots every registered counter and gauge.
+    ``device=True`` times each span on the current CUDA stream as well
+    (``resolve`` reads the times); without a card it records no event."""
 
     enabled = True
 
-    def __init__(self):
-        self._epoch = time.perf_counter()
+    def __init__(self, device: bool = False):
         self.events: List[SpanEvent] = []
         self._stack: List[Span] = []
         self.metrics = MetricsRegistry()
+        # (event index, CUDA events at enter and exit) awaiting resolve()
+        self._pending: List[Tuple[int, Any, Any]] = []
+        self._stream = self._ref = None
+        if device and torch.cuda.is_available():
+            self._stream = torch.cuda.current_stream()
+            self._ref = torch.cuda.Event(enable_timing=True)
+            self._ref.record(self._stream)
+            self._ref.synchronize()
+        self._epoch = time.perf_counter()
 
     def _enter(self, sp: Span) -> int:
         depth = len(self._stack)
         self._stack.append(sp)
+        if torch.autograd._profiler_enabled():
+            sp._range = record_function(sp.name)
+            sp._range.__enter__()
+        dev = sp._allocator
+        if dev is not None and torch.device(dev).type == "cuda":
+            sp._alloc0 = _allocator_counts(dev)
+        if self._ref is not None:
+            sp._ev0 = torch.cuda.Event(enable_timing=True)
+            sp._ev0.record(self._stream)
         return depth
 
     def _exit(self, sp: Span) -> None:
+        if sp._ev0 is not None:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record(self._stream)
+            self._pending.append((len(self.events), sp._ev0, ev1))
+        if sp._alloc0 is not None:
+            calls, retries = _allocator_counts(sp._allocator)
+            sp.attrs["allocator_calls"] = calls - sp._alloc0[0]
+            sp.attrs["alloc_retries"] = retries - sp._alloc0[1]
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
         if self._stack and self._stack[-1] is sp:
             self._stack.pop()
+        index = len(self.events)
+        for child in sp._children:
+            self.events[child].parent = index
+        if self._stack:
+            self._stack[-1]._children.append(index)
         self.events.append(SpanEvent(
             name=sp.name,
             ts_us=(sp._t0 - self._epoch) * 1e6,
@@ -195,8 +272,31 @@ class Tracer:
             depth=sp.depth,
             attrs=sp.attrs))
 
-    def span(self, name: str, *, block: bool = False, **attrs) -> Span:
-        return Span(self, name, block, attrs)
+    def span(self, name: str, *, block: bool = False, allocator=None,
+             **attrs) -> Span:
+        return Span(self, name, block, attrs, allocator)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the attribute ``name`` of every open span."""
+        for sp in self._stack:
+            sp.attrs[name] = sp.attrs.get(name, 0) + n
+
+    def resolve(self) -> List[SpanEvent]:
+        """Wait once for the card, then give each span recorded since the
+        last call its device interval (the first event's completion to
+        the second's, on the tracer's host epoch).  Returns ``events``."""
+        if self._pending:
+            # the reference event completed as the epoch was taken, so its
+            # distance to an event is that event's time since the epoch;
+            # both ends are read from it, so nested spans stay nested
+            torch.cuda.synchronize(self._stream.device)
+            for i, a, b in self._pending:
+                start = self._ref.elapsed_time(a) * 1e3
+                self.events[i].device_ts_us = start
+                self.events[i].device_dur_us = (
+                    self._ref.elapsed_time(b) * 1e3 - start)
+            self._pending.clear()
+        return self.events
 
     def now_us(self) -> float:
         return (time.perf_counter() - self._epoch) * 1e6
@@ -243,10 +343,10 @@ class tracing:
         return False
 
 
-def span(name: str, *, block: bool = False, **attrs):
+def span(name: str, *, block: bool = False, allocator=None, **attrs):
     """Span on the active tracer (shared no-op handle when telemetry is
     off -- safe in hot paths)."""
-    return _ACTIVE.span(name, block=block, **attrs)
+    return _ACTIVE.span(name, block=block, allocator=allocator, **attrs)
 
 
 def stopwatch(name: str, *, block: bool = True, tracer=None, **attrs) -> Span:
