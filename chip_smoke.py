@@ -29,7 +29,11 @@ CUDA toolkit's nvcc.  It
 4. replays the last balance with the kernels and with the plain versions
    (every field equal);
 5. runs the standalone DLB step at scale: 8M points, p = 1024, hsfc and
-   msfc x sorted and k-section, kernels against plain versions;
+   msfc x sorted and k-section, kernels against plain versions; then
+   holds the segment-sum kernel against its plain route (``index_add_``
+   and its masks) bit for bit at the benchmark cells' n = 2^27 with
+   int64 ids, into p = 256 and 1,024 bins (shared route) and p^2 =
+   65,536 and 1,048,576 (global route), timing both beside the bound;
 6. drives the second main path: the serving session at llama3-8b width
    (random bf16 weights from a seed, 16 slots x 2048 tokens, 4 groups)
    over a seeded 32-request bursty trace with packed prefill, replicated
@@ -402,7 +406,8 @@ WRAPPER_KERNELS = {
     "fem_matvec": ("element_pass", "vertex_pass"),
     "prefix_scan": ("scan_kernel",),
     "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
-    "serve_prefill": ("packed_kernel", "packed_wgmma_kernel")}
+    "serve_prefill": ("packed_kernel", "packed_wgmma_kernel"),
+    "segment_sum": ("segment_sum_kernel",)}
 
 
 def kernels_launched(launches):
@@ -1098,11 +1103,18 @@ def compare_matvec(mesh, dev):
                 library_ms=lib_ms, max_abs_err=err)
 
 
+# the any-order sum against the fixed-order one on the FEM's float sums,
+# relative to max|sum|: both add the same positive float32 terms, at most
+# a few dozen a vertex, in other orders
+ANY_ORDER_RTOL = 1e-5
+
+
 def compare_sums(mesh, dev):
     """The FEM's fixed-order segment sum at the last mesh (4 contributions
     per tet into the vertices, as the load vector and diagonal add them):
-    its time against index_add_'s atomics on the same data, and the
-    largest difference between the two relative to max|sum|."""
+    its time against the any-order sum's atomics (the segment-sum kernel)
+    on the same data, and the largest difference between the two
+    relative to max|sum|, within ANY_ORDER_RTOL."""
     import torch
     from repro_torch.fem import build_elements
     from repro_torch.segment import (SegmentOrder, segment_sum,
@@ -1120,6 +1132,9 @@ def compare_sums(mesh, dev):
           "gives other bits than a fresh one")
     atomic = segment_sum_any_order(x, ids, el.n_verts)
     rel = float((fixed - atomic).abs().max() / atomic.abs().max())
+    check(rel <= ANY_ORDER_RTOL, f"segment_sum: the any-order sum is "
+          f"{rel:.3e} of max|sum| from the fixed-order one, above "
+          f"{ANY_ORDER_RTOL}")
     ms, call_ms = timed_ms(lambda: segment_sum(x, ids, el.n_verts), reps=5)
     kept_ms, kept_call = timed_ms(
         lambda: segment_sum(x, ids, el.n_verts, el.order), reps=5)
@@ -1130,10 +1145,96 @@ def compare_sums(mesh, dev):
         f"{el.n_verts} vertices: on the mesh's kept order device "
         f"{kept_ms:.4f} ms (call {kept_call:.4f}); building an order "
         f"every call {ms:.4f} (call {call_ms:.4f}), of which the build "
-        f"{build_ms:.4f}, {len(el.order.steps)} tree steps; index_add_ "
+        f"{build_ms:.4f}, {len(el.order.steps)} tree steps; any order "
         f"{any_ms:.4f} (call {any_call:.4f}); bit-identical over two calls "
-        f"and on the kept order; max |fixed - index_add_| / max|sum| = "
+        f"and on the kept order; max |fixed - any order| / max|sum| = "
         f"{rel:.3e}")
+
+
+# the segment-sum kernel's shapes (phase 5b): the benchmark cells' n and
+# int64 ids, into the part weights' p bins (shared route) and the
+# similarity matrix's p^2 (global route); "diagonal": seven eighths of
+# the items on the matrix's p diagonal bins, the share a repartition
+# leaves in place.  (label, bins, diagonal share)
+SEGMENT_N = 1 << 27
+SEGMENT_SHAPES = (("p=256", 256, 0.0), ("p=1024", 1024, 0.0),
+                  ("p^2=65,536", 65_536, 0.0),
+                  ("p^2=1,048,576", 1_048_576, 0.0),
+                  ("p^2=65,536 diagonal", 65_536, 0.875),
+                  ("p^2=1,048,576 diagonal", 1_048_576, 0.875))
+SEGMENT_ROW = "p=1024"      # the kernels line's row (ex32_moving_peak's p)
+
+
+def segment_inputs(n, bins, diagonal, seed, dev):
+    """Whole-number float32 weights 1-16 (as the cells weigh elements) and
+    int64 ids uniform over ``bins``, a ``diagonal`` share moved onto the
+    diagonal of a sqrt(bins)-square matrix, a tenth set to ``bins`` (the
+    balancer's pad part, which adds nothing)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(1, 17, (n,), generator=g, device=dev).float()
+    ids = torch.randint(0, bins, (n,), generator=g, device=dev)
+    if diagonal:
+        side = math.isqrt(bins)
+        on = torch.rand(n, generator=g, device=dev) < diagonal
+        part = torch.randint(0, side, (n,), generator=g, device=dev)
+        ids = torch.where(on, part * (side + 1), ids)
+    ids[torch.rand(n, generator=g, device=dev) < 0.1] = bins
+    return w, ids
+
+
+def compare_segment_sum(dev, n=SEGMENT_N):
+    """Phase 5b: the segment-sum kernel (``segment_sum_any_order`` on CUDA
+    tensors) against its plain route (``use_pallas=False``: ``index_add_``
+    behind its masks) on the same card tensors, bit for bit, at each of
+    SEGMENT_SHAPES.  Device ms by ``timed_ms`` in turns (kernel, plain,
+    plain, kernel), the least of each side kept; ``library_ms`` is the
+    bare ``index_add_`` on inputs masked beforehand; the bound is 12n
+    bytes (a float32 weight and an int64 id an item).  Returns the
+    kernels line's row (SEGMENT_ROW), every shape under ``at_shapes``."""
+    import torch
+    from repro_torch.kernels.segment_sum import route
+    from repro_torch.segment import segment_sum_any_order
+    bound = 12 * n / PEAK_BYTES_PER_S * 1e3
+    shapes = {}
+    for seed, (label, bins, diagonal) in enumerate(SEGMENT_SHAPES):
+        w, ids = segment_inputs(n, bins, diagonal, seed, dev)
+        kernel = lambda: segment_sum_any_order(w, ids, bins)  # noqa: E731
+        plain = lambda: segment_sum_any_order(  # noqa: E731
+            w, ids, bins, use_pallas=False)
+        got, want = kernel(), plain()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"segment_sum {label}: the kernel "
+              f"differs from index_add_ (max {err})")
+        valid = ids < bins
+        masked_ids, masked_w = torch.where(valid, ids, 0), w * valid
+        out = torch.zeros(bins, device=dev)
+        library = lambda: out.zero_().index_add_(  # noqa: E731
+            0, masked_ids, masked_w)
+        check(torch.equal(library(), want), f"segment_sum {label}: the bare "
+              "index_add_ differs from the plain route")
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            fn = kernel if which == "kernel" else plain
+            runs[which].append(timed_ms(fn, reps=5)[0])
+        lib_ms = timed_ms(library, reps=5)[0]
+        ms, plain_ms = min(runs["kernel"]), min(runs["plain"])
+        kind, copies = route(bins)
+        shapes[label] = dict(
+            shape=f"n={n} int64 ids, {bins} bins"
+            + (f", {diagonal} on the diagonal" if diagonal else ""),
+            route=kind, copies=copies, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound, bound_by="bytes",
+            share=bound / ms, max_abs_err=err, kernel_runs=runs["kernel"],
+            plain_runs=runs["plain"])
+        log(f"segment_sum {label} (n={n}, int64 ids, {kind} route, "
+            f"{copies} copies): kernel_ms={ms:.4f} (runs {runs['kernel']}) "
+            f"plain_ms={plain_ms:.4f} (runs {runs['plain']}; index_add_ "
+            f"alone {lib_ms:.4f}) bound_ms={bound:.4f} (12n bytes) share="
+            f"{bound / ms:.4f}; equal to index_add_ bit for bit")
+        del w, ids, got, want, valid, masked_ids, masked_w, out
+        torch.cuda.empty_cache()
+    return dict(shapes[SEGMENT_ROW], at_shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -4939,7 +5040,7 @@ def telemetry_smoke_on_card(dev, step0):
 
 # ---------------------------------------------------------------------------
 
-FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec")
+FEM_KERNELS = ("sfc_keys", "ksection_hist", "fem_matvec", "segment_sum")
 # ---------------------------------------------------------------------------
 # Phase 27: the production dry-run (launch/dryrun.py)
 # ---------------------------------------------------------------------------
@@ -5578,7 +5679,9 @@ REPLACES = {"sfc_keys": "src/repro/kernels/sfc_keys.py:88",
             "fem_matvec": "src/repro/kernels/fem_matvec.py:108",
             "prefix_scan": "src/repro/kernels/prefix_scan.py:47",
             "flash_attention": "src/repro/kernels/flash_attention.py:84",
-            "serve_prefill": "src/repro/kernels/serve_prefill.py:109"}
+            "serve_prefill": "src/repro/kernels/serve_prefill.py:109",
+            # the JAX package leaves the balancer's sums to XLA
+            "segment_sum": "none"}
 FAILED = []
 
 
@@ -5602,9 +5705,10 @@ def phase(name, fn, *args):
 
 
 def fem_kernel_rows(res, session, balanced, dev, points):
-    """Phases 3-5 of the FEM path: its kernels at the session's shapes,
-    the fixed-order segment sum's cost, the balance replay and the
-    standalone DLB step (whose inputs ``points`` receives)."""
+    """Phases 3-5b of the FEM path: its kernels at the session's shapes,
+    the fixed-order segment sum's cost, the balance replay, the
+    standalone DLB step (whose inputs ``points`` receives) and the
+    segment-sum kernel at the benchmark cells' shapes."""
     import torch
     from repro_torch.core.sfc import sfc_keys
     # keys and histogram at the shapes of the session's last
@@ -5622,6 +5726,7 @@ def fem_kernel_rows(res, session, balanced, dev, points):
     compare_sums(res.mesh, dev)
     replay_balance(res, session, dev)
     standalone_dlb(dev, keep=points)
+    rows["segment_sum"] = compare_segment_sum(dev)
     return rows
 
 
@@ -5674,8 +5779,8 @@ def main():
           small_session_agreement, dev)
     rows, points = {}, {}
     if fem is not None:
-        rows.update(phase("phases 3-5: FEM kernels, balance replay, "
-                          "standalone DLB", fem_kernel_rows, fem[0], fem[1],
+        rows.update(phase("phases 3-5b: FEM kernels, balance replay, "
+                          "standalone DLB, segment sums at the cells' n", fem_kernel_rows, fem[0], fem[1],
                           fem[3], dev, points) or {})
     legacy = None
     if points:
@@ -5969,7 +6074,9 @@ def main():
                       p: [r[name] for r in c] if isinstance(c, list)
                       else c[name] for p, c in paths.items()},
                   **({"at_head_dim_256": d256, **encdec}
-                     if name == "flash_attention" else {}))
+                     if name == "flash_attention" else {}),
+                  **({"at_shapes": rows[name]["at_shapes"]}
+                     if name == "segment_sum" else {}))
              for name in REPLACES]
     log(json.dumps({"kernels": table}))
     log(card)

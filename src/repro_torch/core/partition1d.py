@@ -65,7 +65,8 @@ def sorted_exact(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
     parts_sorted = prefix_sum_parts(weights[order], p, use_pallas=use_pallas)
     parts = torch.empty_like(parts_sorted)
     parts[order] = parts_sorted
-    part_weights = segment_sum_any_order(weights, parts, p)
+    part_weights = segment_sum_any_order(weights, parts, p,
+                                         use_pallas=use_pallas)
     ksorted = keys[order].to(torch.float32)
     # a_j = key of the first item assigned to parts >= j, or max_key + 1
     # when every item lies below part j (an empty part collapses onto the
@@ -246,7 +247,8 @@ def ksection(keys: torch.Tensor, weights: torch.Tensor, p: int, *,
     with tr.span("ksection/assign"):
         parts = torch.searchsorted(splitters.contiguous(), kf.contiguous(),
                                    right=True)
-        part_weights = segment_sum_any_order(w, parts, p)
+        part_weights = segment_sum_any_order(w, parts, p,
+                                             use_pallas=use_pallas)
     return Partition1DResult(parts, splitters, part_weights, rounds)
 
 

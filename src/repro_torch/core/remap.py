@@ -10,7 +10,7 @@ plane's "master gathers S, broadcasts the map") that ``remap`` runs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,15 +19,16 @@ from ..segment import segment_sum_any_order
 
 
 def similarity_matrix(old_parts: torch.Tensor, new_parts: torch.Tensor,
-                      weights: torch.Tensor, p_old: int, p_new: int
-                      ) -> torch.Tensor:
+                      weights: torch.Tensor, p_old: int, p_new: int, *,
+                      use_pallas: Optional[bool] = None) -> torch.Tensor:
     """S[i, j] = total weight of items moving old part i -> new part j.
 
     Items whose old part is out of range (the balancer's pad part
     ``p_old``) land outside the ``p_old * p_new`` segments and are
-    dropped."""
+    dropped.  ``use_pallas``: ``segment_sum_any_order``'s."""
     fused = old_parts.long() * p_new + new_parts.long()
-    flat = segment_sum_any_order(weights, fused, p_old * p_new)
+    flat = segment_sum_any_order(weights, fused, p_old * p_new,
+                                 use_pallas=use_pallas)
     return flat.reshape(p_old, p_new)
 
 

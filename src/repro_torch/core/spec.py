@@ -111,8 +111,8 @@ class BalanceSpec(Spec):
     min_capacity       sharded per-device capacity floor
     execute_migration  sharded: ship payloads with the all_to_all executor
     use_pallas         use the hand-written kernels (SFC keys, the
-                       k-section histogram): None = on CUDA tensors,
-                       False = plain versions, True = kernels
+                       k-section histogram, the segment sums): None = on
+                       CUDA tensors, False = plain versions, True = kernels
     warm_start         oneD='ksection': seed each repartition's boxes from
                        the previous call's splitters
     ksection_tol       stop the k-section search once every box is
@@ -306,7 +306,8 @@ def _remap_greedy_host(spec: BalanceSpec, old_parts, new_parts, weights):
     p = spec.p
     tr = telemetry.get_tracer()
     with tr.span("remap/similarity"):
-        S = similarity_matrix(old_parts, new_parts, weights, p, p)
+        S = similarity_matrix(old_parts, new_parts, weights, p, p,
+                              use_pallas=spec.use_pallas)
     # one span for the greedy loop's p rounds: a span a round would cost
     # more than it shows
     with tr.span("remap/greedy"):
@@ -322,8 +323,10 @@ def _migrate_metrics_host(spec: BalanceSpec, old_parts, new_parts, weights):
     w = torch.where(valid, weights, 0.0)
     moved = (old_parts != new_parts) & valid
     moved_w = torch.where(moved, w, 0.0)
-    outgoing = segment_sum_any_order(moved_w, old_parts, p)
-    incoming = segment_sum_any_order(moved_w, new_parts, p)
+    outgoing = segment_sum_any_order(moved_w, old_parts, p,
+                                     use_pallas=spec.use_pallas)
+    incoming = segment_sum_any_order(moved_w, new_parts, p,
+                                     use_pallas=spec.use_pallas)
     return {
         "total_v": moved_w.sum(),
         "max_v": torch.maximum(outgoing.max(), incoming.max()),
@@ -417,7 +420,8 @@ class Balancer:
             total_v, max_v, retained = (mv["total_v"], mv["max_v"],
                                         mv["retained"])
         with tr.span("balance/part_weights", allocator=dev):
-            pw = segment_sum_any_order(weights, new, p)
+            pw = segment_sum_any_order(weights, new, p,
+                                       use_pallas=spec.use_pallas)
             imbalance = _metrics.imbalance_of_part_weights(pw)
         return BalanceResult(parts=new, part_weights=pw,
                              imbalance=imbalance,

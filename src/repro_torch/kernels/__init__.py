@@ -22,6 +22,9 @@ Kernels (the TPU kernel each replaces is named in its source):
                  ring (csrc/attention_wgmma.cuh), float32 on CUDA cores
   serve_prefill  segment-masked causal attention over a packed buffer;
                  bf16 on the same wgmma body, float32 on CUDA cores
+  segment_sum    float32 sums by int32 / int64 ids in any order (no TPU
+                 kernel: the balancer's sums); bins kept per block in
+                 shared memory where they fit, global atomics where not
 
 ``build.py`` compiles ``csrc/*.cu`` with nvcc at first use on a CUDA
 tensor; nothing is built at import.

@@ -20,7 +20,7 @@ from typing import List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sfc_keys.cu", "ksection_hist.cu", "fem_matvec.cu",
            "prefix_scan.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
-           "serve_prefill.cu")
+           "serve_prefill.cu", "segment_sum.cu")
 HEADERS = ("attention_tile.cuh", "attention_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,6 +120,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_packed_attention_wgmma.argtypes = [p, p, p, p, p, i, i, i, i,
                                                  f, f, i, p]
     lib.repro_packed_attention_wgmma.restype = i
+    lib.repro_segment_sum.argtypes = [p, p, i, ll, i, i, p, p]
+    lib.repro_segment_sum.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

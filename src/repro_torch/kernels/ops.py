@@ -22,6 +22,7 @@ from .fem_matvec import build_element_plan, fem_matvec_cuda
 from .flash_attention import flash_attention_cuda
 from .ksection_hist import ksection_hist_cuda
 from .prefix_scan import exclusive_scan_cuda
+from .segment_sum import segment_sum_cuda
 from .serve_prefill import packed_attention_cuda
 from .sfc_keys import sfc_keys_cuda
 
@@ -29,7 +30,8 @@ from .sfc_keys import sfc_keys_cuda
 KERNELS = {"sfc_keys": sfc_keys_cuda, "ksection_hist": ksection_hist_cuda,
            "fem_matvec": fem_matvec_cuda, "prefix_scan": exclusive_scan_cuda,
            "flash_attention": flash_attention_cuda,
-           "serve_prefill": packed_attention_cuda}
+           "serve_prefill": packed_attention_cuda,
+           "segment_sum": segment_sum_cuda}
 
 
 def use_kernel(x: torch.Tensor, use_pallas: Optional[bool]) -> bool:

@@ -13,9 +13,10 @@ Two routes:
   plan's rows), the caller builds their order once (``fixed_order``) and
   passes it to every sum: building one sorts the ids and reads one
   number back to the host.
-* ``segment_sum_any_order`` -- ``index_add_`` everywhere, for sums that
-  are exact in any order: the balancer's, on the integer weights of the
-  adaptive loop.
+* ``segment_sum_any_order`` -- for sums that are exact in any order: the
+  balancer's, on the integer weights of the adaptive loop.  The
+  hand-written kernel (``kernels.segment_sum``) on CUDA tensors,
+  ``index_add_`` on CPU ones or with ``use_pallas=False``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 f"{order.num_segments} segments given for {ids.numel()} ids "
                 f"into {num_segments}")
         return order.sum(data)
-    return segment_sum_any_order(data, ids, num_segments)
+    return _index_add_sum(data, ids, num_segments)
 
 
 def fixed_order(ids: torch.Tensor,
@@ -64,11 +65,27 @@ def fixed_order(ids: torch.Tensor,
 
 
 def segment_sum_any_order(data: torch.Tensor, ids: torch.Tensor,
-                          num_segments: int) -> torch.Tensor:
-    """``segment_sum`` by ``index_add_``: on the card its atomics add in a
-    new order on every call, so only for sums exact in any order.
-    ``index_add_`` would raise on out-of-range ids, so they are masked to
-    a zero contribution."""
+                          num_segments: int, *,
+                          use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """``segment_sum`` in an order of additions that changes from call to
+    call on the card, so only for sums exact in any order.  The
+    hand-written kernel (``kernels.segment_sum.segment_sum_cuda``: (n,)
+    float32 data, int32 or int64 ids) on CUDA tensors, ``index_add_`` on
+    CPU ones or with ``use_pallas=False``; ``use_pallas`` has
+    ``kernels.ops.use_kernel``'s meaning (True on CPU tensors raises).
+    Out-of-range ids add nothing on either route."""
+    from .kernels import ops
+    if ops.use_kernel(data, use_pallas):
+        from .kernels.segment_sum import segment_sum_cuda
+        return segment_sum_cuda(data.contiguous(),
+                                ids.reshape(-1).contiguous(), num_segments)
+    return _index_add_sum(data, ids, num_segments)
+
+
+def _index_add_sum(data: torch.Tensor, ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """The plain segment sum: ``index_add_``, which would raise on
+    out-of-range ids, so they are masked to a zero contribution."""
     ids = ids.reshape(-1).long()
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     if num_segments == 0 or ids.numel() == 0:

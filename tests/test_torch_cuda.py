@@ -26,8 +26,13 @@ from repro_torch.kernels.flash_attention import (VARIANTS,
                                                  flash_attention_cuda)
 from repro_torch.kernels.ksection_hist import ksection_hist_cuda
 from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
+from repro_torch.kernels.segment_sum import SMEM_OPTIN
+from repro_torch.kernels.segment_sum import WARPS as SEGMENT_WARPS
+from repro_torch.kernels.segment_sum import route, segment_sum_cuda
 from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
+from repro_torch.segment import segment_sum_any_order
+from repro_torch import telemetry
 from repro_torch.telemetry import block_until_ready
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +83,150 @@ def test_ksection_hist_kernel_empty(cuda):
     assert ksection_hist_cuda(z, z, torch.ones(4, device=cuda)).tolist() == [0] * 4
     assert ksection_hist_cuda(torch.ones(4, device=cuda),
                               torch.ones(4, device=cuda), z).shape == (0,)
+
+
+# segment_sum: bit for bit index_add_ (the plain route on the card) on
+# integer float32 weights, whose bin totals stay below 2^24, on both
+# routes; random float weights within 1e-5 of each bin's sum of |w|
+# (float32 sums in another order differ by a few roundings of it).
+SEGMENT_BINS = (1, 255, 256, 1024, 8191, 65_536, 1_048_576)
+
+
+def _segment_case(n, num_segments, seed, id_dtype, device, integer=True):
+    """Weights and ids with a share outside the range: negative, equal to
+    ``num_segments`` (the balancer's pad part) and past it."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, num_segments, n)
+    out = rng.random(n) < 0.1
+    ids[out] = rng.choice([-1, -(1 << 40) if id_dtype == torch.int64 else -9,
+                           num_segments, num_segments + 1], int(out.sum()))
+    w = (rng.integers(0, 8, n) if integer else rng.standard_normal(n))
+    return (torch.as_tensor(w.astype(np.float32), device=device),
+            torch.as_tensor(ids, dtype=id_dtype, device=device))
+
+
+def _plain_sum(w, ids, num_segments):
+    return segment_sum_any_order(w, ids, num_segments, use_pallas=False)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [0, 1, 31, (1 << 20) + 3])
+@pytest.mark.parametrize("num_segments", SEGMENT_BINS)
+def test_segment_sum_kernel_equal_index_add(cuda, num_segments, n, id_dtype):
+    w, ids = _segment_case(n, num_segments, n + num_segments, id_dtype, cuda)
+    kind, _ = route(num_segments)
+    with telemetry.tracing() as tr:
+        got = segment_sum_any_order(w, ids, num_segments)
+    assert [e.name for e in tr.events] == [f"segment_sum/{kind}"] * (n > 0)
+    assert got.dtype == torch.float32 and got.shape == (num_segments,)
+    assert torch.equal(got, _plain_sum(w, ids, num_segments))
+
+
+def test_segment_sum_routes_on_the_card(cuda):
+    """The wrapper's shared-memory constant is the card's opt-in limit,
+    the table's bin counts take the routes it gives them, and the most
+    copies the wrapper asks for launch."""
+    props = torch.cuda.get_device_properties(cuda)
+    assert props.shared_memory_per_block_optin == SMEM_OPTIN
+    assert [route(b)[0] for b in SEGMENT_BINS] == \
+        ["shared"] * 5 + ["global"] * 2
+    assert route(1) == ("shared", SEGMENT_WARPS)
+    w = torch.ones(1000, device=cuda)
+    assert segment_sum_cuda(w, torch.zeros(1000, dtype=torch.int32,
+                                           device=cuda), 1).item() == 1000
+
+
+@pytest.mark.parametrize("fn", ["imbalance", "quality", "migration_volume"])
+def test_metrics_on_the_card_refuse_what_the_kernel_does_not_take(cuda, fn):
+    """On CUDA tensors the metrics sum through the kernel, which takes
+    (n,) float32 weights only: float64 and 2-D weights raise
+    (test_torch_segment_sum.py holds the CPU route summing them)."""
+    from repro_torch import core
+    parts = torch.arange(64, device=cuda) % 4
+    call = {"imbalance": lambda w: core.imbalance(parts, w, 4),
+            "quality": lambda w: core.quality(parts, w, 4),
+            "migration_volume": lambda w: core.migration_volume(
+                parts, parts.flip(0), w, 4)}[fn]
+    w = torch.ones(64, device=cuda)
+    call(w)
+    # migration_volume's torch.where(moved, weights, 0) never took 2-D
+    # weights, on either device
+    bad = [w.double()] + ([torch.ones(64, 2, device=cuda)]
+                          if fn != "migration_volume" else [])
+    for x in bad:
+        with pytest.raises(ValueError, match="data must be"):
+            call(x)
+
+
+@pytest.mark.parametrize("num_segments", [256, 65_536])
+def test_segment_sum_misaligned_slices(cuda, num_segments):
+    """A weight slice off 16 bytes with the ids whole (every item one at a
+    time) and with the ids sliced alike (a head, then groups of 4)."""
+    for id_dtype in (torch.int32, torch.int64):
+        w, ids = _segment_case(100_003, num_segments, 7, id_dtype, cuda)
+        for k in (1, 2, 3):
+            for wk, ik in ((w[k:], ids[:-k]), (w[k:], ids[k:])):
+                assert wk.data_ptr() % 16 != 0
+                assert torch.equal(segment_sum_any_order(wk, ik, num_segments),
+                                   _plain_sum(wk, ik, num_segments))
+
+
+@pytest.mark.parametrize("num_segments", [1, 256, 65_536])
+def test_segment_sum_one_bin_takes_every_item(cuda, num_segments):
+    """All ids in one bin: every add on one address (the worst conflict)."""
+    n = 3_000_001
+    w = torch.as_tensor(np.random.default_rng(8).integers(0, 4, n)
+                        .astype(np.float32), device=cuda)
+    for id_dtype in (torch.int32, torch.int64):
+        ids = torch.full((n,), num_segments - 1, dtype=id_dtype, device=cuda)
+        got = segment_sum_any_order(w, ids, num_segments)
+        assert torch.equal(got, _plain_sum(w, ids, num_segments))
+        assert float(got[-1]) == float(w.double().sum())
+
+
+@pytest.mark.parametrize("num_segments", [256, 1024, 65_536])
+def test_segment_sum_float_weights_close(cuda, num_segments):
+    w, ids = _segment_case(2_000_003, num_segments, 9, torch.int64, cuda,
+                           integer=False)
+    got = segment_sum_any_order(w, ids, num_segments)
+    want = _plain_sum(w.double(), ids, num_segments)
+    abs_sum = _plain_sum(w.double().abs(), ids, num_segments)
+    assert ((got.double() - want).abs() <= 1e-5 * abs_sum).all()
+
+
+def test_segment_sum_kernel_empty_and_counted(cuda):
+    z = torch.zeros(0, device=cuda)
+    zi = torch.zeros(0, dtype=torch.int64, device=cuda)
+    before = segment_sum_cuda.launches
+    assert segment_sum_cuda(z, zi, 4).tolist() == [0.0] * 4
+    assert segment_sum_cuda(torch.ones(3, device=cuda),
+                            torch.zeros(3, dtype=torch.int64, device=cuda),
+                            0).shape == (0,)
+    assert segment_sum_cuda.launches == before
+    segment_sum_cuda(torch.ones(3, device=cuda),
+                     torch.zeros(3, dtype=torch.int32, device=cuda), 2)
+    assert segment_sum_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("old", [False, True])
+def test_balance_runs_the_segment_sums_on_the_kernel(cuda, old):
+    """One balance: the k-section's part weights and the final ones; with
+    old parts also the similarity matrix (global route, p^2 bins) and the
+    migrate stage's two sums."""
+    rng = np.random.default_rng(10)
+    n, p = 200_000, 256
+    coords = rng.random((n, 3)).astype(np.float32)
+    w = rng.integers(1, 9, n).astype(np.float32)
+    olds = rng.integers(0, p, n) if old else None
+    bal = Balancer(BalanceSpec(p=p, oneD="ksection"), device=cuda)
+    ops.reset_launch_counts()
+    with telemetry.tracing() as tr:
+        bal.balance(w, coords=coords, old_parts=olds)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_sum"] == (5 if old else 2)
+    want = {"shared": 4 if old else 2, "global": 1 if old else 0}
+    names = [e.name for e in tr.events]
+    assert {k: names.count(f"segment_sum/{k}") for k in want} == want
 
 
 @pytest.mark.parametrize("C,V,n_out", [(100_000, 20_000, 19_999), (7, 5, 5),

@@ -26,6 +26,7 @@ from repro_torch.kernels.ksection_hist import ksection_hist_cuda
 from repro_torch.kernels.prefix_scan import exclusive_scan_cuda
 from repro_torch.kernels.serve_prefill import packed_attention_cuda
 from repro_torch.kernels.sfc_keys import sfc_keys_cuda
+from repro_torch.segment import segment_sum_any_order
 
 
 # --- sfc_keys --------------------------------------------------------------
@@ -439,9 +440,12 @@ def test_ops_on_cpu_run_plain_versions_with_no_launch():
         ops.flash_attention_op(q, kv, kv, use_pallas=use)
         ops.packed_attention_op(q[0], kv[0], kv[0], seg, use_pallas=use)
         ops.exclusive_scan_op(w, use_pallas=use)
+        segment_sum_any_order(w, torch.arange(w.numel()) % 12, 12,
+                              use_pallas=use)
     assert ops.launch_counts() == {"sfc_keys": 0, "ksection_hist": 0,
                                    "fem_matvec": 0, "prefix_scan": 0,
-                                   "flash_attention": 0, "serve_prefill": 0}
+                                   "flash_attention": 0, "serve_prefill": 0,
+                                   "segment_sum": 0}
 
 
 def test_use_pallas_true_on_cpu_raises():
